@@ -1,0 +1,34 @@
+"""Built-in engine registrations.
+
+* ``mis2``:        fn(graph, active, options) -> core Mis2Result
+* ``aggregation``: fn(graph, options, mis2_engine, min_secondary_neighbors)
+                   -> core AggregationResult
+"""
+from __future__ import annotations
+
+from ..core.aggregation import (
+    _aggregate_basic_impl,
+    _aggregate_serial_greedy_impl,
+    _aggregate_two_phase_impl,
+)
+from ..core.mis2 import _mis2_dense_impl, _mis2_resident_impl
+from .registry import register_engine
+
+register_engine("mis2", "dense")(_mis2_dense_impl)
+register_engine("mis2", "cuda_resident")(_mis2_resident_impl)
+
+
+@register_engine("aggregation", "basic")
+def _agg_basic(graph, options, mis2_engine, min_secondary_neighbors):
+    return _aggregate_basic_impl(graph, options, mis2_engine)
+
+
+@register_engine("aggregation", "two_phase")
+def _agg_two_phase(graph, options, mis2_engine, min_secondary_neighbors):
+    return _aggregate_two_phase_impl(graph, options, mis2_engine,
+                                     min_secondary_neighbors)
+
+
+@register_engine("aggregation", "serial")
+def _agg_serial(graph, options, mis2_engine, min_secondary_neighbors):
+    return _aggregate_serial_greedy_impl(graph)

@@ -1,0 +1,82 @@
+"""Result types of the facade, ported from ``repro.api.result``.
+
+Every facade call returns a :class:`Result`: the primary output as a host
+numpy ``payload``, the iteration count, convergence, the facade-measured
+wall time and a determinism digest of the payload.  The digest is
+byte-compatible with the JAX package's, so equal digests mean the port and
+the reference produced bit-identical output.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+
+import numpy as np
+
+
+def determinism_digest(arr: np.ndarray) -> str:
+    """Stable 16-hex digest over dtype, shape and raw bytes."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    h = hashlib.sha256()
+    h.update(str(arr.dtype).encode())
+    h.update(str(arr.shape).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()[:16]
+
+
+@dataclass
+class Result:
+    payload: np.ndarray
+    iterations: int = 0
+    converged: bool = True
+    wall_time_s: float = 0.0
+    digest: str = ""
+
+    def __post_init__(self):
+        self.payload = np.asarray(self.payload)
+        if not self.digest:
+            self.digest = determinism_digest(self.payload)
+
+
+@dataclass
+class Mis2Result(Result):
+    """Distance-2 MIS: ``payload`` is the bool membership mask.
+
+    ``host_syncs`` counts the device->host reads inside the fixed point:
+    the resident engine reads the live count once per round to decide
+    whether to go on, so a solve of ``R`` rounds that converges reports
+    ``R + 1``."""
+
+    engine: str = ""
+    host_syncs: int = 0
+
+    @property
+    def in_set(self) -> np.ndarray:
+        return self.payload
+
+    @property
+    def size(self) -> int:
+        return int(self.payload.sum())
+
+
+@dataclass
+class AggregationResult(Result):
+    """MIS-2 coarsening: ``payload`` is the int32 aggregate label per
+    vertex; ``iterations`` counts the MIS-2 rounds of every phase."""
+
+    num_aggregates: int = 0
+    roots: np.ndarray | None = None
+    phase: np.ndarray | None = None
+    engine: str = ""
+
+    @property
+    def labels(self) -> np.ndarray:
+        return self.payload
+
+    @property
+    def mis2_iterations(self) -> int:
+        return self.iterations
+
+    @property
+    def coarsening_ratio(self) -> float:
+        return len(self.payload) / max(1, self.num_aggregates)

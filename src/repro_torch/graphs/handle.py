@@ -1,0 +1,213 @@
+"""The ``Graph`` handle: one object, every structural format, computed once
+(PyTorch port of ``repro.graphs.handle``).
+
+The CSR form stays on the host as numpy; the ELL forms are built from it
+lazily, once, on the handle's device (``Graph.place``) and cached.
+``graph.conversions`` counts the times each conversion's work actually ran,
+so a second ``.ell`` access is visibly a cache hit.
+
+``Graph.digest`` hashes the CSR bytes exactly as the JAX package does
+(numpy dtype names, shapes, raw bytes), so a graph and its reference twin
+share a digest.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Any
+
+import numpy as np
+import torch
+
+from .csr import (
+    CSRGraph,
+    CSRMatrix,
+    ELLGraph,
+    ELLMatrix,
+    csr_to_ell_graph,
+    csr_to_ell_matrix,
+)
+
+# int32 neighbor id + bool mask byte per ELL slot
+ELL_BYTES_PER_SLOT = 5
+
+#: hard allocation cap for the monolithic padded-ELL formats (2 GiB)
+ELL_BYTE_LIMIT = 2 * 1024 ** 3
+
+
+class LayoutOverflowError(MemoryError):
+    """A monolithic padded-ELL materialization was refused *before*
+    allocation: the ``[V, max_degree]`` bytes estimate exceeds the limit."""
+
+    def __init__(self, estimate: int, limit: int, v: int, max_degree: int):
+        self.estimate = int(estimate)
+        self.limit = int(limit)
+        super().__init__(
+            f"padded ELL [{v} x {max_degree}] needs ~{estimate:,} bytes "
+            f"(> limit {limit:,}); the degree-aware hybrid layout is not "
+            f"ported yet. Raise repro_torch.graphs.handle.ELL_BYTE_LIMIT if "
+            f"the allocation is intentional.")
+
+
+def ell_bytes_estimate(num_rows: int, width: int) -> int:
+    """Bytes a monolithic padded-ELL graph would allocate."""
+    return int(num_rows) * int(width) * ELL_BYTES_PER_SLOT
+
+
+class Graph:
+    """Cached-format handle around one immutable graph (or square matrix).
+
+    ``Graph(csr_graph_or_matrix, device=...)``; the device defaults to
+    ``cuda``.  ``g.csr`` / ``g.csr_matrix`` are host numpy, ``g.ell`` /
+    ``g.ell_matrix`` are tensors on ``g.device``.
+    """
+
+    def __init__(self, structure, device: torch.device | str = "cuda"):
+        if isinstance(structure, Graph):
+            raise TypeError("Graph(Graph) — use the handle itself, or "
+                            "as_graph()")
+        if not isinstance(structure, (CSRGraph, CSRMatrix)):
+            raise TypeError(f"Graph() expects CSRGraph/CSRMatrix, got "
+                            f"{type(structure).__name__}")
+        self._device = torch.device(device)
+        self._cache: dict[str, Any] = {}
+        self._counts: dict[str, int] = {}
+        if isinstance(structure, CSRMatrix):
+            self._cache["csr_matrix"] = structure
+            self._cache["csr"] = structure.graph
+        else:
+            self._cache["csr"] = structure
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def from_reference(cls, indptr, indices, values=None,
+                       device: torch.device | str = "cuda") -> "Graph":
+        """A port graph from the JAX package's CSR arrays (as numpy): the
+        same structure, the same values and the same ``digest``."""
+        indptr = np.ascontiguousarray(np.asarray(indptr), dtype=np.int32)
+        indices = np.ascontiguousarray(np.asarray(indices), dtype=np.int32)
+        if values is None:
+            return cls(CSRGraph(indptr, indices), device)
+        values = np.ascontiguousarray(np.asarray(values), dtype=np.float32)
+        return cls(CSRMatrix(indptr, indices, values), device)
+
+    # -- device placement ---------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def place(self, device: torch.device | str) -> "Graph":
+        """Move the cached device formats to ``device`` (in place); later
+        conversions build there."""
+        device = torch.device(device)
+        if device != self._device:
+            for key in ("ell", "ell_matrix"):
+                if key in self._cache:
+                    self._cache[key] = type(self._cache[key])(
+                        *(x.to(device) for x in self._cache[key]))
+            self._device = device
+        return self
+
+    # -- cache plumbing -----------------------------------------------------
+
+    def _count(self, name: str) -> None:
+        self._counts[name] = self._counts.get(name, 0) + 1
+
+    @property
+    def conversions(self) -> dict[str, int]:
+        """Times each conversion's work actually ran (cache hits excluded)."""
+        return dict(self._counts)
+
+    # -- structural formats -------------------------------------------------
+
+    @property
+    def has_values(self) -> bool:
+        return "csr_matrix" in self._cache
+
+    @property
+    def csr(self) -> CSRGraph:
+        return self._cache["csr"]
+
+    @property
+    def csr_matrix(self) -> CSRMatrix:
+        if "csr_matrix" not in self._cache:
+            raise ValueError("this Graph carries structure only (no values)")
+        return self._cache["csr_matrix"]
+
+    @property
+    def ell(self) -> ELLGraph:
+        if "ell" not in self._cache:
+            self._check_ell_budget(self.num_vertices, self.max_degree)
+            self._cache["ell"] = csr_to_ell_graph(self.csr,
+                                                  device=self._device)
+            self._count("csr_to_ell")
+        return self._cache["ell"]
+
+    @property
+    def ell_matrix(self) -> ELLMatrix:
+        if "ell_matrix" not in self._cache:
+            csr_matrix = self.csr_matrix
+            self._check_ell_budget(self.num_vertices, self.max_degree)
+            self._cache["ell_matrix"] = csr_to_ell_matrix(
+                csr_matrix, device=self._device)
+            self._count("csr_to_ell_matrix")
+        return self._cache["ell_matrix"]
+
+    @staticmethod
+    def _check_ell_budget(num_rows: int, width: int) -> None:
+        """Refuse a padded-ELL materialization whose bytes estimate exceeds
+        ``ELL_BYTE_LIMIT`` before allocating anything."""
+        est = ell_bytes_estimate(num_rows, width)
+        if est > ELL_BYTE_LIMIT:
+            raise LayoutOverflowError(est, ELL_BYTE_LIMIT, num_rows, width)
+
+    @property
+    def digest(self) -> str:
+        """Content digest (16 hex chars) of the CSR structure plus values,
+        byte-compatible with ``repro.Graph.digest``."""
+        if "digest" not in self._cache:
+            h = hashlib.sha256()
+            arrays = [self.csr.indptr, self.csr.indices]
+            if self.has_values:
+                arrays.append(self.csr_matrix.values)
+            for arr in arrays:
+                a = np.asarray(arr)
+                h.update(str(a.dtype).encode())
+                h.update(str(a.shape).encode())
+                h.update(a.tobytes())
+            self._cache["digest"] = h.hexdigest()[:16]
+            self._count("digest")
+        return self._cache["digest"]
+
+    # -- stats --------------------------------------------------------------
+
+    @property
+    def num_vertices(self) -> int:
+        return self.csr.num_vertices
+
+    @property
+    def num_entries(self) -> int:
+        return self.csr.num_entries
+
+    @property
+    def degrees(self) -> np.ndarray:
+        if "degrees" not in self._cache:
+            self._cache["degrees"] = np.diff(self.csr.indptr)
+            self._count("degrees")
+        return self._cache["degrees"]
+
+    @property
+    def max_degree(self) -> int:
+        d = self.degrees
+        return int(d.max()) if len(d) else 0
+
+    def __repr__(self) -> str:
+        fmts = ",".join(sorted(self._cache))
+        return (f"Graph(V={self.num_vertices}, E={self.num_entries}, "
+                f"device={self._device}, cached=[{fmts}])")
+
+
+def as_graph(obj, device: torch.device | str = "cuda") -> Graph:
+    """Coerce a CSR container (or handle) to a Graph handle."""
+    return obj if isinstance(obj, Graph) else Graph(obj, device)

@@ -1,0 +1,62 @@
+// Status-tuple packing and the §V-A priority hash, as device functions.
+//
+// Port of repro/core/hashing.py and repro/core/tuples.py (and of the
+// Pallas kernel repro/kernels/hash_priority/kernel.py:hash_pack_pallas,
+// whose math the fused MIS-2 kernels inline).  The TPU emulated the
+// 64-bit words on uint32 limb pairs; Hopper has native 64-bit integers.
+#pragma once
+
+#include <cstdint>
+
+namespace repro_torch {
+
+constexpr uint32_t kIn = 0u;
+constexpr uint32_t kOut = 0xFFFFFFFFu;
+
+// priority kinds, as PRIORITY_CODES in core/hashing.py
+constexpr int kXorshiftStar = 0;
+constexpr int kXorshift = 1;
+constexpr int kFixed = 2;
+
+__device__ __forceinline__ uint64_t xorshift64(uint64_t x) {
+  x ^= x << 13;
+  x ^= x >> 7;
+  x ^= x << 17;
+  return x;
+}
+
+__device__ __forceinline__ uint64_t xorshift64_star(uint64_t x) {
+  x ^= x >> 12;
+  x ^= x << 25;
+  x ^= x >> 27;
+  return x * 0x2545F4914F6CDD1DULL;
+}
+
+// h(it, v) = f(f(it + 1) ^ f(v + 1)), high 32 bits
+__device__ __forceinline__ uint32_t priority_hash(int kind, uint32_t it,
+                                                  uint32_t v) {
+  const uint64_t a = static_cast<uint32_t>((kind == kFixed ? 0u : it) + 1u);
+  const uint64_t x = static_cast<uint32_t>(v + 1u);
+  const uint64_t h = kind == kXorshift
+      ? xorshift64(xorshift64(a) ^ xorshift64(x))
+      : xorshift64_star(xorshift64_star(a) ^ xorshift64_star(x));
+  return static_cast<uint32_t>(h >> 32);
+}
+
+// (priority' << b) | (id + 1), priority' = the high 32 - b hash bits; b < 32
+__device__ __forceinline__ uint32_t pack_tuple(uint32_t priority, uint32_t v,
+                                               int b) {
+  return ((priority >> b) << b) | (v + 1u);
+}
+
+__device__ __forceinline__ bool is_undecided(uint32_t t) {
+  return t != kIn && t != kOut;
+}
+
+// the §V-A row refresh: an undecided tuple takes this round's priority
+__device__ __forceinline__ uint32_t refresh(uint32_t t, uint32_t v, int kind,
+                                            uint32_t it, int b) {
+  return is_undecided(t) ? pack_tuple(priority_hash(kind, it, v), v, b) : t;
+}
+
+}  // namespace repro_torch

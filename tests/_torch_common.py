@@ -1,0 +1,57 @@
+"""Shared helpers of the ``tests/test_torch_*.py`` files that compare the
+port with the JAX package: the CPU backend and reference runs cached per
+graph."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+import repro
+from repro.graphs import generators as ref_gen
+from repro_torch import Backend, Graph
+from repro_torch.graphs import generators as port_gen
+
+CPU = Backend(device="cpu")
+
+#: small graphs of the parity matrix: name -> generator call
+GRAPHS = {
+    "laplace3d(8)": ("laplace3d", (8,), {}),
+    "laplace3d(12)": ("laplace3d", (12,), {}),
+    "elasticity3d(4)": ("elasticity3d", (4,), {}),
+    "uniform(2000,6)": ("random_uniform_graph", (2000, 6.0), {"seed": 7}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def ref_graph(name: str):
+    fn, args, kw = GRAPHS[name]
+    return repro.Graph(getattr(ref_gen, fn)(*args, **kw))
+
+
+def port_graph(name: str, device="cpu") -> Graph:
+    fn, args, kw = GRAPHS[name]
+    return Graph(getattr(port_gen, fn)(*args, **kw), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def ref_mis2(name: str, priority: str = "xorshift_star", max_iters: int = 128,
+             active_seed: int | None = None):
+    opts = repro.Mis2Options(priority=priority, max_iters=max_iters)
+    g = ref_graph(name)
+    return repro.mis2(g, active=active_mask(name, active_seed), options=opts,
+                      engine="compacted_resident")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_coarsen(name: str, method: str, min_secondary: int = 2):
+    kw = {} if method == "serial" else {"mis2_engine": "compacted_resident"}
+    return repro.coarsen(ref_graph(name), method=method,
+                         min_secondary_neighbors=min_secondary, **kw)
+
+
+def active_mask(name: str, seed: int | None):
+    if seed is None:
+        return None
+    v = ref_graph(name).num_vertices
+    return np.random.default_rng(seed).random(v) < 0.7

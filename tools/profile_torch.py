@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes, on one GPU.
+
+    python3 tools/profile_torch.py [--graphs Laplace3D_100 Elasticity3D_60]
+
+For each graph: one warm ``repro_torch.mis2`` and one warm
+``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
+(ending in ``torch.cuda.synchronize()``) and then traced once with
+``torch.profiler`` (CPU + CUDA).  Prints one JSON line per call with the
+device time by kernel name (top entries), the summed device time, the
+unprofiled wall time and the device's idle share of it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+GRAPHS = {"Laplace3D_100": ("laplace3d", 100),
+          "Elasticity3D_60": ("elasticity3d", 60)}
+
+
+def _wall_ms(torch, call, reps: int = 5) -> list[float]:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _device_us(e) -> float:
+    """Device time of a device-side event (a kernel or a copy); 0 for the
+    host-side operator that launched it, whose device time would count the
+    same kernels twice."""
+    from torch.autograd import DeviceType
+
+    if e.device_type != DeviceType.CUDA:
+        return 0.0
+    return float(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_call(torch, call, top: int = 10) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = sorted(_wall_ms(torch, call))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, _device_us(e), e.count)
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows) / 1e3
+    wall_ms = walls[len(walls) // 2]
+    return {"wall_ms": walls, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms if rows else None,
+            "kernels": [{"name": k[:96], "device_ms": us / 1e3, "count": n}
+                        for k, us, n in rows[:top]]}
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--graphs", nargs="+", default=list(GRAPHS),
+                    choices=list(GRAPHS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch as rt
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi}), flush=True)
+    for label in args.graphs:
+        kind, n = GRAPHS[label]
+        g = rt.Graph(getattr(rt.graphs, kind)(n))
+        calls = {"mis2": lambda: rt.mis2(g),
+                 "coarsen": lambda: rt.coarsen(g, method="two_phase")}
+        for what, call in calls.items():
+            call()                                  # warm-up: ELL, kernels
+            rec = {"graph": label, "call": what, **profile_call(torch, call)}
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
