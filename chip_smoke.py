@@ -6,24 +6,38 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   ``sm_90a``) and print the build time;
-3. hold each kernel against its plain-torch twin on the card at the
-   Laplace3D_100 and Elasticity3D_60 shapes: random T/M/active, a worklist
-   with a live count below V, sentinel slots and real rows past the count,
-   all three priorities; ``torch.equal`` on the whole state after the
-   in-place write;
-4. the main path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, all started together, ``sm_90a``) and print the build time;
+3. hold each kernel against its plain-torch twin on the card: the fused
+   MIS-2 passes at the Laplace3D_100 and Elasticity3D_60 shapes (random
+   state, sentinel and dead worklist slots, all three priorities); the ELL
+   SpMV on both matrices and the hash-pack at V = 1M for three rounds, two
+   launches each, all bitwise;
+4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
-   Elasticity3D_60, asserting the reference's digests, sizes and iteration
-   counts, the ``cuda_resident`` engine, one launch of each kernel per
-   MIS-2 round, and the ``dense`` engine's equal digest on the card;
-5. time each kernel (CUDA events, cold L2, state restored between launches)
-   and its twin at the main path's round-0 shapes beside the bytes bound,
-   and the end-to-end ``mis2`` / ``coarsen`` wall times.
+   Elasticity3D_60 against the reference's digests, one launch of each
+   fused kernel per MIS-2 round, the ``dense`` engine's equal digest;
+5. the AMG path on Laplace3D_100: ``amg_setup`` (host engine, two-phase
+   aggregation) with explicit R and matrix-free, level sizes and digests
+   against the reference's, AMG-preconditioned CG (tol 1e-6, float32
+   coarse LU on the card) within one iteration of the reference, and the
+   SpMV / transposed-SpMV launches one V-cycle issues times the cycles; the
+   transposed SpMV on level 0's P then against its twin and against the
+   SpMV of the explicit R, bitwise;
+6. the cluster-GS path: ``cluster_gs_setup`` on Elasticity3D_60 and
+   Laplace3D_100 (labels and coarse-coloring digests against the
+   reference's), GS-preconditioned CG on Laplace3D_100 within one
+   iteration of the reference, ``color(laplace3d(8))``, and one hash-pack
+   launch per Luby round;
+7. time each kernel (CUDA events, L2 flushed before each launch), its twin
+   and, where one exists, the PyTorch library call computing the same
+   function, beside the bytes bound; the end-to-end wall times of
+   ``mis2`` / ``coarsen``, of the setup phases, of one V-cycle, one GS
+   apply and each CG solve.
 
-Prints JSON lines, the kernel table, the ``nvidia-smi`` line, and as its
-last line ``{"ok": true, "device": {...}}``.
+The launch counts of each path are set to 0 just before it and read just
+after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
+and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -31,11 +45,13 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+FP32_FLOP_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 
 # the reference's anchors (the JAX package, compacted_resident engine)
 ANCHORS = {
@@ -52,11 +68,41 @@ ANCHORS = {
                             coarsen=(9_434, 20, "aa49f95af32b7e4f")),
 }
 PAPER_GRAPHS = ("Laplace3D_100", "Elasticity3D_60")
-KERNELS = {
-    "fused_refresh_columns": "src/repro/kernels/minprop_ell/kernel.py:216",
-    "fused_decide": "src/repro/kernels/minprop_ell/kernel.py:254",
+
+# the reference's host multilevel engine on Laplace3D_100 (JAX on CPU):
+# amg_setup(engine="host", aggregation="two_phase"), level (n, nnz) and A_l
+# digests, and CG iterations with b = default_rng(0).standard_normal(V),
+# tol 1e-6, float32 coarse LU (both restriction modes)
+AMG_L100 = dict(
+    levels=[(1_000_000, 6_940_000), (147_865, 5_123_153), (4_241, 342_205),
+            (59, 2_281)],
+    digests=["1c4f4f7368dbb198", "e670e5232c038a8b", "3b48321836b33e6b",
+             "8815a1a409a1ae65"],
+    cg_iterations=14)
+# cluster_gs_setup(engine="host"): clusters, labels digest, coarse colors
+# and their digest; on Laplace3D_100 also GS-preconditioned CG iterations
+CLUSTER_GS = {
+    "Elasticity3D_60": dict(clusters=9_434, digest="aa49f95af32b7e4f",
+                            colors=13, colors_digest="a569e43161f155f3"),
+    "Laplace3D_100": dict(clusters=147_865, digest="e11aa9fbaab77f88",
+                          colors=10, colors_digest="14544e81b327e426",
+                          cg_iterations=115),
 }
-SOURCE = "src/repro_torch/kernels/csrc/minprop_ell.cu"
+COLOR_L8 = (5, "3f45a9cfe50afa1e")
+CG_TOL = 1e-6
+
+KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
+    "fused_refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:216",
+                              "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "fused_decide": ("src/repro/kernels/minprop_ell/kernel.py:254",
+                     "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "spmv": ("src/repro/kernels/spmv_ell/kernel.py:38",
+             "src/repro_torch/kernels/csrc/spmv_ell.cu"),
+    "spmv_t": ("src/repro/kernels/spmv_ell/kernel.py:85",
+               "src/repro_torch/kernels/csrc/spmv_ell.cu"),
+    "hash_pack": ("src/repro/kernels/hash_priority/kernel.py:31",
+                  "src/repro_torch/kernels/csrc/hash_pack.cu"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -72,6 +118,23 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class Launches:
+    """The wrappers' launch counters, read as one dict."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self) -> None:
+        for m in self.modules:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        out = {}
+        for m in self.modules:
+            out.update(m.LAUNCHES)
+        return out
+
+
 def main() -> int:
     import torch
 
@@ -84,7 +147,18 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.core.tuples import id_bits
     from repro_torch.kernels import _build
+    from repro_torch.kernels.hash_priority import ops as hash_ops
+    from repro_torch.kernels.hash_priority import ref as hash_ref
     from repro_torch.kernels.minprop_ell import ops, ref
+    from repro_torch.kernels.spmv_ell import ops as spmv_ops
+    from repro_torch.kernels.spmv_ell import ref as spmv_ref
+
+    launches = Launches(ops, spmv_ops, hash_ops)
+    path_launches = {k: 0 for k in KERNELS}
+
+    def add_path(counts: dict) -> None:
+        for k, n in counts.items():
+            path_launches[k] += n
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -127,7 +201,7 @@ def main() -> int:
 
     # -- 3. kernels against their twins ------------------------------------------
     rng = np.random.default_rng(20221)
-    errs = {k: 0 for k in KERNELS}
+    errs = {k: 0.0 for k in KERNELS}
     checks = 0
     for label in PAPER_GRAPHS:
         ell = graphs[label].ell
@@ -159,7 +233,7 @@ def main() -> int:
                   f"({label}, {priority})")
             check(not torch.equal(mk, m), "fused_refresh_columns wrote nothing")
             errs["fused_refresh_columns"] = max(
-                errs["fused_refresh_columns"], _max_abs_err(mk, mr))
+                errs["fused_refresh_columns"], _max_abs_err_u32(mk, mr))
             tk, tr = t.clone(), t.clone()
             ops.fused_decide(tk, mk, active, nbrs_flat, wl, cnt, it, **kw)
             ref.fused_decide_ref(tr, mk, active, nbrs_flat, wl, cnt, it, **kw)
@@ -168,20 +242,43 @@ def main() -> int:
                   f"({label}, {priority})")
             check(not torch.equal(tk, t), "fused_decide wrote nothing")
             errs["fused_decide"] = max(errs["fused_decide"],
-                                       _max_abs_err(tk, tr))
+                                       _max_abs_err_u32(tk, tr))
             checks += 2
+        # the ELL SpMV on the graph's matrix: two launches, twin, bitwise
+        a_ell = graphs[label].ell_matrix
+        x = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
+        y1 = spmv_ops.spmv(a_ell.cols, a_ell.vals, x)
+        y2 = spmv_ops.spmv(a_ell.cols, a_ell.vals, x)
+        yr = spmv_ref.spmv_ref(a_ell.cols, a_ell.vals, x)
+        torch.cuda.synchronize()
+        check(_bits_equal(y1, y2), f"spmv not run-to-run equal ({label})")
+        check(_bits_equal(y1, yr), f"spmv != twin ({label})")
+        check(bool(torch.isfinite(y1).all()), f"spmv not finite ({label})")
+        errs["spmv"] = max(errs["spmv"], _max_abs_err(y1, yr))
+        checks += 1
+    vids = torch.arange(1_000_000, dtype=torch.int32, device=dev)
+    for rnd in range(3):
+        itd = torch.tensor([rnd], dtype=torch.int32, device=dev)
+        h1 = hash_ops.hash_pack(vids, itd, id_bits(1_000_000))
+        h2 = hash_ops.hash_pack(vids, itd, id_bits(1_000_000))
+        hr = hash_ref.hash_pack_ref(vids, itd, id_bits(1_000_000))
+        torch.cuda.synchronize()
+        check(torch.equal(h1, h2) and torch.equal(h1, hr),
+              f"hash_pack != twin or not run-to-run equal (round {rnd})")
+        errs["hash_pack"] = max(errs["hash_pack"], _max_abs_err_u32(h1, hr))
+        checks += 1
     emit({"phase": "kernels_vs_twins", "checks": checks, "max_abs_err": errs})
 
-    # -- 4. the main path ---------------------------------------------------------
-    ops.reset_launches()
+    # -- 4. the MIS-2 path -----------------------------------------------------
+    launches.reset()
     main_path = {}
     for label, a in ANCHORS.items():
         g = graphs[label]
-        before = dict(ops.LAUNCHES)
+        before = launches.read()
         r = rt.mis2(g)
-        after_mis2 = dict(ops.LAUNCHES)
+        after_mis2 = launches.read()
         agg = rt.coarsen(g, method="two_phase")
-        after_coarsen = dict(ops.LAUNCHES)
+        after_coarsen = launches.read()
         size, iters, digest = a["mis2"]
         check(r.engine == "cuda_resident", f"{label}: engine {r.engine}")
         check((r.size, r.iterations, r.digest) == (size, iters, digest),
@@ -196,7 +293,7 @@ def main() -> int:
               f"{label}: coarsen MIS-2 iterations {agg.iterations} != "
               f"{agg_iters}")
         check(agg.engine == "cuda_resident", f"{label}: {agg.engine}")
-        for k in KERNELS:
+        for k in ("fused_refresh_columns", "fused_decide"):
             check(after_mis2[k] - before[k] == r.iterations,
                   f"{label}: {k} launched {after_mis2[k] - before[k]} times "
                   f"in {r.iterations} rounds")
@@ -211,20 +308,147 @@ def main() -> int:
                         "mis2_iterations": agg.iterations,
                         "digest": agg.digest, "first_call_s": agg.wall_time_s},
         }
-    launches = dict(ops.LAUNCHES)
-    for k in KERNELS:
-        check(launches[k] > 0, f"{k} was never launched on the main path")
+    counts = launches.read()
+    add_path(counts)
+    for k in ("fused_refresh_columns", "fused_decide"):
+        check(counts[k] > 0, f"{k} was never launched on the MIS-2 path")
     for label in ANCHORS:
         rd = rt.mis2(graphs[label], engine="dense")
         check(rd.digest == ANCHORS[label]["mis2"][2],
               f"{label}: dense digest {rd.digest}")
         main_path[label]["dense_digest"] = rd.digest
-    emit({"phase": "main_path", "launches": launches, "graphs": main_path})
+    emit({"phase": "mis2_path", "launches": counts, "graphs": main_path})
 
-    # -- 5. timing ------------------------------------------------------------------
+    # -- 5. the AMG path on Laplace3D_100 -------------------------------------
+    l100 = graphs["Laplace3D_100"]
+    a100 = l100.ell_matrix
+    b100 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        l100.num_vertices).astype(np.float32)).to(dev)
+
+    def matvec(x):
+        return rt.graphs.ops.spmv_ell(a100, x)
+
+    launches.reset()
+    amg = {}
+    for explicit in (True, False):
+        before = launches.read()
+        s = rt.amg_setup(l100, aggregation="two_phase",
+                         explicit_restriction=explicit)
+        mid = launches.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.solvers.cg(matvec, b100, precond=s.as_precond(), tol=CG_TOL)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        after = launches.read()
+        key = "R" if explicit else "matrix_free"
+        check(s.engine == "host" and s.hierarchy.coarse_dtype == "float32"
+              and s.hierarchy.coarse_kind == "lu",
+              f"AMG {key}: {s.engine} {s.hierarchy.coarse_dtype}")
+        check(s.level_sizes == AMG_L100["levels"],
+              f"AMG {key}: levels {s.level_sizes}")
+        check(s.level_digests == AMG_L100["digests"],
+              f"AMG {key}: digests {s.level_digests}")
+        check(res.converged, f"AMG {key}: CG did not converge")
+        check(abs(res.iterations - AMG_L100["cg_iterations"]) <= 1,
+              f"AMG {key}: CG {res.iterations} iterations, reference "
+              f"{AMG_L100['cg_iterations']}")
+        check(bool(np.isfinite(res.x).all()), f"AMG {key}: x not finite")
+        n_coarse = len(AMG_L100["levels"]) - 1
+        cycles = res.iterations + 1
+        want_spmv = cycles * (1 + n_coarse * (7 if explicit else 6))
+        want_spmv_t = 0 if explicit else cycles * n_coarse
+        got_spmv = after["spmv"] - mid["spmv"]
+        got_spmv_t = after["spmv_t"] - mid["spmv_t"]
+        check((got_spmv, got_spmv_t) == (want_spmv, want_spmv_t),
+              f"AMG {key}: spmv/spmv_t launched {(got_spmv, got_spmv_t)}, "
+              f"one V-cycle x {cycles} cycles gives "
+              f"{(want_spmv, want_spmv_t)}")
+        check(mid["fused_decide"] - before["fused_decide"] > 0,
+              f"AMG {key}: aggregation launched no MIS-2 kernel")
+        amg[key] = {"levels": s.level_sizes, "digests": s.level_digests,
+                    "setup_s": s.wall_time_s, "timings": s.timings,
+                    "cg_iterations": res.iterations,
+                    "residual": res.residual_norm, "solve_s": solve_s,
+                    "spmv": got_spmv, "spmv_t": got_spmv_t, "setup": s}
+    counts = launches.read()
+    add_path(counts)
+    emit({"phase": "amg_path", "launches": counts,
+          **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
+             for k, v in amg.items()}})
+    # level 0's P: the transposed SpMV against its twin and the explicit R
+    lv0_free = amg["matrix_free"]["setup"].hierarchy.levels[0]
+    lv0 = amg["R"]["setup"].hierarchy.levels[0]
+    p0, t0p, r0 = lv0_free.p_ell, lv0_free.p_t, lv0.r_ell
+    xr = torch.from_numpy(rng.standard_normal(p0.num_rows).astype(
+        np.float32)).to(dev)
+    z1 = spmv_ops.spmv_t(p0.vals, t0p, xr)
+    z2 = spmv_ops.spmv_t(p0.vals, t0p, xr)
+    zt = spmv_ref.spmv_t_ref(p0.vals, t0p.perm, t0p.offsets, xr, t0p.max_len)
+    zr = spmv_ops.spmv(r0.cols, r0.vals, xr)
+    torch.cuda.synchronize()
+    check(_bits_equal(z1, z2), "spmv_t not run-to-run equal")
+    check(_bits_equal(z1, zt), "spmv_t != twin")
+    check(_bits_equal(z1, zr), "spmv_t(P) != spmv(R)")
+    errs["spmv_t"] = _max_abs_err(z1, zt)
+    emit({"phase": "spmv_t_vs_twin", "P": list(p0.cols.shape),
+          "num_out": t0p.num_out, "nnz": int(t0p.perm.numel()),
+          "max_len": t0p.max_len, "bitwise": True})
+
+    # -- 6. the cluster-GS path -------------------------------------------------
+    launches.reset()
+    gs = {}
+    for label, want in CLUSTER_GS.items():
+        before = launches.read()
+        c = rt.cluster_gs_setup(graphs[label], aggregation="two_phase")
+        after = launches.read()
+        got = dict(clusters=c.num_clusters, digest=c.digest,
+                   colors=c.num_colors, colors_digest=c.colors_digest)
+        check(all(got[k] == want[k] for k in got),
+              f"{label}: cluster GS {got} != {want}")
+        check(after["hash_pack"] - before["hash_pack"] == c.color_rounds,
+              f"{label}: hash_pack launched "
+              f"{after['hash_pack'] - before['hash_pack']} times in "
+              f"{c.color_rounds} Luby rounds")
+        gs[label] = {**got, "color_rounds": c.color_rounds,
+                     "setup_s": c.wall_time_s, "timings": c.timings,
+                     "steps": c.preconditioner.num_steps, "setup": c}
+    pre100 = gs["Laplace3D_100"]["setup"]
+    before = launches.read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.solvers.cg(matvec, b100, precond=pre100.as_precond(), tol=CG_TOL)
+    torch.cuda.synchronize()
+    gs_solve_s = time.perf_counter() - t0
+    after = launches.read()
+    want_it = CLUSTER_GS["Laplace3D_100"]["cg_iterations"]
+    check(res.converged and abs(res.iterations - want_it) <= 1,
+          f"cluster GS CG: {res.iterations} iterations (reference "
+          f"{want_it}), converged={res.converged}")
+    check(after["spmv"] - before["spmv"] == res.iterations + 1,
+          "cluster GS CG: one spmv per iteration expected")
+    c8 = rt.color(graphs["laplace3d(8)"])
+    check((c8.num_colors, c8.digest) == COLOR_L8,
+          f"color(laplace3d(8)): {(c8.num_colors, c8.digest)}")
+    counts = launches.read()
+    add_path(counts)
+    check(counts["hash_pack"] > 0, "hash_pack never launched")
+    emit({"phase": "cluster_gs_path", "launches": counts,
+          "cg": {"iterations": res.iterations,
+                 "residual": res.residual_norm, "solve_s": gs_solve_s},
+          "color_laplace3d(8)": {"colors": c8.num_colors,
+                                 "digest": c8.digest, "rounds": c8.rounds},
+          **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
+             for k, v in gs.items()}})
+    for k in KERNELS:
+        check(path_launches[k] > 0, f"{k} was never launched on a path")
+
+    # -- 7. timing ------------------------------------------------------------------
     timing = {}
     for label in PAPER_GRAPHS:
         timing[label] = _time_kernels(torch, graphs[label], ops, ref, id_bits)
+        timing[label]["spmv"] = _time_spmv(torch, graphs[label].ell_matrix,
+                                           spmv_ops, spmv_ref, rng)
         e2e = {}
         for what, call in (("mis2", lambda g=graphs[label]: rt.mis2(g)),
                            ("coarsen", lambda g=graphs[label]: rt.coarsen(
@@ -241,19 +465,47 @@ def main() -> int:
                 e2e[what]["host_syncs"] = res.host_syncs
         timing[label]["end_to_end"] = e2e
         emit({"phase": "timing", "graph": label, **timing[label]})
+    spmv_t_time = _time_spmv_t(torch, lv0_free, r0, spmv_ops, spmv_ref, rng)
+    hash_time = _time_hash_pack(torch, vids, hash_ops, hash_ref, id_bits)
+    solve = {
+        "v_cycle_ms": {k: _wall_ms(torch, lambda s=amg[k]["setup"]:
+                                   s.as_precond()(b100))
+                       for k in amg},
+        "gs_apply_ms": _wall_ms(torch, lambda: pre100.as_precond()(b100)),
+        "cg_amg_s": {k: amg[k]["solve_s"] for k in amg},
+        "cg_cluster_gs_s": gs_solve_s,
+        "amg_setup_s": {k: amg[k]["setup_s"] for k in amg},
+        "amg_setup_phases_s": {k: amg[k]["timings"] for k in amg},
+        "cluster_gs_setup_s": {k: gs[k]["setup_s"] for k in gs},
+        "cluster_gs_setup_phases_s": {k: gs[k]["timings"] for k in gs},
+    }
+    emit({"phase": "timing_solve", "spmv_t": spmv_t_time,
+          "hash_pack": hash_time, **solve})
 
+    main_shape = {
+        "fused_refresh_columns": ("Elasticity3D_60 round 0",
+                                  timing["Elasticity3D_60"]
+                                  ["fused_refresh_columns"]),
+        "fused_decide": ("Elasticity3D_60 round 0",
+                         timing["Elasticity3D_60"]["fused_decide"]),
+        "spmv": ("Laplace3D_100 A [1M, 7]", timing["Laplace3D_100"]["spmv"]),
+        "spmv_t": ("Laplace3D_100 level-0 P", spmv_t_time),
+        "hash_pack": ("V = 1M", hash_time),
+    }
     kernels_line = []
-    for k in KERNELS:
-        main = timing["Elasticity3D_60"][k]
-        kernels_line.append({
-            "name": k, "route": "cuda", "source": SOURCE,
-            "replaces": KERNELS[k], "launches": launches[k],
+    for k, (replaces, source) in KERNELS.items():
+        shape, main = main_shape[k]
+        entry = {
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path_launches[k],
             "max_abs_err": errs[k], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
-            "shape": "Elasticity3D_60 round 0",
-            "by_graph": {g: timing[g][k] for g in PAPER_GRAPHS},
-        })
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": shape,
+        }
+        if k in ("fused_refresh_columns", "fused_decide", "spmv"):
+            entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
+        kernels_line.append(entry)
     emit({"kernels": kernels_line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -261,7 +513,17 @@ def main() -> int:
     return 0
 
 
-def _max_abs_err(a, b) -> int:
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _max_abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max().item())
+
+
+def _max_abs_err_u32(a, b) -> int:
     import torch
 
     wa = a.to(torch.int64) & 0xFFFFFFFF
@@ -269,12 +531,123 @@ def _max_abs_err(a, b) -> int:
     return int((wa - wb).abs().max().item())
 
 
+def _wall_ms(torch, call, reps: int = 3) -> list[float]:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _event_ms(torch, fn, n: int, restore=None) -> float:
+    """Median of ``n`` launches of ``fn``, each alone between CUDA events,
+    after ``restore()`` and an L2 flush (a 256 MB write)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
+    evs = []
+    for _ in range(n):
+        if restore is not None:
+            restore()
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    times = sorted(e0.elapsed_time(e1) for e0, e1 in evs)
+    return times[len(times) // 2]
+
+
+def _timed(torch, kernel, twin, library, nbytes: int, flops: int = 0,
+           restore=None, reps: int = 50, plain_reps: int = 5) -> dict:
+    _event_ms(torch, kernel, 3, restore)             # warm-up
+    ms = _event_ms(torch, kernel, reps, restore)
+    plain_ms = _event_ms(torch, twin, plain_reps, restore)
+    library_ms = None
+    if library is not None:
+        _event_ms(torch, library, 3)
+        library_ms = _event_ms(torch, library, reps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "bound_share": bound_ms / ms}
+
+
+def _csr_of(torch, cols, vals, mask, num_cols: int):
+    """The same matrix as a torch CSR tensor (the library call's input)."""
+    rows = mask.sum(dim=1)
+    crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64,
+                       device=cols.device)
+    crow[1:] = torch.cumsum(rows, 0)
+    with warnings.catch_warnings():          # the "beta" notice
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            crow, cols[mask].to(torch.int64), vals[mask],
+            (cols.shape[0], num_cols), check_invariants=False)
+
+
+def _time_spmv(torch, a_ell, spmv_ops, spmv_ref, rng) -> dict:
+    """``y = A x`` on the graph's matrix: cols + vals read once, x once at
+    the distinct columns (all of them), y written once; 2 flops a slot."""
+    import numpy as np
+
+    v, d = a_ell.cols.shape
+    x = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(
+        a_ell.cols.device)
+    csr = _csr_of(torch, a_ell.cols, a_ell.vals, a_ell.mask, v)
+    nnz = int(a_ell.mask.sum())
+    return {**_timed(
+        torch, lambda: spmv_ops.spmv(a_ell.cols, a_ell.vals, x),
+        lambda: spmv_ref.spmv_ref(a_ell.cols, a_ell.vals, x),
+        lambda: torch.mv(csr, x), nbytes=8 * v * d + 4 * v + 4 * v,
+        flops=2 * nnz), "V": v, "D": d, "nnz": nnz}
+
+
+def _time_spmv_t(torch, lvl, r_ell, spmv_ops, spmv_ref, rng) -> dict:
+    """``y = P^T r`` on level 0: perm, offsets and P's vals at the real
+    slots read once, r once, y written once; 2 flops an entry.  The library
+    call multiplies the transposed CSR (the explicit R) by r."""
+    import numpy as np
+
+    p, t = lvl.p_ell, lvl.p_t
+    rows = p.num_rows
+    x = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(
+        p.cols.device)
+    csr = _csr_of(torch, r_ell.cols, r_ell.vals, r_ell.mask, rows)
+    nnz = int(t.perm.numel())
+    return {**_timed(
+        torch, lambda: spmv_ops.spmv_t(p.vals, t, x),
+        lambda: spmv_ref.spmv_t_ref(p.vals, t.perm, t.offsets, x, t.max_len),
+        lambda: torch.mv(csr, x),
+        nbytes=4 * nnz + 4 * (t.num_out + 1) + 4 * nnz + 4 * rows
+        + 4 * t.num_out, flops=2 * nnz),
+        "rows": rows, "D": p.cols.shape[1], "num_out": t.num_out,
+        "nnz": nnz}
+
+
+def _time_hash_pack(torch, vids, hash_ops, hash_ref, id_bits) -> dict:
+    """One round's priorities of V ids: ids read, words written (the
+    integer hash is not counted: the table has no integer ALU rate)."""
+    n = vids.shape[0]
+    it = torch.ones(1, dtype=torch.int32, device=vids.device)
+    b = id_bits(n)
+    return {**_timed(torch, lambda: hash_ops.hash_pack(vids, it, b),
+                     lambda: hash_ref.hash_pack_ref(vids, it, b), None,
+                     nbytes=8 * n + 4), "n": n}
+
+
 def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
                   plain_reps: int = 5) -> dict:
-    """Each kernel and its twin at the resident loop's round-0 state: every
-    row live, every tuple undecided.  Each launch is timed alone with CUDA
-    events, after the state it writes is restored and the L2 cache is
-    flushed (a 256 MB write), so every launch sees the same inputs cold."""
+    """Each fused MIS-2 kernel and its twin at the resident loop's round-0
+    state: every row live, every tuple undecided, the state it writes
+    restored before each launch."""
     ell = g.ell
     v, d = ell.neighbors.shape
     dev = ell.neighbors.device
@@ -289,29 +662,11 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
     it = torch.zeros(1, dtype=torch.int32, device=dev)
     m_ready = m0.clone()
     ops.fused_refresh_columns(t0, m_ready, nbrs_flat, wl, cnt, it, **kw)
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-
-    def timed(fn, restore, n):
-        evs = []
-        for _ in range(n):
-            restore()
-            flush.zero_()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            evs.append((e0, e1))
-        torch.cuda.synchronize()
-        times = sorted(e0.elapsed_time(e1) for e0, e1 in evs)
-        return times[len(times) // 2]
-
     m = m0.clone()
     t = t0.clone()
     # distinct neighbour words a round-0 pass reads (every row is live)
     n_distinct = int(torch.unique(nbrs_flat).numel())
     ids = 4 * v * d
-    out = {}
     # refresh: wl + ids + T at distinct neighbours + M written + count, it
     refresh_bytes = 4 * v + ids + 4 * n_distinct + 4 * v + 8
     # decide: wl + ids + own T + M, active at distinct neighbours + T written
@@ -330,14 +685,11 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
                                          cnt, it, **kw),
             lambda: t.copy_(t0), decide_bytes),
     }
+    out = {}
     for k, (kernel, twin, restore, nbytes) in cases.items():
-        timed(kernel, restore, 3)             # warm-up
-        ms = timed(kernel, restore, reps)
-        plain_ms = timed(twin, restore, plain_reps)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bytes": nbytes, "V": v, "D": d,
-                  "bound_share": bound_ms / ms}
+        out[k] = {**_timed(torch, kernel, twin, None, nbytes,
+                           restore=restore, reps=reps, plain_reps=plain_reps),
+                  "V": v, "D": d}
     return out
 
 

@@ -1,17 +1,25 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro``: distance-2 MIS and
-MIS-2 graph coarsening on hand-written Hopper kernels.
+"""repro_torch — the PyTorch/CUDA port of ``repro``: distance-2 MIS, MIS-2
+graph coarsening, Luby coloring, SA-AMG and cluster multicolor
+Gauss-Seidel on hand-written Hopper kernels.
 
 It imports torch, numpy and the standard library only — never jax, and
 nothing of the JAX package, which stays in the repository as the reference
 each part of the port is held against (equal determinism digests).
 """
-from . import graphs
+from . import graphs, solvers
 from .api import (
     AggregationResult,
+    AmgSetup,
     Backend,
+    ClusterGsSetup,
+    ColoringResult,
     Mis2Result,
     Result,
+    amg,
+    amg_setup,
+    cluster_gs_setup,
     coarsen,
+    color,
     determinism_digest,
     list_engines,
     mis2,
@@ -20,7 +28,8 @@ from .core.mis2 import Mis2Options
 from .graphs import Graph
 
 __all__ = [
-    "graphs", "Graph", "Backend", "Mis2Options", "mis2", "coarsen",
+    "graphs", "solvers", "Graph", "Backend", "Mis2Options", "mis2",
+    "coarsen", "color", "amg_setup", "amg", "cluster_gs_setup",
     "list_engines", "Result", "Mis2Result", "AggregationResult",
-    "determinism_digest",
+    "ColoringResult", "AmgSetup", "ClusterGsSetup", "determinism_digest",
 ]

@@ -33,3 +33,8 @@ def resolve_backend(backend: Backend | None) -> Backend:
 #: ``engine=None``: the device-resident fixed point on the fused kernels, for
 #: every graph with a monolithic ELL layout (the only layout ported so far)
 DEFAULT_MIS2_ENGINE = "cuda_resident"
+
+#: ``engine=None`` of ``amg_setup`` / ``cluster_gs_setup``: the host setup
+#: (the reference picks its device-resident engine on accelerators; that
+#: engine is not ported yet)
+DEFAULT_MULTILEVEL_ENGINE = "host"

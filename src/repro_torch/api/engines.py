@@ -3,6 +3,9 @@
 * ``mis2``:        fn(graph, active, options) -> core Mis2Result
 * ``aggregation``: fn(graph, options, mis2_engine, min_secondary_neighbors)
                    -> core AggregationResult
+* ``coloring``:    fn(graph, max_rounds) -> core ColoringResult
+* ``multilevel``:  fn(kind, graph, **kwargs) with kind 'amg' | 'cluster_gs'
+                   -> AMGHierarchy | cluster-GS setup tuple
 """
 from __future__ import annotations
 
@@ -11,7 +14,12 @@ from ..core.aggregation import (
     _aggregate_serial_greedy_impl,
     _aggregate_two_phase_impl,
 )
+from ..core.coloring import _color_graph_impl
 from ..core.mis2 import _mis2_dense_impl, _mis2_resident_impl
+from ..multilevel.hierarchy import (
+    _build_hierarchy_impl,
+    _cluster_gs_setup_impl,
+)
 from .registry import register_engine
 
 register_engine("mis2", "dense")(_mis2_dense_impl)
@@ -32,3 +40,12 @@ def _agg_two_phase(graph, options, mis2_engine, min_secondary_neighbors):
 @register_engine("aggregation", "serial")
 def _agg_serial(graph, options, mis2_engine, min_secondary_neighbors):
     return _aggregate_serial_greedy_impl(graph)
+
+
+register_engine("coloring", "luby")(_color_graph_impl)
+
+
+@register_engine("multilevel", "host")
+def _multilevel_host(kind, graph, **kwargs):
+    fn = _build_hierarchy_impl if kind == "amg" else _cluster_gs_setup_impl
+    return fn(graph, **kwargs)

@@ -4,19 +4,36 @@ the :class:`~repro_torch.api.result.Result` form.
 
     import repro_torch as rt
 
-    g = rt.Graph(rt.graphs.laplace3d(100))
-    r = rt.mis2(g)                           # cuda_resident on the card
-    agg = rt.coarsen(g, method="two_phase")
+    a = rt.Graph(rt.graphs.laplace3d(100))
+    r = rt.mis2(a)                           # cuda_resident on the card
+    agg = rt.coarsen(a, method="two_phase")
+    amg = rt.amg_setup(a)                    # SA-AMG hierarchy
+    gs = rt.cluster_gs_setup(a)              # cluster multicolor GS
+    # then rt.solvers.cg(matvec, b, precond=amg.as_precond(), tol=1e-6)
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
+
+from ..core.coloring import MAX_ROUNDS_DEFAULT
 from ..core.mis2 import Mis2Options
 from ..graphs.handle import Graph, as_graph
-from .backend import DEFAULT_MIS2_ENGINE, Backend, resolve_backend
+from .backend import (
+    DEFAULT_MIS2_ENGINE,
+    DEFAULT_MULTILEVEL_ENGINE,
+    Backend,
+    resolve_backend,
+)
 from .registry import get_engine
-from .result import AggregationResult, Mis2Result
+from .result import (
+    AggregationResult,
+    AmgSetup,
+    ClusterGsSetup,
+    ColoringResult,
+    Mis2Result,
+)
 
 
 def _prepare(graph, be: Backend) -> Graph:
@@ -60,3 +77,105 @@ def coarsen(graph, *, method: str = "two_phase",
     return AggregationResult(r.labels, r.mis2_iterations, r.converged, dt,
                              num_aggregates=r.num_aggregates, roots=r.roots,
                              phase=r.phase, engine=inner)
+
+
+def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
+          engine: str = "luby",
+          backend: Backend | None = None) -> ColoringResult:
+    """Deterministic parallel greedy distance-1 coloring, equal (colors and
+    digest) to the JAX package's.  If the round limit is hit before every
+    vertex is colored the result comes back with ``converged=False``
+    (uncolored vertices hold ``-1``) instead of raising."""
+    be = resolve_backend(backend)
+    gh = _prepare(graph, be)
+    fn = get_engine("coloring", engine)
+    t0 = time.perf_counter()
+    r = fn(gh, max_rounds)
+    dt = time.perf_counter() - t0
+    return ColoringResult(r.colors, r.rounds, r.converged, dt,
+                          num_colors=r.num_colors, host_syncs=r.host_syncs)
+
+
+def amg_setup(matrix, *, aggregation: str = "two_phase",
+              engine: str | None = None, max_levels: int = 10,
+              coarse_size: int = 200, omega: float = 2.0 / 3.0,
+              jacobi_weight: float = 2.0 / 3.0, smoother_sweeps: int = 2,
+              options: Mis2Options | None = None,
+              mis2_engine: str | None = None,
+              coarse_dtype: str | None = None,
+              dense_coarse_cap: int | None = None,
+              explicit_restriction: bool = True,
+              backend: Backend | None = None) -> AmgSetup:
+    """Smoothed-aggregation AMG setup (paper Table V) through the
+    ``multilevel`` registry; ``engine=None`` selects ``host``.  The level
+    matrices are bit-identical to the JAX package's ``host`` engine (equal
+    ``level_digests``) and live on the device with the whole solve phase.
+
+    ``coarse_dtype`` picks the dense coarsest-level factorization (default:
+    float32, on the card; float64 on the CPU, with scipy);
+    ``dense_coarse_cap`` (default: ``coarse_size``) bounds the densified
+    size, above which weighted-Jacobi sweeps stand in.
+    ``explicit_restriction=False`` drops the stored ``R = P^T``; the
+    V-cycle then restricts through the transposed SpMV kernel on P."""
+    be = resolve_backend(backend)
+    gh = _prepare(matrix, be)
+    engine = DEFAULT_MULTILEVEL_ENGINE if engine is None else engine
+    fn = get_engine("multilevel", engine)
+    t0 = time.perf_counter()
+    h = fn("amg", gh, aggregation=aggregation, max_levels=max_levels,
+           coarse_size=coarse_size, omega=omega, jacobi_weight=jacobi_weight,
+           smoother_sweeps=smoother_sweeps, options=options,
+           mis2_engine=mis2_engine, coarse_dtype=coarse_dtype,
+           dense_coarse_cap=dense_coarse_cap,
+           explicit_restriction=explicit_restriction)
+    dt = time.perf_counter() - t0
+    sizes = np.asarray(h.level_sizes, dtype=np.int64).reshape(-1, 2)
+    return AmgSetup(sizes, len(h.levels), True, dt, hierarchy=h,
+                    aggregation=aggregation, setup_seconds=h.setup_seconds,
+                    aggregation_seconds=h.aggregation_seconds, engine=engine,
+                    timings=dict(h.timings))
+
+
+def amg(matrix, *, aggregation: str = "two_phase", max_levels: int = 10,
+        coarse_size: int = 200, omega: float = 2.0 / 3.0,
+        jacobi_weight: float = 2.0 / 3.0, smoother_sweeps: int = 2,
+        options: Mis2Options | None = None,
+        backend: Backend | None = None) -> AmgSetup:
+    """:func:`amg_setup` with the default engine (the reference's
+    ``repro.amg``)."""
+    return amg_setup(matrix, aggregation=aggregation, max_levels=max_levels,
+                     coarse_size=coarse_size, omega=omega,
+                     jacobi_weight=jacobi_weight,
+                     smoother_sweeps=smoother_sweeps, options=options,
+                     backend=backend)
+
+
+def cluster_gs_setup(matrix, *, aggregation: str = "two_phase",
+                     engine: str | None = None,
+                     options: Mis2Options | None = None,
+                     coarsen_levels: int = 1,
+                     mis2_engine: str | None = None,
+                     backend: Backend | None = None) -> ClusterGsSetup:
+    """Cluster multicolor Gauss-Seidel setup (paper Alg. 4 / Table VI):
+    aggregate with MIS-2, color the coarse graph, pack cluster rows per
+    color.  Labels and colors equal the JAX package's (equal ``digest``
+    and ``colors_digest``); ``engine=None`` selects ``host``."""
+    from ..graphs.ops import extract_diagonal
+    from ..solvers.multicolor_gs import MulticolorGSPreconditioner
+
+    be = resolve_backend(backend)
+    gh = _prepare(matrix, be)
+    engine = DEFAULT_MULTILEVEL_ENGINE if engine is None else engine
+    fn = get_engine("multilevel", engine)
+    t0 = time.perf_counter()
+    color_rows, num_colors, nagg, labels, colors, timings, rounds = fn(
+        "cluster_gs", gh, aggregation=aggregation, options=options,
+        coarsen_levels=coarsen_levels, mis2_engine=mis2_engine)
+    dt = time.perf_counter() - t0
+    pre = MulticolorGSPreconditioner(
+        gh.ell_matrix, extract_diagonal(gh.csr_matrix, gh.device),
+        color_rows, num_colors, nagg, dt, "cluster", timings=timings)
+    return ClusterGsSetup(labels, 0, True, dt, preconditioner=pre,
+                          num_colors=num_colors, num_clusters=nagg,
+                          colors=colors, engine=engine, timings=timings,
+                          color_rounds=rounds)

@@ -9,7 +9,7 @@ the reference produced bit-identical output.
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -80,3 +80,86 @@ class AggregationResult(Result):
     @property
     def coarsening_ratio(self) -> float:
         return len(self.payload) / max(1, self.num_aggregates)
+
+
+@dataclass
+class ColoringResult(Result):
+    """Distance-1 coloring: ``payload`` is the int32 color per vertex;
+    ``iterations`` counts the Luby rounds."""
+
+    num_colors: int = 0
+    host_syncs: int = 0
+
+    @property
+    def colors(self) -> np.ndarray:
+        return self.payload
+
+    @property
+    def rounds(self) -> int:
+        return self.iterations
+
+
+@dataclass
+class AmgSetup(Result):
+    """AMG hierarchy setup: ``payload`` is the ``[levels, 2]`` (n, nnz)
+    table; the usable hierarchy hangs off ``.hierarchy`` /
+    ``.as_precond()``.  ``timings`` is the setup-phase split (``aggregate``
+    / ``prolongator`` / ``galerkin`` / ``pack`` seconds); ``level_digests``
+    are the per-level ``A_l`` ELL digests, equal to the reference's."""
+
+    hierarchy: object | None = None
+    aggregation: str = ""
+    setup_seconds: float = 0.0
+    aggregation_seconds: float = 0.0
+    engine: str = ""
+    timings: dict = field(default_factory=dict)
+
+    @property
+    def level_sizes(self) -> list:
+        return [tuple(int(x) for x in row) for row in self.payload]
+
+    @property
+    def num_levels(self) -> int:
+        return int(self.payload.shape[0])
+
+    @property
+    def level_digests(self) -> list:
+        return self.hierarchy.level_digests() if self.hierarchy else []
+
+    def as_precond(self):
+        return self.hierarchy.as_precond()
+
+
+@dataclass
+class ClusterGsSetup(Result):
+    """Cluster multicolor GS setup: ``payload`` is the int32 cluster label
+    per vertex (so ``digest`` gates the aggregation); ``colors`` carries the
+    coarse coloring with its own digest, and ``preconditioner`` is the
+    ready :class:`~repro_torch.solvers.multicolor_gs.
+    MulticolorGSPreconditioner`.  ``timings`` is the setup split
+    (``aggregate`` / ``color`` / ``pack`` seconds); ``color_rounds`` the
+    Luby rounds of the coarse coloring."""
+
+    preconditioner: object | None = None
+    num_colors: int = 0
+    num_clusters: int = 0
+    colors: np.ndarray | None = None
+    engine: str = ""
+    timings: dict = field(default_factory=dict)
+    color_rounds: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.colors is not None:
+            self.colors = np.asarray(self.colors)
+
+    @property
+    def labels(self) -> np.ndarray:
+        return self.payload
+
+    @property
+    def colors_digest(self) -> str:
+        return determinism_digest(self.colors)
+
+    def as_precond(self, sweeps: int = 1, symmetric: bool = True):
+        return self.preconditioner.as_precond(sweeps, symmetric)

@@ -1,0 +1,134 @@
+"""Deterministic parallel greedy distance-1 coloring, PyTorch port of
+``repro.core.coloring`` (the monolithic ``luby`` engine).
+
+Used by cluster multicolor Gauss-Seidel to color the coarse graph, and by
+point multicolor GS to color the fine graph.  Luby-style rounds with the
+same xorshift* packed priorities as MIS-2: in each round, every uncolored
+vertex whose priority is below that of every uncolored real neighbor picks
+its smallest color not taken by a colored neighbor (64-color forbidden
+mask).  The round's priorities come from the hash-pack kernel
+(``kernels.hash_priority``) with the round number on the device; the
+rowwise round is plain torch over the ELL adjacency.  The loop reads one
+flag per round on the host to decide whether to go on (``host_syncs``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..graphs.handle import as_graph
+from ..kernels.hash_priority import ops as hash_ops
+from .tuples import U32_MASK, id_bits, widen
+
+MAX_COLORS = 64
+MAX_ROUNDS_DEFAULT = 256
+
+
+@dataclass
+class ColoringResult:
+    colors: np.ndarray      # int32 [V]; uncolored (unconverged) hold -1
+    num_colors: int
+    rounds: int
+    converged: bool = True  # every vertex colored within the round limit
+    host_syncs: int = 0
+
+
+def _lowest_set_bit(x: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of widened uint32 words (int64), through
+    the reference's float32 exponent: -127 where ``x == 0``."""
+    isolated = (x & -x).to(torch.float32)        # an exact power of two
+    return (isolated.view(torch.int32) >> 23).to(torch.int64) - 127
+
+
+def _smallest_free_color(forb_lo: torch.Tensor,
+                         forb_hi: torch.Tensor) -> torch.Tensor:
+    """Smallest color whose bit is clear in the 64-bit forbidden mask."""
+    free_lo = ~forb_lo & U32_MASK
+    free_hi = ~forb_hi & U32_MASK
+    low_idx = _lowest_set_bit(free_lo)
+    high_idx = _lowest_set_bit(free_hi) + 32
+    return torch.where(free_lo != 0, low_idx, high_idx).to(torch.int32)
+
+
+def _round_priorities(vids: torch.Tensor, rnd: torch.Tensor,
+                      b: int) -> torch.Tensor:
+    """Round ``rnd``'s packed priority of every vertex, widened."""
+    return widen(hash_ops.hash_pack(vids, rnd, b))
+
+
+def _color_round_rows(neighbors, mask, row_ids, colors, prio):
+    """One Luby round over the rows ``row_ids`` of a ``[V]`` coloring:
+    ``colors`` int32 and ``prio`` widened int64, both ``[V]``."""
+    nb = neighbors.to(torch.int64)
+    own = colors[row_ids]
+    real = mask & (neighbors != row_ids[:, None])
+    pn = prio[nb]
+    contender = real & (colors[nb] < 0)
+    is_min = torch.where(contender, prio[row_ids][:, None] < pn,
+                         True).all(dim=1)
+    # forbidden colors bitmask (two 32-bit words -> up to 64 colors)
+    cn = colors[nb].to(torch.int64)
+    has = real & (cn >= 0)
+    lo_bits = torch.where(has & (cn < 32), 1 << cn.clamp(0, 31), 0)
+    hi_bits = torch.where(has & (cn >= 32), 1 << (cn - 32).clamp(0, 31), 0)
+    forb_lo, forb_hi = lo_bits[:, 0], hi_bits[:, 0]
+    for j in range(1, nb.shape[1]):        # torch has no OR reduction
+        forb_lo = forb_lo | lo_bits[:, j]
+        forb_hi = forb_hi | hi_bits[:, j]
+    chosen = _smallest_free_color(forb_lo, forb_hi)
+    return torch.where((own < 0) & is_min, chosen, own)
+
+
+def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
+                      max_rounds: int):
+    """The Luby round loop with the reference's do-while shape (at least
+    one round).  Returns ``(colors int32 [V], rounds, host_syncs)``."""
+    v = neighbors.shape[0]
+    dev = neighbors.device
+    b = id_bits(v)
+    vids = torch.arange(v, dtype=torch.int32, device=dev)
+    colors = torch.full((v,), -1, dtype=torch.int32, device=dev)
+    rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
+    rnd = syncs = 0
+    while True:
+        if rnd > 0:
+            if rnd >= max_rounds:
+                break
+            syncs += 1
+            if not bool((colors < 0).any()):    # the one host read a round
+                break
+        prio = _round_priorities(vids, rnd_dev, b)
+        colors = _color_round_rows(neighbors, mask, vids, colors, prio)
+        rnd_dev += 1
+        rnd += 1
+    return colors, rnd, syncs
+
+
+def _coloring_result(colors: torch.Tensor, rounds: int,
+                     syncs: int) -> ColoringResult:
+    c = colors.cpu().numpy()
+    num = int(c.max()) + 1 if (c >= 0).any() else 0
+    if num > MAX_COLORS:
+        raise RuntimeError(f"{num} colors exceed MAX_COLORS={MAX_COLORS}")
+    # hitting max_rounds is reported, not raised: callers get the partial
+    # coloring (uncolored vertices = -1) with converged=False
+    return ColoringResult(c, num, rounds, not (c < 0).any(), syncs)
+
+
+def _color_graph_impl(graph,
+                      max_rounds: int = MAX_ROUNDS_DEFAULT) -> ColoringResult:
+    ell = as_graph(graph).ell
+    colors, rounds, syncs = color_fixed_point(ell.neighbors, ell.mask,
+                                              max_rounds)
+    return _coloring_result(colors, rounds, syncs)
+
+
+def check_coloring(graph, colors: np.ndarray) -> bool:
+    """Validity: no two adjacent distinct vertices share a color."""
+    csr = as_graph(graph).csr
+    rows = np.repeat(np.arange(csr.num_vertices), np.diff(csr.indptr))
+    colors = np.asarray(colors)
+    real = rows != csr.indices
+    return not (real & (colors[rows] == colors[csr.indices])).any()

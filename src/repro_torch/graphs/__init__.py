@@ -1,5 +1,6 @@
-"""Graph containers, generators and the ``Graph`` handle (numpy on the host,
-torch tensors on the device)."""
+"""Graph containers, generators, the ``Graph`` handle (numpy on the host,
+torch tensors on the device) and the sparse operations (``ops``)."""
+from . import ops
 from .csr import (
     CSRGraph,
     CSRMatrix,
@@ -29,7 +30,7 @@ from .handle import (
 )
 
 __all__ = [
-    "CSRGraph", "CSRMatrix", "ELLGraph", "ELLMatrix", "csr_from_coo",
+    "ops", "CSRGraph", "CSRMatrix", "ELLGraph", "ELLMatrix", "csr_from_coo",
     "csr_to_ell_graph", "csr_to_ell_matrix", "ensure_self_loops",
     "pad_ell_graph", "elasticity3d", "laplace3d", "paper_suite", "path_graph",
     "random_skewed_graph", "random_uniform_graph", "ELL_BYTE_LIMIT",

@@ -155,9 +155,9 @@ def csr_to_ell_graph(g: CSRGraph, width: int | None = None, *,
                     torch.from_numpy(mask).to(device))
 
 
-def csr_to_ell_matrix(m: CSRMatrix, width: int | None = None, *,
-                      device: torch.device | str) -> ELLMatrix:
-    """CSR matrix -> self-padded ELL matrix (padded values 0) on ``device``."""
+def csr_to_ell_arrays(m: CSRMatrix, width: int | None = None):
+    """CSR matrix -> self-padded ELL ``(cols, vals, mask)`` as host numpy
+    (padded values 0): the host setup reads these, the device gets a copy."""
     v = m.num_rows
     rows, slot, d = _ell_slots(m.indptr, width)
     cols = _self_padded(v, d)
@@ -166,9 +166,19 @@ def csr_to_ell_matrix(m: CSRMatrix, width: int | None = None, *,
     cols[rows, slot] = m.indices
     vals[rows, slot] = m.values
     mask[rows, slot] = True
-    return ELLMatrix(torch.from_numpy(cols).to(device),
-                     torch.from_numpy(vals).to(device),
-                     torch.from_numpy(mask).to(device))
+    return cols, vals, mask
+
+
+def ell_matrix_to(arrays, device: torch.device | str) -> ELLMatrix:
+    """Host ``(cols, vals, mask)`` numpy arrays -> ELLMatrix on ``device``."""
+    return ELLMatrix(*(torch.from_numpy(np.require(a, requirements="CW"))
+                       .to(device) for a in arrays))
+
+
+def csr_to_ell_matrix(m: CSRMatrix, width: int | None = None, *,
+                      device: torch.device | str) -> ELLMatrix:
+    """CSR matrix -> self-padded ELL matrix (padded values 0) on ``device``."""
+    return ell_matrix_to(csr_to_ell_arrays(m, width), device)
 
 
 def pad_ell_graph(g: ELLGraph, num_rows: int, width: int) -> ELLGraph:

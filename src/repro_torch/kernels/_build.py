@@ -15,6 +15,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -115,6 +116,16 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         lib = _LIBS[name]
     return lib
+
+
+@functools.cache
+def function(lib: str, name: str, argtypes: tuple):
+    """The C entry point ``name`` of library ``lib``, typed once (returns
+    the launch's ``cudaGetLastError()`` as an int)."""
+    fn = getattr(library(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -12,7 +12,6 @@ counted), so a run can show that its hot loop went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,12 +22,12 @@ from . import ref
 LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0}
 
 _SIGNATURES = {
-    "fused_refresh_columns": [ctypes.c_void_p] * 6
-    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p],
-    "fused_decide": [ctypes.c_void_p] * 7
-    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p],
+    "fused_refresh_columns": (ctypes.c_void_p,) * 6
+    + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p),
+    "fused_decide": (ctypes.c_void_p,) * 7
+    + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p),
 }
 
 
@@ -37,14 +36,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-@functools.cache
 def _entry(name: str):
-    """The C entry point ``name``, typed once (the library builds on first
-    use)."""
-    fn = getattr(_build.library("minprop_ell"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("minprop_ell", name, _SIGNATURES[name])
 
 
 def _check_args(t, nbrs_flat, wl, count, it, state, b: int,

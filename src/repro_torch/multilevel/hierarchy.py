@@ -1,0 +1,382 @@
+"""Multilevel setup: SA-AMG hierarchies and cluster-GS packing, the ``host``
+engine of ``repro.multilevel.hierarchy``.
+
+The setup's prolongator and Galerkin product are numpy/scipy on the host,
+as in the reference's ``host`` engine, so every level matrix is
+bit-identical to it (equal :meth:`AMGHierarchy.level_digests`).  The
+aggregation inside (MIS-2 coarsening on the fused kernels), the coloring,
+every level matrix and the whole solve phase live on the graph's device;
+the ``float32`` coarsest-level LU factors and solves there too.
+
+``hierarchy_from_arrays`` builds a hierarchy from given per-level arrays
+(for instance the reference's), so the solve phase can be held against
+the reference's on one and the same hierarchy.
+"""
+from __future__ import annotations
+
+import functools
+import hashlib
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..graphs.csr import (
+    CSRMatrix,
+    ELLMatrix,
+    csr_to_ell_arrays,
+    csr_to_ell_matrix,
+    ell_matrix_to,
+)
+from ..graphs.handle import Graph, as_graph
+from ..graphs.ops import (
+    coarse_graph_from_labels,
+    extract_diagonal,
+    matrix_to_scipy,
+)
+from ..kernels.spmv_ell import ops as spmv_ops
+from .galerkin import _pad_p_rows, galerkin_coo_host
+from .packing import pack_clusters_host
+from .prolongator import rect_ell, smoothed_prolongator_host
+
+
+@dataclass
+class AMGLevel:
+    a_ell: ELLMatrix
+    diag: torch.Tensor
+    p_ell: ELLMatrix | None        # prolongator (fine x coarse), None at coarsest
+    r_ell: ELLMatrix | None        # restriction = P^T, None when matrix-free
+    n: int
+    nnz: int
+    p_t: spmv_ops.EllTranspose | None = None   # P^T gather plan (matrix-free)
+
+
+@dataclass
+class AMGHierarchy:
+    levels: List[AMGLevel]
+    coarse_solve: Callable
+    setup_seconds: float
+    aggregation_seconds: float
+    aggregation: str
+    omega: float
+    jacobi_weight: float
+    smoother_sweeps: int
+    level_sizes: list = field(default_factory=list)
+    engine: str = "host"
+    coarse_dtype: str = "float32"
+    coarse_kind: str = "lu"        # 'lu' | 'jacobi' (above dense_coarse_cap)
+    timings: dict = field(default_factory=dict)
+    _digests: list | None = None
+
+    def as_precond(self) -> Callable:
+        from ..solvers.amg import v_cycle   # lazy: solvers imports us
+
+        return functools.partial(v_cycle, self)
+
+    def level_digests(self) -> list[str]:
+        """Per-level ``A_l`` ELL digest (cols + vals + mask), computed on
+        first use — the only place the level matrices come to the host."""
+        if self._digests is None:
+            self._digests = [ell_matrix_digest(lvl.a_ell)
+                             for lvl in self.levels]
+        return self._digests
+
+
+def ell_matrix_digest(ell: ELLMatrix) -> str:
+    """One digest over an ELL matrix's (cols, vals, mask), from the
+    per-array :func:`determinism_digest` — the reference's definition."""
+    from ..api.result import determinism_digest   # lazy: api imports us
+
+    h = hashlib.sha256()
+    for arr in (ell.cols, ell.vals, ell.mask):
+        h.update(determinism_digest(arr.cpu().numpy()).encode())
+    return h.hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# coarsest-level solver
+# ---------------------------------------------------------------------------
+
+def resolve_coarse_dtype(coarse_dtype: Optional[str],
+                         device: torch.device) -> str:
+    """Default coarse factorization dtype: float32 on the card, float64 on
+    the CPU, as the reference picks it by platform."""
+    if coarse_dtype is not None:
+        if coarse_dtype not in ("float32", "float64"):
+            raise ValueError(f"unknown coarse_dtype {coarse_dtype!r}")
+        return str(coarse_dtype)
+    return "float32" if device.type == "cuda" else "float64"
+
+
+def _coarse_solver(dense: np.ndarray, coarse_dtype: str,
+                   device: torch.device) -> Callable:
+    """Cached dense factorization of the (host) coarsest matrix.
+
+    ``float32`` factors on the device and solves there, with no host copy
+    per V-cycle; ``float64`` factors and solves on the host with scipy."""
+    if coarse_dtype == "float64":
+        import scipy.linalg as sla
+
+        lu_piv = sla.lu_factor(np.asarray(dense, dtype=np.float64))
+
+        def coarse_solve(b):
+            x = sla.lu_solve(lu_piv, b.cpu().numpy().astype(np.float64))
+            return torch.from_numpy(x.astype(np.float32)).to(b.device)
+
+        return coarse_solve
+    lu, piv = torch.linalg.lu_factor(
+        torch.from_numpy(np.asarray(dense, dtype=np.float32)).to(device))
+
+    def coarse_solve(b):
+        return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
+
+    return coarse_solve
+
+
+def _jacobi_coarse_solver(a_ell: ELLMatrix, diag: torch.Tensor,
+                          weight: float, sweeps: int) -> Callable:
+    """Fallback when the coarsest level exceeds ``dense_coarse_cap``:
+    weighted-Jacobi sweeps instead of an O(n^2) dense factorization."""
+    w = float(np.float32(weight))
+
+    def coarse_solve(b):
+        x = torch.zeros_like(b)
+        for _ in range(sweeps):
+            ax = spmv_ops.spmv(a_ell.cols, a_ell.vals, x)
+            x = x + w * (b - ax) / diag
+        return x
+
+    return coarse_solve
+
+
+def _ell_dense(cols: np.ndarray, vals: np.ndarray,
+               mask: np.ndarray) -> np.ndarray:
+    n = cols.shape[0]
+    dense = np.zeros((n, n), dtype=np.float64)
+    rows = np.broadcast_to(np.arange(n)[:, None], cols.shape)
+    np.add.at(dense, (rows[mask], cols[mask]), vals[mask])
+    return dense
+
+
+def _finish(levels: List[AMGLevel], dense, coarse_dtype: str,
+            dense_coarse_cap: int, jacobi_weight: float,
+            smoother_sweeps: int, explicit_restriction: bool,
+            device: torch.device):
+    """Coarse solver and, without explicit R, each level's P^T plan.
+    ``dense`` is a callable giving the coarsest matrix densified on the
+    host (called only under the cap).  Returns ``(coarse_solve, kind)``."""
+    coarsest = levels[-1]
+    if coarsest.n <= dense_coarse_cap:
+        coarse_solve = _coarse_solver(dense(), coarse_dtype, device)
+        kind = "lu"
+    else:
+        coarse_solve = _jacobi_coarse_solver(
+            coarsest.a_ell, coarsest.diag, jacobi_weight,
+            sweeps=8 * smoother_sweeps)
+        kind = "jacobi"
+    if not explicit_restriction:
+        for lvl, nxt in zip(levels[:-1], levels[1:]):
+            lvl.r_ell = None      # v_cycle restricts via spmv_t instead
+            lvl.p_t = spmv_ops.ell_transpose(lvl.p_ell.cols, lvl.p_ell.mask,
+                                             nxt.n)
+    return coarse_solve, kind
+
+
+# ---------------------------------------------------------------------------
+# host-engine levels
+# ---------------------------------------------------------------------------
+
+def _add_time(timings: dict, key: str, t0: float) -> None:
+    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+
+
+def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
+                nagg: int, omega: float, timings: dict,
+                device: torch.device):
+    """One host-engine level: scipy prolongator, canonical numpy Galerkin,
+    then the level's A, P, R and diagonal copied to the device.  Returns
+    ``(level, a_next)``."""
+    v = cur.num_rows
+    t0 = time.perf_counter()
+    pr, pc, pv = smoothed_prolongator_host(cur, labels, nagg, omega)
+    _add_time(timings, "prolongator", t0)
+    t0 = time.perf_counter()
+    a_host = csr_to_ell_arrays(cur)
+    p_pad_cols, p_pad_vals = _pad_p_rows(pr, pc, pv, v)
+    cr, cc, cv = galerkin_coo_host(*a_host, p_pad_cols, p_pad_vals, nagg)
+    indptr = np.zeros(nagg + 1, dtype=np.int64)
+    np.add.at(indptr, cr + 1, 1)
+    a_next = CSRMatrix(np.cumsum(indptr).astype(np.int32),
+                       cc.astype(np.int32), cv.astype(np.float32))
+    _add_time(timings, "galerkin", t0)
+    t0 = time.perf_counter()
+    pv32 = pv.astype(np.float32)
+    level = AMGLevel(a_ell if a_ell is not None else
+                     ell_matrix_to(a_host, device),
+                     extract_diagonal(cur, device),
+                     rect_ell(pr, pc, pv32, v, device),
+                     rect_ell(pc, pr, pv32, nagg, device),
+                     v, cur.num_entries)
+    _add_time(timings, "pack", t0)
+    return level, a_next
+
+
+def _aggregation(aggregation: str, options, mis2_engine: Optional[str]):
+    """``graph -> AggregationResult`` for the named coarsening method."""
+    from ..api.backend import DEFAULT_MIS2_ENGINE
+    from ..api.registry import get_engine
+
+    fn = get_engine("aggregation", aggregation)
+    inner = DEFAULT_MIS2_ENGINE if mis2_engine is None else mis2_engine
+    return lambda g: fn(g, options, inner, 2)
+
+
+def _build_hierarchy_impl(a, aggregation: str = "two_phase",
+                          max_levels: int = 10, coarse_size: int = 200,
+                          omega: float = 2.0 / 3.0,
+                          jacobi_weight: float = 2.0 / 3.0,
+                          smoother_sweeps: int = 2,
+                          options=None,
+                          mis2_engine: Optional[str] = None,
+                          coarse_dtype: Optional[str] = None,
+                          dense_coarse_cap: Optional[int] = None,
+                          explicit_restriction: bool = True) -> AMGHierarchy:
+    """Build the SA-AMG hierarchy of matrix ``a`` (a ``Graph`` handle with
+    values, or a ``CSRMatrix``) on its device.
+
+    ``dense_coarse_cap`` (default: ``coarse_size``) bounds the dense
+    coarsest-level factorization; a coarsest level above it gets
+    weighted-Jacobi sweeps instead.  ``explicit_restriction=False`` drops
+    the stored ``R = P^T`` after the build; the V-cycle then restricts
+    through the transposed SpMV kernel on P.
+    """
+    gh = as_graph(a)
+    dev = gh.device
+    coarse_dtype = resolve_coarse_dtype(coarse_dtype, dev)
+    if dense_coarse_cap is None:
+        dense_coarse_cap = coarse_size
+    t_setup = time.perf_counter()
+    t_agg = 0.0
+    timings: dict = {}
+    aggregate = _aggregation(aggregation, options, mis2_engine)
+
+    levels: List[AMGLevel] = []
+    sizes = []
+    cur, cur_graph, a_ell = gh.csr_matrix, gh, gh.ell_matrix
+    while len(levels) < max_levels - 1 and cur.num_rows > coarse_size:
+        t0 = time.perf_counter()
+        agg = aggregate(cur_graph)
+        dt = time.perf_counter() - t0
+        t_agg += dt
+        timings["aggregate"] = timings.get("aggregate", 0.0) + dt
+        if agg.num_aggregates >= cur.num_rows:
+            break
+        level, cur = _host_level(cur, a_ell, agg.labels, agg.num_aggregates,
+                                 omega, timings, dev)
+        levels.append(level)
+        sizes.append((level.n, level.nnz))
+        cur_graph, a_ell = Graph(cur.graph, device=dev), None
+
+    levels.append(AMGLevel(
+        a_ell if a_ell is not None else csr_to_ell_matrix(cur, device=dev),
+        extract_diagonal(cur, dev), None, None, cur.num_rows,
+        cur.num_entries))
+    sizes.append((cur.num_rows, cur.num_entries))
+    t0 = time.perf_counter()
+    coarse_solve, coarse_kind = _finish(
+        levels, lambda: np.asarray(matrix_to_scipy(cur).todense()),
+        coarse_dtype, dense_coarse_cap, jacobi_weight, smoother_sweeps,
+        explicit_restriction, dev)
+    _add_time(timings, "pack", t0)
+    return AMGHierarchy(
+        levels, coarse_solve, time.perf_counter() - t_setup, t_agg,
+        aggregation, omega, jacobi_weight, smoother_sweeps, sizes,
+        coarse_dtype=coarse_dtype, coarse_kind=coarse_kind, timings=timings)
+
+
+def hierarchy_from_arrays(levels: list, *, jacobi_weight: float = 2.0 / 3.0,
+                          smoother_sweeps: int = 2,
+                          coarse_dtype: Optional[str] = None,
+                          dense_coarse_cap: int = 200,
+                          explicit_restriction: bool = True,
+                          device: torch.device | str = "cuda"
+                          ) -> AMGHierarchy:
+    """An :class:`AMGHierarchy` from host arrays, finest level first.
+
+    Each entry of ``levels`` is a dict with ``a = (cols, vals, mask)``,
+    ``diag``, ``n``, ``nnz`` and, on every level but the coarsest,
+    ``p = (cols, vals, mask)`` and ``r = (cols, vals, mask)``: the ELL
+    arrays of a hierarchy built elsewhere (the reference's, in the tests).
+    The coarse solver is set up as :func:`_build_hierarchy_impl` does.
+    """
+    dev = torch.device(device)
+    coarse_dtype = resolve_coarse_dtype(coarse_dtype, dev)
+    built = []
+    for lv in levels:
+        p, r = lv.get("p"), lv.get("r")
+        built.append(AMGLevel(
+            ell_matrix_to(lv["a"], dev),
+            torch.from_numpy(np.array(lv["diag"], np.float32)).to(dev),
+            None if p is None else ell_matrix_to(p, dev),
+            None if r is None else ell_matrix_to(r, dev),
+            int(lv["n"]), int(lv["nnz"])))
+    coarse_solve, coarse_kind = _finish(
+        built, lambda: _ell_dense(*(np.asarray(x) for x in levels[-1]["a"])),
+        coarse_dtype, dense_coarse_cap, jacobi_weight, smoother_sweeps,
+        explicit_restriction, dev)
+    return AMGHierarchy(
+        built, coarse_solve, 0.0, 0.0, "", 0.0, jacobi_weight,
+        smoother_sweeps, [(lv.n, lv.nnz) for lv in built],
+        engine="arrays", coarse_dtype=coarse_dtype, coarse_kind=coarse_kind)
+
+
+# ---------------------------------------------------------------------------
+# cluster-GS setup
+# ---------------------------------------------------------------------------
+
+def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
+                           coarsen_levels: int = 1,
+                           mis2_engine: Optional[str] = None):
+    """Aggregate -> color the coarse graph -> pack cluster rows.
+
+    Returns ``(color_rows, num_colors, num_clusters, labels, colors,
+    timings, color_rounds)`` with ``timings`` the setup-phase split
+    ``{aggregate, color, pack}`` in seconds.
+    """
+    from ..core.coloring import _color_graph_impl
+
+    gh = as_graph(a)
+    dev = gh.device
+    v = gh.num_vertices
+    timings = {"aggregate": 0.0, "color": 0.0, "pack": 0.0}
+    aggregate = _aggregation(aggregation, options, mis2_engine)
+
+    def coarse_structure(labels, nagg):
+        return Graph(coarse_graph_from_labels(gh.csr, labels, nagg),
+                     device=dev)
+
+    t0 = time.perf_counter()
+    agg = aggregate(gh)
+    labels, nagg = agg.labels, agg.num_aggregates
+    timings["aggregate"] += time.perf_counter() - t0
+    for _ in range(coarsen_levels - 1):        # optional deeper clustering
+        t0 = time.perf_counter()
+        agg2 = aggregate(coarse_structure(labels, nagg))
+        labels = agg2.labels[labels]
+        nagg = agg2.num_aggregates
+        timings["aggregate"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    coloring = _color_graph_impl(coarse_structure(labels, nagg))
+    timings["color"] += time.perf_counter() - t0
+    if not coloring.converged:     # a partial coloring is unusable for GS
+        raise RuntimeError("coarse-graph coloring did not converge")
+
+    t0 = time.perf_counter()
+    color_rows = pack_clusters_host(labels, coloring.colors,
+                                    coloring.num_colors, v, dev)
+    timings["pack"] += time.perf_counter() - t0
+    return color_rows, coloring.num_colors, nagg, labels, \
+        coloring.colors, timings, coloring.rounds

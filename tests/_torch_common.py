@@ -23,14 +23,19 @@ GRAPHS = {
 }
 
 
+#: further graphs of the multilevel and solver tests (not in the matrix)
+_MORE = {"laplace3d(16)": ("laplace3d", (16,), {}),
+         "laplace3d(4)": ("laplace3d", (4,), {})}
+
+
 @functools.lru_cache(maxsize=None)
 def ref_graph(name: str):
-    fn, args, kw = GRAPHS[name]
+    fn, args, kw = {**GRAPHS, **_MORE}[name]
     return repro.Graph(getattr(ref_gen, fn)(*args, **kw))
 
 
 def port_graph(name: str, device="cpu") -> Graph:
-    fn, args, kw = GRAPHS[name]
+    fn, args, kw = {**GRAPHS, **_MORE}[name]
     return Graph(getattr(port_gen, fn)(*args, **kw), device=device)
 
 
@@ -55,3 +60,34 @@ def active_mask(name: str, seed: int | None):
         return None
     v = ref_graph(name).num_vertices
     return np.random.default_rng(seed).random(v) < 0.7
+
+
+@functools.lru_cache(maxsize=None)
+def ref_amg(name: str, explicit_restriction: bool = True,
+            coarse_dtype: str = "float32", coarse_size: int = 200):
+    """The reference's ``host`` multilevel engine (the ``resident`` one
+    cannot run on this JAX version)."""
+    return repro.amg_setup(ref_graph(name), engine="host",
+                           mis2_engine="compacted_resident",
+                           explicit_restriction=explicit_restriction,
+                           coarse_dtype=coarse_dtype,
+                           coarse_size=coarse_size)
+
+
+def ref_level_arrays(setup) -> list:
+    """A reference hierarchy's per-level arrays, as numpy, in the form
+    ``repro_torch.multilevel.hierarchy_from_arrays`` takes."""
+    out = []
+    for lvl in setup.hierarchy.levels:
+        d = dict(a=tuple(np.asarray(x) for x in lvl.a_ell),
+                 diag=np.asarray(lvl.diag), n=lvl.n, nnz=lvl.nnz)
+        for key, m in (("p", lvl.p_ell), ("r", lvl.r_ell)):
+            if m is not None:
+                d[key] = tuple(np.asarray(x) for x in m)
+        out.append(d)
+    return out
+
+
+def rhs(n: int, seed: int = 0) -> np.ndarray:
+    """The right-hand side of the solver anchors: standard normal, f32."""
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)

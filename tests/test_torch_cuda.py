@@ -1,7 +1,9 @@
 """The port on a CUDA card: the hand-written kernels against their torch
 twins, and the main path against the JAX package's digests (recorded
 below, from ``repro.mis2`` / ``repro.coarsen`` with the
-``compacted_resident`` engine).  Every test skips without a card.
+``compacted_resident`` engine, ``repro.color``, and ``repro.amg_setup`` /
+``repro.cluster_gs_setup`` with the ``host`` engine).  Every test skips
+without a card.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -17,8 +19,15 @@ import torch
 import repro_torch as rt
 from repro_torch.core.tuples import id_bits
 from repro_torch.graphs import generators as gen
+from repro_torch.graphs.ops import spmv_ell
 from repro_torch.kernels import _build
+from repro_torch.kernels.hash_priority import ops as hash_ops
+from repro_torch.kernels.hash_priority import ref as hash_ref
 from repro_torch.kernels.minprop_ell import ops, ref
+from repro_torch.kernels.spmv_ell import ops as spmv_ops
+from repro_torch.kernels.spmv_ell import ref as spmv_ref
+from repro_torch.multilevel.prolongator import rect_ell
+from repro_torch.solvers import cg
 
 pytestmark = pytest.mark.gpu
 
@@ -120,3 +129,119 @@ def test_main_path_matches_reference_digests(cuda_device, name):
         nagg, agg_iters, agg_digest)
     assert rt.coarsen(g, method="basic").digest == rt.coarsen(
         g, method="basic", backend=rt.Backend(device="cpu")).digest
+
+
+# -- slice 2: SpMV, transposed SpMV, hash-pack; AMG and cluster GS ----------
+
+# the reference's host engine on laplace3d(16) and its CG count (tol 1e-6)
+L16_LEVELS = [(4096, 27136), (625, 17567), (27, 649)]
+L16_DIGESTS = ["3079f70aeafb3316", "3b559532b398e5fc", "a8c5c06f3d2de1da"]
+L16_CG_ITERS = 7
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def _rand_coo(rows: int, ncols: int, max_deg: int, seed: int):
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, max_deg + 1, size=rows)
+    r = np.repeat(np.arange(rows), deg)
+    c = np.concatenate([rng.choice(ncols, size=k, replace=False)
+                        for k in deg]).astype(np.int64)
+    return r, c, rng.standard_normal(len(r)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["laplace3d(12)", "elasticity3d(4)"])
+def test_spmv_kernel_matches_twin_bitwise(cuda_device, name):
+    a = rt.Graph(GRAPHS[name](), device=cuda_device).ell_matrix
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        a.num_rows).astype(np.float32)).to(cuda_device)
+    before = dict(spmv_ops.LAUNCHES)
+    y1 = spmv_ops.spmv(a.cols, a.vals, x)
+    y2 = spmv_ops.spmv(a.cols, a.vals, x)
+    want = spmv_ref.spmv_ref(a.cols, a.vals, x)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y1), _bits(want))
+    assert torch.equal(_bits(y1), _bits(y2))
+    assert spmv_ops.LAUNCHES["spmv"] - before["spmv"] == 2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spmv_t_kernel_matches_twin_and_explicit_transpose(cuda_device,
+                                                           seed):
+    rows, num_out = 3000, 257
+    r, c, v = _rand_coo(rows, num_out, 9, seed)
+    p = rect_ell(r, c, v, rows, cuda_device)
+    rt_ = rect_ell(c, r, v, num_out, cuda_device)
+    t = spmv_ops.ell_transpose(p.cols, p.mask, num_out)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        rows).astype(np.float32)).to(cuda_device)
+    y1 = spmv_ops.spmv_t(p.vals, t, x)
+    y2 = spmv_ops.spmv_t(p.vals, t, x)
+    twin = spmv_ref.spmv_t_ref(p.vals, t.perm, t.offsets, x, t.max_len)
+    explicit = spmv_ops.spmv(rt_.cols, rt_.vals, x)
+    torch.cuda.synchronize()
+    for other in (y2, twin, explicit):
+        assert torch.equal(_bits(y1), _bits(other))
+
+
+@pytest.mark.parametrize("it", [0, 7, 2**31 - 1])
+def test_hash_pack_kernel_matches_twin_bitwise(cuda_device, it):
+    ids = torch.arange(100_003, dtype=torch.int32, device=cuda_device)
+    itd = torch.tensor([it], dtype=torch.int32, device=cuda_device)
+    for b in (1, 17, 31):
+        got = hash_ops.hash_pack(ids, itd, b)
+        again = hash_ops.hash_pack(ids, itd, b)
+        want = hash_ref.hash_pack_ref(ids, itd, b)
+        cpu = hash_ops.hash_pack(ids.cpu(), itd.cpu(), b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, again)
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.fixture
+def no_twins_on_cuda(monkeypatch):
+    """Make every twin raise on a CUDA tensor for the test's duration."""
+    def guard(fn):
+        def wrapped(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{fn.__name__} got a CUDA tensor")
+            return fn(*args, **kw)
+        return wrapped
+    for mod, names in ((spmv_ref, ("spmv_ref", "spmv_t_ref")),
+                       (hash_ref, ("hash_pack_ref",)),
+                       (ref, ("fused_refresh_columns_ref",
+                              "fused_decide_ref"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
+
+
+@pytest.mark.parametrize("explicit", [True, False])
+def test_amg_path_on_the_card(cuda_device, no_twins_on_cuda, explicit):
+    a = rt.Graph(gen.laplace3d(16))
+    s = rt.amg_setup(a, explicit_restriction=explicit)
+    assert s.level_sizes == L16_LEVELS and s.level_digests == L16_DIGESTS
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32)).to(cuda_device)
+    before = dict(spmv_ops.LAUNCHES)
+    r = cg(lambda x: spmv_ell(a.ell_matrix, x), b, precond=s.as_precond(),
+           tol=1e-6)
+    assert r.converged and abs(r.iterations - L16_CG_ITERS) <= 1
+    coarse_levels = len(L16_LEVELS) - 1
+    per_cycle = coarse_levels * (7 if explicit else 6)
+    launches = {k: spmv_ops.LAUNCHES[k] - before[k] for k in before}
+    assert launches == {
+        "spmv": (r.iterations + 1) * (1 + per_cycle),
+        "spmv_t": 0 if explicit else (r.iterations + 1) * coarse_levels}
+
+
+def test_coloring_and_cluster_gs_on_the_card(cuda_device, no_twins_on_cuda):
+    before = hash_ops.LAUNCHES["hash_pack"]
+    c = rt.color(rt.Graph(gen.laplace3d(8)))
+    assert (c.num_colors, c.digest) == (5, "3f45a9cfe50afa1e")
+    assert hash_ops.LAUNCHES["hash_pack"] - before == c.rounds
+    gs = rt.cluster_gs_setup(rt.Graph(gen.laplace3d(8)))
+    assert (gs.num_colors, gs.num_clusters, gs.digest, gs.colors_digest) == (
+        7, 82, "dfda3c0aa9776009", "d47697dd4d599e36")
+    assert gs.preconditioner.color_rows[0].is_cuda

@@ -21,7 +21,10 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, repro_torch, repro_torch.kernels.minprop_ell.ops;"
+    code = ("import sys, repro_torch, repro_torch.kernels.minprop_ell.ops,"
+            "repro_torch.kernels.spmv_ell.ops,"
+            "repro_torch.kernels.hash_priority.ops, repro_torch.solvers,"
+            "repro_torch.multilevel, repro_torch.graphs.ops;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -52,4 +55,7 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
         rt.mis2(g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rt.coarsen(g)
+    for entry in (rt.color, rt.amg_setup, rt.amg, rt.cluster_gs_setup):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(g)
     assert "csr_to_ell" not in g.conversions

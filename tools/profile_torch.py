@@ -6,9 +6,11 @@
 For each graph: one warm ``repro_torch.mis2`` and one warm
 ``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
 (ending in ``torch.cuda.synchronize()``) and then traced once with
-``torch.profiler`` (CPU + CUDA).  Prints one JSON line per call with the
-device time by kernel name (top entries), the summed device time, the
-unprofiled wall time and the device's idle share of it.
+``torch.profiler`` (CPU + CUDA).  On Laplace3D_100 the same is done for one
+AMG-preconditioned CG solve (``amg_setup`` once, untimed; tol 1e-6,
+``b = default_rng(0).standard_normal(V)``).  Prints one JSON line per call
+with the device time by kernel name (top entries), the summed device time,
+the unprofiled wall time and the device's idle share of it.
 """
 from __future__ import annotations
 
@@ -66,6 +68,19 @@ def profile_call(torch, call, top: int = 10) -> dict:
                         for k, us, n in rows[:top]]}
 
 
+def _amg_cg(torch, rt, g):
+    """One AMG-preconditioned CG solve on ``g`` (the setup runs once,
+    here, outside every timed or traced window)."""
+    import numpy as np
+
+    s = rt.amg_setup(g)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        g.num_vertices).astype(np.float32)).to(g.device)
+    a = g.ell_matrix
+    return lambda: rt.solvers.cg(lambda x: rt.graphs.ops.spmv_ell(a, x), b,
+                                 precond=s.as_precond(), tol=1e-6)
+
+
 def main() -> int:
     import torch
 
@@ -90,6 +105,8 @@ def main() -> int:
         g = rt.Graph(getattr(rt.graphs, kind)(n))
         calls = {"mis2": lambda: rt.mis2(g),
                  "coarsen": lambda: rt.coarsen(g, method="two_phase")}
+        if label == "Laplace3D_100":
+            calls["amg_cg"] = _amg_cg(torch, rt, g)
         for what, call in calls.items():
             call()                                  # warm-up: ELL, kernels
             rec = {"graph": label, "call": what, **profile_call(torch, call)}
