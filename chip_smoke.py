@@ -9,7 +9,8 @@ Phases (any failure raises, and the script exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all started together, ``sm_90a``) and print the build time;
 3. hold each kernel against its plain-torch twin on the card: the fused
-   MIS-2 passes at the Laplace3D_100 and Elasticity3D_60 shapes (random
+   MIS-2 passes at the Laplace3D_100 and Elasticity3D_60 shapes and the
+   sliced passes at the 8- and 64-wide slabs of Powerlaw_1M (random
    state, sentinel and dead worklist slots, all three priorities); the ELL
    SpMV on both matrices and the hash-pack at V = 1M for three rounds, two
    launches each, all bitwise;
@@ -29,10 +30,20 @@ Phases (any failure raises, and the script exits non-zero):
    reference's), GS-preconditioned CG on Laplace3D_100 within one
    iteration of the reference, ``color(laplace3d(8))``, and one hash-pack
    launch per Luby round;
-7. time each kernel (CUDA events, L2 flushed before each launch), its twin
+7. the hybrid path on Powerlaw_1M (``powerlaw_graph(1_000_000, 8.0,
+   exponent=2.5, seed=42)``, whose padded ELL would take 120 GB): the
+   graph digest and the layout, ``Graph.ell`` raising
+   ``LayoutOverflowError``, ``mis2`` with ``engine=None`` taking
+   ``cuda_hybrid`` (size, rounds, digest and traffic integers against the
+   reference's ``pallas_hybrid``), ``coarsen`` two-phase and basic,
+   ``color(engine="luby_hybrid")``, one launch of each sliced kernel per
+   slab per MIS-2 round; then ``cuda_hybrid`` on Laplace3D_100 and
+   Elasticity3D_60 against the ``mis2`` anchors;
+8. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside the bytes bound; the end-to-end wall times of
-   ``mis2`` / ``coarsen``, of the setup phases, of one V-cycle, one GS
+   ``mis2`` / ``coarsen`` (and on Powerlaw_1M of the hybrid ``mis2`` /
+   ``coarsen`` / ``color``), of the setup phases, of one V-cycle, one GS
    apply and each CG solve.
 
 The launch counts of each path are set to 0 just before it and read just
@@ -91,6 +102,22 @@ CLUSTER_GS = {
 COLOR_L8 = (5, "3f45a9cfe50afa1e")
 CG_TOL = 1e-6
 
+# the reference's pallas_hybrid path on powerlaw_graph(1_000_000, 8.0,
+# exponent=2.5, seed=42) (JAX on the CPU, Pallas in interpret mode)
+POWERLAW_1M = dict(
+    args=(1_000_000, 8.0), kw=dict(exponent=2.5, seed=42),
+    digest="a93fce7cfeb3773f", entries=8_979_266, max_degree=24_065,
+    ell_bytes=120_325_000_000, spill_cap=64, widths=(8, 16, 32, 64),
+    slab_rows=(750_669, 171_383, 52_017, 17_077), spill_rows=8_854,
+    spill_entries=1_598_927,
+    mis2=(135_109, 10, "45c80367656d7482"),
+    slice_rows_processed=[5_258_959, 1_158_292, 346_608, 108_782],
+    spill_passes=20, row_bytes_total=442_545_552,
+    two_phase=(183_951, 17, "ab870d9f4a61bf55"),
+    basic=(135_109, 10, "406787ed01a9ed03"),
+    color=(36, 80, "f50cd95ad8b0addc"))
+TIMED_SLABS = (8, 64)
+
 KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
     "fused_refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:216",
                               "src/repro_torch/kernels/csrc/minprop_ell.cu"),
@@ -102,7 +129,12 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
                "src/repro_torch/kernels/csrc/spmv_ell.cu"),
     "hash_pack": ("src/repro/kernels/hash_priority/kernel.py:31",
                   "src/repro_torch/kernels/csrc/hash_pack.cu"),
+    "sliced_refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:375",
+                               "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "sliced_decide": ("src/repro/kernels/minprop_ell/kernel.py:409",
+                      "src/repro_torch/kernels/csrc/minprop_ell.cu"),
 }
+SLICED = ("sliced_refresh_columns", "sliced_decide")
 
 
 class SmokeFailure(RuntimeError):
@@ -198,6 +230,26 @@ def main() -> int:
         emit({"phase": "graph", "graph": label, "V": g.num_vertices,
               "entries": g.num_entries, "ell_width": ell.width,
               "digest": g.digest, "setup_s": gen_s})
+    pl_want = POWERLAW_1M
+    t0 = time.perf_counter()
+    pl = rt.Graph(rt.graphs.powerlaw_graph(*pl_want["args"], **pl_want["kw"]),
+                  device=dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyb = pl.hybrid()
+    hybrid_s = time.perf_counter() - t0
+    layout = dict(digest=pl.digest, entries=pl.num_entries,
+                  max_degree=pl.max_degree, ell_bytes=pl.ell_bytes_estimate(),
+                  spill_cap=hyb.spill_cap, widths=hyb.slice_widths,
+                  slab_rows=hyb.slice_num_rows,
+                  spill_rows=hyb.num_spill_rows,
+                  spill_entries=hyb.num_spill_entries)
+    for k, got in layout.items():
+        check(got == pl_want[k], f"Powerlaw_1M: {k} {got} != {pl_want[k]}")
+    emit({"phase": "graph", "graph": "Powerlaw_1M", "V": pl.num_vertices,
+          **layout, "padded_bytes": hyb.padded_bytes,
+          "padding_ratio": hyb.padding_ratio, "generate_s": gen_s,
+          "hybrid_s": hybrid_s})
 
     # -- 3. kernels against their twins ------------------------------------------
     rng = np.random.default_rng(20221)
@@ -206,44 +258,14 @@ def main() -> int:
     for label in PAPER_GRAPHS:
         ell = graphs[label].ell
         v = ell.num_vertices
-        nbrs_flat = ell.neighbors.reshape(-1)
-        b = id_bits(v)
-        t_np = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
-        t_np[rng.random(v) < 0.1] = 0
-        t_np[rng.random(v) < 0.1] = 0xFFFFFFFF
-        m_np = rng.integers(0, 2**32, size=v, dtype=np.uint32)
-        act_np = rng.random(v) < 0.9
         count = int(v * 0.6)
         wl_np = rng.permutation(v).astype(np.int32)   # real rows past count
         wl_np[rng.random(v) < 0.05] = v               # sentinels inside
-        t = torch.from_numpy(t_np.view(np.int32)).to(dev)
-        m = torch.from_numpy(m_np.view(np.int32)).to(dev)
-        active = torch.from_numpy(act_np).to(dev)
-        wl = torch.from_numpy(wl_np).to(dev)
-        cnt = torch.tensor([count], dtype=torch.int32, device=dev)
-        for priority in ("xorshift_star", "xorshift", "fixed"):
-            it = torch.tensor([int(rng.integers(0, 12))], dtype=torch.int32,
-                              device=dev)
-            kw = dict(priority=priority, b=b)
-            mk, mr = m.clone(), m.clone()
-            ops.fused_refresh_columns(t, mk, nbrs_flat, wl, cnt, it, **kw)
-            ref.fused_refresh_columns_ref(t, mr, nbrs_flat, wl, cnt, it, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(mk, mr), f"fused_refresh_columns != twin "
-                  f"({label}, {priority})")
-            check(not torch.equal(mk, m), "fused_refresh_columns wrote nothing")
-            errs["fused_refresh_columns"] = max(
-                errs["fused_refresh_columns"], _max_abs_err_u32(mk, mr))
-            tk, tr = t.clone(), t.clone()
-            ops.fused_decide(tk, mk, active, nbrs_flat, wl, cnt, it, **kw)
-            ref.fused_decide_ref(tr, mk, active, nbrs_flat, wl, cnt, it, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(tk, tr), f"fused_decide != twin "
-                  f"({label}, {priority})")
-            check(not torch.equal(tk, t), "fused_decide wrote nothing")
-            errs["fused_decide"] = max(errs["fused_decide"],
-                                       _max_abs_err_u32(tk, tr))
-            checks += 2
+        args = (ell.neighbors.reshape(-1), torch.from_numpy(wl_np).to(dev),
+                torch.tensor([count], dtype=torch.int32, device=dev))
+        checks += _hold_round_pair(torch, ops, ref, "fused", label,
+                                   _random_state(torch, rng, v, dev), args,
+                                   id_bits(v), rng, errs)
         # the ELL SpMV on the graph's matrix: two launches, twin, bitwise
         a_ell = graphs[label].ell_matrix
         x = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
@@ -256,6 +278,21 @@ def main() -> int:
         check(bool(torch.isfinite(y1).all()), f"spmv not finite ({label})")
         errs["spmv"] = max(errs["spmv"], _max_abs_err(y1, yr))
         checks += 1
+    for sl in hyb.slices:
+        if sl.width not in TIMED_SLABS:
+            continue
+        r_rows = sl.num_rows
+        count = int(r_rows * 0.6)
+        wl_np = np.full(r_rows, r_rows, dtype=np.int32)   # the loop's form
+        wl_np[:count] = rng.permutation(r_rows)[:count]
+        wl_np[:count][rng.random(count) < 0.05] = r_rows  # sentinels inside
+        args = (sl.rows, sl.neighbors.reshape(-1),
+                torch.from_numpy(wl_np).to(dev),
+                torch.tensor([count], dtype=torch.int32, device=dev))
+        checks += _hold_round_pair(
+            torch, ops, ref, "sliced", f"Powerlaw_1M width {sl.width}",
+            _random_state(torch, rng, pl.num_vertices, dev), args,
+            id_bits(pl.num_vertices), rng, errs)
     vids = torch.arange(1_000_000, dtype=torch.int32, device=dev)
     for rnd in range(3):
         itd = torch.tensor([rnd], dtype=torch.int32, device=dev)
@@ -440,10 +477,18 @@ def main() -> int:
                                  "digest": c8.digest, "rounds": c8.rounds},
           **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
              for k, v in gs.items()}})
+    # -- 7. the hybrid path on Powerlaw_1M ----------------------------------------
+    launches.reset()
+    hybrid = _hybrid_path(torch, rt, pl, graphs, launches)
+    counts = launches.read()
+    add_path(counts)
+    for k in SLICED:
+        check(counts[k] > 0, f"{k} was never launched on the hybrid path")
+    emit({"phase": "hybrid_path", "launches": counts, **hybrid})
     for k in KERNELS:
         check(path_launches[k] > 0, f"{k} was never launched on a path")
 
-    # -- 7. timing ------------------------------------------------------------------
+    # -- 8. timing ------------------------------------------------------------------
     timing = {}
     for label in PAPER_GRAPHS:
         timing[label] = _time_kernels(torch, graphs[label], ops, ref, id_bits)
@@ -481,6 +526,16 @@ def main() -> int:
     }
     emit({"phase": "timing_solve", "spmv_t": spmv_t_time,
           "hash_pack": hash_time, **solve})
+    sliced_time = _time_sliced(torch, hyb, ops, ref, id_bits)
+    pl_e2e = {what: _wall_ms(torch, call) for what, call in (
+        *((f"cuda_hybrid_{label}", lambda g=graphs[label]: rt.mis2(
+            g, engine="cuda_hybrid")) for label in PAPER_GRAPHS),
+        ("mis2", lambda: rt.mis2(pl)),
+        ("coarsen_two_phase", lambda: rt.coarsen(pl, method="two_phase")),
+        ("coarsen_basic", lambda: rt.coarsen(pl, method="basic")),
+        ("color", lambda: rt.color(pl, engine="luby_hybrid")))}
+    emit({"phase": "timing_hybrid", "graph": "Powerlaw_1M",
+          "slabs": sliced_time, "end_to_end_wall_ms": pl_e2e})
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -491,6 +546,8 @@ def main() -> int:
         "spmv": ("Laplace3D_100 A [1M, 7]", timing["Laplace3D_100"]["spmv"]),
         "spmv_t": ("Laplace3D_100 level-0 P", spmv_t_time),
         "hash_pack": ("V = 1M", hash_time),
+        **{k: ("Powerlaw_1M 8-wide slab round 0", sliced_time[8][k])
+           for k in SLICED},
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -505,12 +562,61 @@ def main() -> int:
         }
         if k in ("fused_refresh_columns", "fused_decide", "spmv"):
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
+        if k in SLICED:
+            entry["by_slab"] = {f"width {w}": sliced_time[w][k]
+                                for w in TIMED_SLABS}
         kernels_line.append(entry)
     emit({"kernels": kernels_line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _random_state(torch, rng, v: int, dev):
+    """Random T (some IN, some OUT), M (some OUT) and active over ``v``
+    vertices, on ``dev``."""
+    import numpy as np
+
+    t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
+    t[rng.random(v) < 0.1] = 0
+    t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
+    m[rng.random(v) < 0.2] = 0xFFFFFFFF
+    return (torch.from_numpy(t.view(np.int32)).to(dev),
+            torch.from_numpy(m.view(np.int32)).to(dev),
+            torch.from_numpy(rng.random(v) < 0.9).to(dev))
+
+
+def _hold_round_pair(torch, ops, ref, prefix: str, where: str, state, args,
+                     b: int, rng, errs: dict) -> int:
+    """One ``{prefix}_refresh_columns`` and one ``{prefix}_decide`` launch
+    against their twins on the same state, for each priority, bitwise;
+    ``args`` follow ``t, m[, active]`` in the kernels' signatures.  Returns
+    the number of checks."""
+    t, m, active = state
+    refresh, decide = f"{prefix}_refresh_columns", f"{prefix}_decide"
+    checks = 0
+    for priority in ("xorshift_star", "xorshift", "fixed"):
+        it = torch.tensor([int(rng.integers(0, 12))], dtype=torch.int32,
+                          device=t.device)
+        kw = dict(priority=priority, b=b)
+        mk, mr = m.clone(), m.clone()
+        getattr(ops, refresh)(t, mk, *args, it, **kw)
+        getattr(ref, refresh + "_ref")(t, mr, *args, it, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(mk, mr), f"{refresh} != twin ({where}, {priority})")
+        check(not torch.equal(mk, m), f"{refresh} wrote nothing")
+        errs[refresh] = max(errs[refresh], _max_abs_err_u32(mk, mr))
+        tk, tr = t.clone(), t.clone()
+        getattr(ops, decide)(tk, mk, active, *args, it, **kw)
+        getattr(ref, decide + "_ref")(tr, mk, active, *args, it, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(tk, tr), f"{decide} != twin ({where}, {priority})")
+        check(not torch.equal(tk, t), f"{decide} wrote nothing")
+        errs[decide] = max(errs[decide], _max_abs_err_u32(tk, tr))
+        checks += 2
+    return checks
 
 
 def _bits_equal(a, b) -> bool:
@@ -690,6 +796,147 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
         out[k] = {**_timed(torch, kernel, twin, None, nbytes,
                            restore=restore, reps=reps, plain_reps=plain_reps),
                   "V": v, "D": d}
+    return out
+
+
+def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
+    """Phase 7: the hybrid path on Powerlaw_1M against the reference's
+    anchors, and ``cuda_hybrid`` on the two paper graphs."""
+    want = POWERLAW_1M
+    try:
+        _ = pl.ell
+        raise SmokeFailure("Powerlaw_1M: Graph.ell did not raise")
+    except rt.graphs.LayoutOverflowError as e:
+        check("cuda_hybrid" in str(e), f"overflow message: {e}")
+    check("csr_to_ell" not in pl.conversions, "Powerlaw_1M built an ELL")
+    slices = pl.hybrid().num_slices
+    out = {}
+
+    def sliced_launches(before, after, rounds, what):
+        for k in SLICED:
+            got = after[k] - before[k]
+            check(got == slices * rounds, f"{what}: {k} launched {got} times "
+                  f"in {rounds} rounds over {slices} slabs")
+
+    before = launches.read()
+    r = rt.mis2(pl)
+    after = launches.read()
+    check(r.engine == "cuda_hybrid", f"Powerlaw_1M: engine {r.engine}")
+    check((r.size, r.iterations, r.digest) == want["mis2"],
+          f"Powerlaw_1M: mis2 {(r.size, r.iterations, r.digest)} != "
+          f"{want['mis2']}")
+    check(r.converged, "Powerlaw_1M: mis2 did not converge")
+    col = r.collectives
+    for k in ("slice_rows_processed", "spill_passes", "row_bytes_total",
+              "spill_entries"):
+        check(col[k] == want[k], f"Powerlaw_1M: {k} {col[k]} != {want[k]}")
+    sliced_launches(before, after, r.iterations, "Powerlaw_1M mis2")
+    check(after["fused_decide"] == before["fused_decide"],
+          "Powerlaw_1M mis2 launched a fused kernel")
+    out["mis2"] = {"engine": r.engine, "size": r.size,
+                   "iterations": r.iterations, "digest": r.digest,
+                   "host_syncs": r.host_syncs, "collectives": col,
+                   "first_call_s": r.wall_time_s,
+                   "launches": {k: after[k] - before[k] for k in after}}
+    for method in ("two_phase", "basic"):
+        before = launches.read()
+        a = rt.coarsen(pl, method=method)
+        after = launches.read()
+        got = (a.num_aggregates, a.iterations, a.digest)
+        check(a.engine == "cuda_hybrid", f"Powerlaw_1M coarsen: {a.engine}")
+        check(got == want[method],
+              f"Powerlaw_1M: coarsen({method}) {got} != {want[method]}")
+        sliced_launches(before, after, a.iterations,
+                        f"Powerlaw_1M coarsen({method})")
+        out[f"coarsen_{method}"] = {
+            "aggregates": a.num_aggregates, "mis2_iterations": a.iterations,
+            "digest": a.digest, "first_call_s": a.wall_time_s}
+    before = launches.read()
+    c = rt.color(pl, engine="luby_hybrid")
+    after = launches.read()
+    got = (c.num_colors, c.rounds, c.digest)
+    check(got == want["color"], f"Powerlaw_1M: color {got} != {want['color']}")
+    check(after["hash_pack"] - before["hash_pack"] == c.rounds,
+          "Powerlaw_1M color: one hash_pack launch per Luby round expected")
+    out["color"] = {"colors": c.num_colors, "rounds": c.rounds,
+                    "digest": c.digest, "host_syncs": c.host_syncs,
+                    "first_call_s": c.wall_time_s}
+    check("csr_to_ell" not in pl.conversions, "Powerlaw_1M built an ELL")
+    for label in PAPER_GRAPHS:
+        g = graphs[label]
+        slices_g = g.hybrid().num_slices
+        before = launches.read()
+        rh = rt.mis2(g, engine="cuda_hybrid")
+        after = launches.read()
+        got = (rh.size, rh.iterations, rh.digest)
+        check(got == ANCHORS[label]["mis2"],
+              f"{label}: cuda_hybrid {got} != {ANCHORS[label]['mis2']}")
+        for k in SLICED:
+            check(after[k] - before[k] == slices_g * rh.iterations,
+                  f"{label}: {k} launched {after[k] - before[k]} times")
+        out[f"cuda_hybrid_{label}"] = {
+            "size": rh.size, "iterations": rh.iterations,
+            "digest": rh.digest, "slice_widths": list(
+                g.hybrid().slice_widths), "first_call_s": rh.wall_time_s}
+    return out
+
+
+def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
+                 plain_reps: int = 5) -> dict:
+    """Each sliced kernel and its twin on the 8- and 64-wide slabs at the
+    hybrid loop's round-0 state: every row live, every tuple undecided, M
+    of the whole graph refreshed before the decide; the state each writes
+    restored before each launch."""
+    v = hyb.num_vertices
+    dev = hyb.spill_rows.device
+    b = id_bits(v)
+    kw = dict(priority="xorshift_star", b=b)
+    t0 = torch.ones(v, dtype=torch.int32, device=dev)
+    m0 = torch.full((v,), -1, dtype=torch.int32, device=dev)
+    active = torch.ones(v, dtype=torch.bool, device=dev)
+    it = torch.zeros(1, dtype=torch.int32, device=dev)
+    m_ready = m0.clone()
+    for sl in hyb.slices:        # round 0's refresh of every row
+        r = sl.num_rows
+        ops.sliced_refresh_columns(
+            t0, m_ready, sl.rows, sl.neighbors.reshape(-1),
+            torch.arange(r, dtype=torch.int32, device=dev),
+            torch.full((1,), r, dtype=torch.int32, device=dev), it, **kw)
+    ops.spill_refresh_columns(t0, m_ready, hyb.spill_rows, hyb.spill_seg,
+                              hyb.spill_cols, active, it, **kw)
+    out = {}
+    for sl in hyb.slices:
+        if sl.width not in TIMED_SLABS:
+            continue
+        r, w = sl.num_rows, sl.width
+        nbrs_flat = sl.neighbors.reshape(-1)
+        wl = torch.arange(r, dtype=torch.int32, device=dev)
+        cnt = torch.full((1,), r, dtype=torch.int32, device=dev)
+        slab = (sl.rows, nbrs_flat, wl, cnt, it)
+        m, t = m0.clone(), t0.clone()
+        n_distinct = int(torch.unique(nbrs_flat).numel())
+        # refresh: wl + slab rows + ids + T at distinct ids + M written
+        refresh_bytes = 4 * r + 4 * r + 4 * r * w + 4 * n_distinct + 4 * r + 8
+        # decide: wl + slab rows + ids + own T + M and active at distinct
+        # ids + T written
+        decide_bytes = (4 * r + 4 * r + 4 * r * w + 4 * r + 5 * n_distinct
+                        + 4 * r + 8)
+        cases = {
+            "sliced_refresh_columns": (
+                lambda: ops.sliced_refresh_columns(t0, m, *slab, **kw),
+                lambda: ref.sliced_refresh_columns_ref(t0, m, *slab, **kw),
+                lambda: m.copy_(m0), refresh_bytes),
+            "sliced_decide": (
+                lambda: ops.sliced_decide(t, m_ready, active, *slab, **kw),
+                lambda: ref.sliced_decide_ref(t, m_ready, active, *slab, **kw),
+                lambda: t.copy_(t0), decide_bytes),
+        }
+        out[w] = {}
+        for k, (kernel, twin, restore, nbytes) in cases.items():
+            out[w][k] = {**_timed(torch, kernel, twin, None, nbytes,
+                                  restore=restore, reps=reps,
+                                  plain_reps=plain_reps),
+                         "R": r, "W": w, "distinct_ids": n_distinct}
     return out
 
 

@@ -30,9 +30,23 @@ def resolve_backend(backend: Backend | None) -> Backend:
     return Backend() if backend is None else backend
 
 
-#: ``engine=None``: the device-resident fixed point on the fused kernels, for
-#: every graph with a monolithic ELL layout (the only layout ported so far)
+#: ``engine=None`` below the hybrid threshold: the device-resident fixed
+#: point on the fused kernels over the monolithic padded ELL
 DEFAULT_MIS2_ENGINE = "cuda_resident"
+
+
+def default_mis2_engine(graph) -> str:
+    """The ``engine=None`` rule of ``mis2`` and of the coarsening's inner
+    fixed points: ``cuda_hybrid`` once the graph's padded-ELL bytes
+    estimate exceeds ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES`` (a
+    skewed graph at scale), else :data:`DEFAULT_MIS2_ENGINE`.  The
+    threshold is read at call time, so a test can lower it."""
+    from ..graphs import hybrid as _hybrid
+
+    if graph.ell_bytes_estimate() > _hybrid.HYBRID_AUTO_BYTES:
+        return "cuda_hybrid"
+    return DEFAULT_MIS2_ENGINE
+
 
 #: ``engine=None`` of ``amg_setup`` / ``cluster_gs_setup``: the host setup
 #: (the reference picks its device-resident engine on accelerators; that

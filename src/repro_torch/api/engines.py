@@ -14,8 +14,9 @@ from ..core.aggregation import (
     _aggregate_serial_greedy_impl,
     _aggregate_two_phase_impl,
 )
-from ..core.coloring import _color_graph_impl
+from ..core.coloring import _color_graph_impl, _color_hybrid_impl
 from ..core.mis2 import _mis2_dense_impl, _mis2_resident_impl
+from ..core.mis2_hybrid import _mis2_hybrid_impl
 from ..multilevel.hierarchy import (
     _build_hierarchy_impl,
     _cluster_gs_setup_impl,
@@ -24,6 +25,7 @@ from .registry import register_engine
 
 register_engine("mis2", "dense")(_mis2_dense_impl)
 register_engine("mis2", "cuda_resident")(_mis2_resident_impl)
+register_engine("mis2", "cuda_hybrid")(_mis2_hybrid_impl)
 
 
 @register_engine("aggregation", "basic")
@@ -43,6 +45,7 @@ def _agg_serial(graph, options, mis2_engine, min_secondary_neighbors):
 
 
 register_engine("coloring", "luby")(_color_graph_impl)
+register_engine("coloring", "luby_hybrid")(_color_hybrid_impl)
 
 
 @register_engine("multilevel", "host")

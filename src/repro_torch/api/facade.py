@@ -6,6 +6,7 @@ the :class:`~repro_torch.api.result.Result` form.
 
     a = rt.Graph(rt.graphs.laplace3d(100))
     r = rt.mis2(a)                           # cuda_resident on the card
+                                             # (cuda_hybrid past 256 MiB)
     agg = rt.coarsen(a, method="two_phase")
     amg = rt.amg_setup(a)                    # SA-AMG hierarchy
     gs = rt.cluster_gs_setup(a)              # cluster multicolor GS
@@ -21,9 +22,9 @@ from ..core.coloring import MAX_ROUNDS_DEFAULT
 from ..core.mis2 import Mis2Options
 from ..graphs.handle import Graph, as_graph
 from .backend import (
-    DEFAULT_MIS2_ENGINE,
     DEFAULT_MULTILEVEL_ENGINE,
     Backend,
+    default_mis2_engine,
     resolve_backend,
 )
 from .registry import get_engine
@@ -43,19 +44,22 @@ def _prepare(graph, be: Backend) -> Graph:
 def mis2(graph, *, active=None, options: Mis2Options | None = None,
          engine: str | None = None,
          backend: Backend | None = None) -> Mis2Result:
-    """Distance-2 maximal independent set (paper Alg. 1); ``dense`` and
-    ``cuda_resident`` return bit-identical sets (equal ``digest``), equal
-    to the JAX package's for equal graph and options.  ``engine=None``
-    selects ``cuda_resident``."""
+    """Distance-2 maximal independent set (paper Alg. 1); ``dense``,
+    ``cuda_resident`` and ``cuda_hybrid`` return bit-identical sets (equal
+    ``digest``), equal to the JAX package's for equal graph and options.
+    ``engine=None`` selects ``cuda_resident``, or ``cuda_hybrid`` (the
+    sliced-ELL + COO-spill layout, O(E) memory) once the padded-ELL bytes
+    estimate passes ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES``; the
+    hybrid engine reports its traffic accounting in ``collectives``."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
-    engine = DEFAULT_MIS2_ENGINE if engine is None else engine
+    engine = default_mis2_engine(gh) if engine is None else engine
     fn = get_engine("mis2", engine)
     t0 = time.perf_counter()
     r = fn(gh, active, options)
     dt = time.perf_counter() - t0
     return Mis2Result(r.in_set, r.iterations, r.converged, dt, engine=engine,
-                      host_syncs=r.host_syncs)
+                      host_syncs=r.host_syncs, collectives=r.collectives)
 
 
 def coarsen(graph, *, method: str = "two_phase",
@@ -65,12 +69,13 @@ def coarsen(graph, *, method: str = "two_phase",
             backend: Backend | None = None) -> AggregationResult:
     """MIS-2 graph coarsening: ``method`` is ``two_phase`` (paper Alg. 3),
     ``basic`` (Alg. 2) or ``serial`` (host-sequential reference).
-    ``mis2_engine=None`` selects ``cuda_resident`` for the inner fixed
-    points."""
+    ``mis2_engine=None`` selects the inner fixed points as ``mis2`` does
+    (``cuda_hybrid``, with the joins over the hybrid layout, past the
+    threshold)."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     fn = get_engine("aggregation", method)
-    inner = DEFAULT_MIS2_ENGINE if mis2_engine is None else mis2_engine
+    inner = default_mis2_engine(gh) if mis2_engine is None else mis2_engine
     t0 = time.perf_counter()
     r = fn(gh, options, inner, min_secondary_neighbors)
     dt = time.perf_counter() - t0
@@ -83,8 +88,9 @@ def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
           engine: str = "luby",
           backend: Backend | None = None) -> ColoringResult:
     """Deterministic parallel greedy distance-1 coloring, equal (colors and
-    digest) to the JAX package's.  If the round limit is hit before every
-    vertex is colored the result comes back with ``converged=False``
+    digest) to the JAX package's: ``engine`` is ``luby`` (padded ELL) or
+    ``luby_hybrid`` (the hybrid layout).  If the round limit is hit before
+    every vertex is colored the result comes back with ``converged=False``
     (uncolored vertices hold ``-1``) instead of raising."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)

@@ -45,10 +45,14 @@ class Mis2Result(Result):
     ``host_syncs`` counts the device->host reads inside the fixed point:
     the resident engine reads the live count once per round to decide
     whether to go on, so a solve of ``R`` rounds that converges reports
-    ``R + 1``."""
+    ``R + 1``.  ``collectives`` is the ``cuda_hybrid`` engine's traffic
+    accounting (``slice_widths``, ``slice_rows_processed``,
+    ``spill_entries``, ``spill_passes``, ``row_bytes_total``), in the
+    reference's keys; None for the other engines."""
 
     engine: str = ""
     host_syncs: int = 0
+    collectives: dict | None = None
 
     @property
     def in_set(self) -> np.ndarray:

@@ -10,6 +10,8 @@ mask).  The round's priorities come from the hash-pack kernel
 (``kernels.hash_priority``) with the round number on the device; the
 rowwise round is plain torch over the ELL adjacency.  The loop reads one
 flag per round on the host to decide whether to go on (``host_syncs``).
+``luby_hybrid`` runs the same rounds over the degree-aware hybrid layout
+(slab rows as above, the spill's heavy rows by segment reductions).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from ..graphs.handle import as_graph
 from ..kernels.hash_priority import ops as hash_ops
+from ..kernels.minprop_ell.ops import segment_reduce
 from .tuples import U32_MASK, id_bits, widen
 
 MAX_COLORS = 64
@@ -81,12 +84,10 @@ def _color_round_rows(neighbors, mask, row_ids, colors, prio):
     return torch.where((own < 0) & is_min, chosen, own)
 
 
-def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
-                      max_rounds: int):
+def _luby_loop(v: int, dev, max_rounds: int, round_fn):
     """The Luby round loop with the reference's do-while shape (at least
-    one round).  Returns ``(colors int32 [V], rounds, host_syncs)``."""
-    v = neighbors.shape[0]
-    dev = neighbors.device
+    one round); ``round_fn(colors, prio)`` is one round over every row.
+    Returns ``(colors int32 [V], rounds, host_syncs)``."""
     b = id_bits(v)
     vids = torch.arange(v, dtype=torch.int32, device=dev)
     colors = torch.full((v,), -1, dtype=torch.int32, device=dev)
@@ -99,11 +100,76 @@ def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
             syncs += 1
             if not bool((colors < 0).any()):    # the one host read a round
                 break
-        prio = _round_priorities(vids, rnd_dev, b)
-        colors = _color_round_rows(neighbors, mask, vids, colors, prio)
+        colors = round_fn(colors, _round_priorities(vids, rnd_dev, b))
         rnd_dev += 1
         rnd += 1
     return colors, rnd, syncs
+
+
+def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
+                      max_rounds: int):
+    """The Luby round loop over the padded ELL.  Returns ``(colors int32
+    [V], rounds, host_syncs)``."""
+    v = neighbors.shape[0]
+    vids = torch.arange(v, dtype=torch.int32, device=neighbors.device)
+    return _luby_loop(v, neighbors.device, max_rounds,
+                      lambda colors, prio: _color_round_rows(
+                          neighbors, mask, vids, colors, prio))
+
+
+def _spill_color_round(spill_rows, spill_seg, spill_cols, colors, prio):
+    """One Luby round over the heavy rows of the COO spill, equal to
+    :func:`_color_round_rows` on the same rows: ``all(own < pn)`` over the
+    contenders is ``own < segment min(pn)``, the segment holding 2**32 - 1
+    where there is no contender (a packed priority never equals it: its
+    low ``b`` bits are ``id + 1 <= V < 2**b - 1``), and the forbidden-color
+    OR is a ``[H*64]`` one-hot ``amax`` scatter summed against distinct
+    powers of two (sum == OR for distinct bits)."""
+    h = spill_rows.shape[0]
+    rows = spill_rows.to(torch.int64)
+    cols = spill_cols.to(torch.int64)
+    seg = spill_seg.to(torch.int64)
+    own = colors[rows]
+    cn = colors[cols].to(torch.int64)
+    pn = prio[cols]
+    real = cols != rows[seg]
+    contender = real & (cn < 0)
+    min_pn = segment_reduce(torch.where(contender, pn, U32_MASK), seg, h,
+                            "amin", U32_MASK)
+    is_min = prio[rows] < min_pn
+    has = real & (cn >= 0)
+    onehot = segment_reduce(has.to(torch.int64),
+                            seg * MAX_COLORS + cn.clamp(0, MAX_COLORS - 1),
+                            h * MAX_COLORS, "amax", 0).view(h, MAX_COLORS)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=colors.device)
+    forb_lo = (onehot[:, :32] * weights).sum(dim=1)
+    forb_hi = (onehot[:, 32:] * weights).sum(dim=1)
+    chosen = _smallest_free_color(forb_lo, forb_hi)
+    return torch.where((own < 0) & is_min, chosen, own)
+
+
+def color_fixed_point_hybrid(hyb, max_rounds: int):
+    """The Luby round loop over the hybrid layout: each round runs
+    :func:`_color_round_rows` on every slab and :func:`_spill_color_round`
+    on the spill, all reading the round-start colors and writing a fresh
+    buffer (the slabs and the spill partition the rows), so every round is
+    the monolithic round evaluated piecewise.  Returns ``(colors int32
+    [V], rounds, host_syncs)``."""
+    slabs = [(sl.neighbors, sl.mask, sl.rows, sl.rows.to(torch.int64))
+             for sl in hyb.slices]
+    spill_rows = hyb.spill_rows.to(torch.int64)
+
+    def round_fn(colors, prio):
+        new = colors.clone()
+        for nbrs, mask, rows, rows64 in slabs:
+            new[rows64] = _color_round_rows(nbrs, mask, rows, colors, prio)
+        if hyb.num_spill_rows:
+            new[spill_rows] = _spill_color_round(
+                hyb.spill_rows, hyb.spill_seg, hyb.spill_cols, colors, prio)
+        return new
+
+    return _luby_loop(hyb.num_vertices, hyb.spill_rows.device, max_rounds,
+                      round_fn)
 
 
 def _coloring_result(colors: torch.Tensor, rounds: int,
@@ -122,6 +188,15 @@ def _color_graph_impl(graph,
     ell = as_graph(graph).ell
     colors, rounds, syncs = color_fixed_point(ell.neighbors, ell.mask,
                                               max_rounds)
+    return _coloring_result(colors, rounds, syncs)
+
+
+def _color_hybrid_impl(graph,
+                       max_rounds: int = MAX_ROUNDS_DEFAULT) -> ColoringResult:
+    """Luby coloring over the hybrid layout (the ``luby_hybrid`` engine):
+    never builds ``graph.ell``; colors equal the ``luby`` engine's."""
+    colors, rounds, syncs = color_fixed_point_hybrid(as_graph(graph).hybrid(),
+                                                     max_rounds)
     return _coloring_result(colors, rounds, syncs)
 
 

@@ -1,7 +1,7 @@
 """Parallel, deterministic distance-2 maximal independent set (paper Alg. 1),
 PyTorch port of ``repro.core.mis2``.
 
-Two engines, bit-identical results:
+Three engines, bit-identical results:
 
 * ``dense`` — the plain referent: every round refreshes, min-propagates and
   decides over all ``V`` rows with masks (``mis2_dense_fixed_point``).
@@ -12,6 +12,8 @@ Two engines, bit-identical results:
   ``kernels.minprop_ell.ops`` (a CUDA kernel each on the card, their
   plain-torch twins on the CPU), with the live counts and the round number
   read by the kernels on the device.
+* ``cuda_hybrid`` — the same loop over the degree-aware hybrid layout
+  (``core.mis2_hybrid``), for graphs whose padded ELL is too large.
 
 The loop's only host involvement is one read of the live count per round,
 to decide whether to go on: ``Mis2Result.host_syncs`` reports it.
@@ -48,6 +50,7 @@ class Mis2Result:
     iterations: int
     converged: bool
     host_syncs: int = 0       # device->host reads inside the fixed point
+    collectives: dict | None = None   # cuda_hybrid: the traffic accounting
 
     @property
     def size(self) -> int:
@@ -117,12 +120,13 @@ def _mis2_dense_impl(graph, active=None,
 # ===========================================================================
 
 def compact_worklist(mask: torch.Tensor):
-    """Cumsum stream compaction of a ``[V]`` live mask, on the device.
+    """Cumsum stream compaction of an ``[n]`` live mask, on the device.
 
-    Returns ``(indices int32 [V], count int32 [1])``: the first ``count``
+    Returns ``(indices int32 [n], count int32 [1])``: the first ``count``
     slots hold the set indices in ascending order (``np.flatnonzero``
-    order), the rest the sentinel ``V``.  torch has no drop-mode scatter,
-    so the dead slots scatter into a dump slot ``V`` that is sliced off.
+    order), the rest the sentinel ``n`` (``V`` for the whole graph, ``R``
+    for a hybrid slab).  torch has no drop-mode scatter, so the dead slots
+    scatter into a dump slot ``n`` that is sliced off.
     """
     v = mask.shape[0]
     pos = torch.cumsum(mask, dim=0, dtype=torch.int64) - 1
@@ -183,10 +187,15 @@ def _mis2_resident_impl(graph, active=None,
 def run_mis2(graph, active=None, options: Mis2Options | None = None,
              engine: str = "cuda_resident") -> Mis2Result:
     """Engine dispatch used by the facade and the coarsening drivers;
-    ``dense`` and ``cuda_resident`` give bit-identical sets."""
+    ``dense``, ``cuda_resident`` and ``cuda_hybrid`` give bit-identical
+    sets."""
     if engine == "dense":
         return _mis2_dense_impl(graph, active, options)
     if engine == "cuda_resident":
         return _mis2_resident_impl(graph, active, options)
+    if engine == "cuda_hybrid":
+        from .mis2_hybrid import _mis2_hybrid_impl
+
+        return _mis2_hybrid_impl(graph, active, options)
     raise ValueError(f"unknown mis2 engine {engine!r} "
-                     "(dense | cuda_resident)")
+                     "(dense | cuda_resident | cuda_hybrid)")

@@ -8,6 +8,9 @@
   SPD surrogate.
 * ``random_uniform_graph`` / ``random_skewed_graph`` / ``path_graph`` —
   the random and toy graphs of the test and benchmark suites.
+* ``powerlaw_graph`` — the Chung-Lu power-law graph whose hub rows make
+  the monolithic padded ELL infeasible at V = 1M (the hybrid layout's
+  case).
 
 Every generator draws from ``np.random.default_rng(seed)`` and goes through
 :func:`csr_from_coo`, so equal arguments give equal CSR bytes — and equal
@@ -126,6 +129,27 @@ def random_skewed_graph(num_vertices: int, avg_degree: float, seed: int = 0,
     perm = rng.permutation(num_vertices)
     return _symmetric(perm[end[:m]], perm[end[m:]], num_vertices,
                       with_self_loops)
+
+
+def powerlaw_graph(num_vertices: int, avg_degree: float = 8.0,
+                   exponent: float = 2.5, seed: int = 0,
+                   with_self_loops: bool = True) -> CSRGraph:
+    """Deterministic Chung-Lu power-law graph (degree exponent ``exponent``).
+
+    Endpoints of ``V * avg_degree / 2`` undirected edges are drawn i.i.d.
+    with probability proportional to ``w_i = (i + 1)^(-1/(exponent - 1))``:
+    the expected degree distribution is ``P(deg = k) ~ k^-exponent``, with a
+    hub of expected degree ``~ V^(1/(exponent-1)) * avg_degree``.  At
+    V = 1M, exponent 2.5, that hub makes the ``[V, max_degree]`` padded ELL
+    ~120 GB while the edge count stays ~9M.
+    """
+    rng = np.random.default_rng(seed)
+    m = int(num_vertices * avg_degree / 2)
+    w = (np.arange(1, num_vertices + 1, dtype=np.float64)
+         ** (-1.0 / (exponent - 1.0)))
+    p = w / w.sum()
+    ends = rng.choice(num_vertices, size=2 * m, p=p)
+    return _symmetric(ends[:m], ends[m:], num_vertices, with_self_loops)
 
 
 def path_graph(num_vertices: int) -> CSRGraph:

@@ -1,8 +1,9 @@
 """The ``Graph`` handle: one object, every structural format, computed once
 (PyTorch port of ``repro.graphs.handle``).
 
-The CSR form stays on the host as numpy; the ELL forms are built from it
-lazily, once, on the handle's device (``Graph.place``) and cached.
+The CSR form stays on the host as numpy; the ELL forms and the hybrid
+layout are built from it lazily, once, on the handle's device
+(``Graph.place``) and cached.
 ``graph.conversions`` counts the times each conversion's work actually ran,
 so a second ``.ell`` access is visibly a cache hit.
 
@@ -26,9 +27,7 @@ from .csr import (
     csr_to_ell_graph,
     csr_to_ell_matrix,
 )
-
-# int32 neighbor id + bool mask byte per ELL slot
-ELL_BYTES_PER_SLOT = 5
+from .hybrid import ELL_BYTES_PER_SLOT, HybridEllGraph, csr_to_hybrid_ell
 
 #: hard allocation cap for the monolithic padded-ELL formats (2 GiB)
 ELL_BYTE_LIMIT = 2 * 1024 ** 3
@@ -43,9 +42,12 @@ class LayoutOverflowError(MemoryError):
         self.limit = int(limit)
         super().__init__(
             f"padded ELL [{v} x {max_degree}] needs ~{estimate:,} bytes "
-            f"(> limit {limit:,}); the degree-aware hybrid layout is not "
-            f"ported yet. Raise repro_torch.graphs.handle.ELL_BYTE_LIMIT if "
-            f"the allocation is intentional.")
+            f"(> limit {limit:,}): the max-degree padding of a skewed graph "
+            f"blows out memory before the solve starts. Use the hybrid "
+            f"layout instead (engine='cuda_hybrid' / Graph.hybrid(): sliced "
+            f"ELL + COO spill, O(E) memory), or raise "
+            f"repro_torch.graphs.handle.ELL_BYTE_LIMIT if the allocation is "
+            f"intentional.")
 
 
 def ell_bytes_estimate(num_rows: int, width: int) -> int:
@@ -106,6 +108,9 @@ class Graph:
                 if key in self._cache:
                     self._cache[key] = type(self._cache[key])(
                         *(x.to(device) for x in self._cache[key]))
+            for key, val in self._cache.items():
+                if isinstance(val, HybridEllGraph):
+                    self._cache[key] = val.to(device)
             self._device = device
         return self
 
@@ -161,6 +166,22 @@ class Graph:
         est = ell_bytes_estimate(num_rows, width)
         if est > ELL_BYTE_LIMIT:
             raise LayoutOverflowError(est, ELL_BYTE_LIMIT, num_rows, width)
+
+    def ell_bytes_estimate(self) -> int:
+        """Bytes the monolithic padded-ELL form would take: a degree scan,
+        no adjacency built.  The ``engine=None`` rule reads it."""
+        return ell_bytes_estimate(self.num_vertices, self.max_degree)
+
+    def hybrid(self, widths=None, spill_cap=None) -> HybridEllGraph:
+        """Sliced-ELL + COO-spill layout (``graphs.hybrid``) on the handle's
+        device, cached per ``(widths, spill_cap)``; never builds ``.ell``."""
+        key = f"hybrid({widths},{spill_cap})"
+        if key not in self._cache:
+            self._cache[key] = csr_to_hybrid_ell(
+                self.csr, widths=widths, spill_cap=spill_cap,
+                device=self._device)
+            self._count("csr_to_hybrid")
+        return self._cache[key]
 
     @property
     def digest(self) -> str:

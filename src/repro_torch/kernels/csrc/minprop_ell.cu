@@ -1,23 +1,35 @@
-// The two passes of one device-resident MIS-2 round over padded ELL.
+// The two passes of one device-resident MIS-2 round, over padded ELL and
+// over one slab of the degree-aware hybrid layout.
 //
-// Replace repro/kernels/minprop_ell/kernel.py:fused_refresh_columns_pallas
-// and :fused_decide_pallas, each followed by the scatter
-// `x.at[wl].set(out, mode="drop")` of repro/kernels/minprop_ell/ops.py:
+// Replace repro/kernels/minprop_ell/kernel.py:fused_refresh_columns_pallas,
+// :fused_decide_pallas, :sliced_refresh_columns_pallas and
+// :sliced_decide_pallas, each followed by the scatter
+// `x.at[gids].set(out, mode="drop")` of repro/kernels/minprop_ell/ops.py:
 // here the kernel writes its row in place and skips dead slots, so there
 // is no [W] output and no separate scatter.
 //
 // Layout: T, M are [V] uint32 words (stored by torch as int32 bit
-// patterns), nbrs is the flat self-padded ELL adjacency [V * D] int32,
-// wl is a [W] worklist whose first *count slots are live rows (a slot may
-// hold the sentinel V, which is skipped); count and it live on the device,
-// so the host never reads them.
+// patterns).  The fused passes read the flat self-padded ELL adjacency
+// [V * D] int32 and a [W] worklist of global rows (sentinel V).  The
+// sliced passes read one hybrid slab [R * D] int32 of global neighbour
+// ids, its global row ids slab_rows [R], and a worklist of slab-local rows
+// (sentinel R); the global id g = slab_rows[wl[i]] keys the T read, the
+// refresh and the write, as `gids` does in the TPU kernel.  The first
+// *count slots of a worklist are live; count and it live on the device, so
+// the host never reads them.
 //
 // Bound: memory.  Per live slot a pass reads wl, the row's D neighbour
 // ids (contiguous) and one 4-byte word per neighbour at a data-dependent
 // address, and writes one word.  One thread per slot loops over the row;
-// a warp per row (coalesced id reads, paper §V-D) is later work.  Blocks
-// wholly past *count exit before touching memory, standing in for the
-// TPU's pl.when block skipping.
+// a warp per row (coalesced id reads, paper §V-D) is later work, as is
+// folding every slab of a round into one launch.  Blocks wholly past
+// *count exit before touching memory, standing in for the TPU's pl.when
+// block skipping.
+//
+// In place is safe: refresh writes only M and reads only T; decide reads T
+// only at its own row and writes that row.  The slabs of the hybrid layout
+// hold disjoint rows, and every refresh of a round is enqueued before the
+// first decide on the same stream.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -29,46 +41,29 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// M[row] = min over the closed neighbourhood of the refreshed T, IN -> OUT
-__global__ void fused_refresh_columns_kernel(
-    const uint32_t* __restrict__ t, uint32_t* __restrict__ m,
-    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
-    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
-    int64_t v, int64_t w, int d, int b, int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t row = wl[i];
-  if (row < 0 || row >= v) return;  // sentinel slot
-  const uint32_t it = *it_ptr;
-  const int32_t* r = nbrs + static_cast<int64_t>(row) * d;
+// min over one row's D ids of the refreshed T, IN -> OUT
+__device__ __forceinline__ uint32_t refreshed_min(
+    const uint32_t* __restrict__ t, const int32_t* __restrict__ r, int d,
+    int kind, uint32_t it, int b) {
   uint32_t mn = kOut;
   for (int j = 0; j < d; ++j) {
     const int32_t nb = r[j];
     const uint32_t tv = refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b);
     mn = tv < mn ? tv : mn;
   }
-  m[row] = mn == kIn ? kOut : mn;
+  return mn == kIn ? kOut : mn;
 }
 
 // T[row] <- OUT if an active neighbour's M is OUT, else IN if every active
 // neighbour's M equals the row's refreshed tuple, else the refreshed tuple;
 // decided rows are left as they are.  Reads T only at its own row.
-__global__ void fused_decide_kernel(
+__device__ __forceinline__ void decide_row(
     uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
-    const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
-    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
-    const uint32_t* __restrict__ it_ptr, int64_t v, int64_t w, int d, int b,
-    int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t row = wl[i];
-  if (row < 0 || row >= v) return;  // sentinel slot
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ r,
+    int32_t row, int d, int kind, uint32_t it, int b) {
   const uint32_t told = t[row];
   if (!is_undecided(told)) return;
-  const uint32_t tv = refresh(told, static_cast<uint32_t>(row), kind, *it_ptr, b);
-  const int32_t* r = nbrs + static_cast<int64_t>(row) * d;
+  const uint32_t tv = refresh(told, static_cast<uint32_t>(row), kind, it, b);
   bool all_eq = true;
   for (int j = 0; j < d; ++j) {
     const int32_t nb = r[j];
@@ -81,6 +76,67 @@ __global__ void fused_decide_kernel(
     all_eq = all_eq && mv == tv;
   }
   t[row] = all_eq ? kIn : tv;
+}
+
+// M[row] for every live worklist row of the padded ELL
+__global__ void fused_refresh_columns_kernel(
+    const uint32_t* __restrict__ t, uint32_t* __restrict__ m,
+    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
+    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
+    int64_t v, int64_t w, int d, int b, int kind) {
+  const int64_t n = *count;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || i >= w) return;
+  const int32_t row = wl[i];
+  if (row < 0 || row >= v) return;  // sentinel slot
+  m[row] = refreshed_min(t, nbrs + static_cast<int64_t>(row) * d, d, kind,
+                         *it_ptr, b);
+}
+
+__global__ void fused_decide_kernel(
+    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
+    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
+    const uint32_t* __restrict__ it_ptr, int64_t v, int64_t w, int d, int b,
+    int kind) {
+  const int64_t n = *count;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || i >= w) return;
+  const int32_t row = wl[i];
+  if (row < 0 || row >= v) return;  // sentinel slot
+  decide_row(t, m, active, nbrs + static_cast<int64_t>(row) * d, row, d, kind,
+             *it_ptr, b);
+}
+
+// M[slab_rows[local]] for every live slab-local worklist row of one slab
+__global__ void sliced_refresh_columns_kernel(
+    const uint32_t* __restrict__ t, uint32_t* __restrict__ m,
+    const int32_t* __restrict__ slab_rows, const int32_t* __restrict__ nbrs,
+    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
+    const uint32_t* __restrict__ it_ptr, int64_t r, int64_t w, int d, int b,
+    int kind) {
+  const int64_t n = *count;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || i >= w) return;
+  const int32_t local = wl[i];
+  if (local < 0 || local >= r) return;  // sentinel slot
+  m[slab_rows[local]] = refreshed_min(
+      t, nbrs + static_cast<int64_t>(local) * d, d, kind, *it_ptr, b);
+}
+
+__global__ void sliced_decide_kernel(
+    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ slab_rows,
+    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
+    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
+    int64_t r, int64_t w, int d, int b, int kind) {
+  const int64_t n = *count;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || i >= w) return;
+  const int32_t local = wl[i];
+  if (local < 0 || local >= r) return;  // sentinel slot
+  decide_row(t, m, active, nbrs + static_cast<int64_t>(local) * d,
+             slab_rows[local], d, kind, *it_ptr, b);
 }
 
 int blocks_for(int64_t w) {
@@ -119,6 +175,41 @@ int fused_decide(void* t, const void* m, const void* active, const void* nbrs,
         static_cast<const uint8_t*>(active), static_cast<const int32_t*>(nbrs),
         static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
         static_cast<const uint32_t*>(it), v, w, d, b, kind);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sliced_refresh_columns(const void* t, void* m, const void* slab_rows,
+                           const void* nbrs, const void* wl, const void* count,
+                           const void* it, int64_t r, int64_t w, int d, int b,
+                           int kind, void* stream) {
+  using namespace repro_torch;
+  if (w > 0) {
+    sliced_refresh_columns_kernel<<<blocks_for(w), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(t), static_cast<uint32_t*>(m),
+        static_cast<const int32_t*>(slab_rows),
+        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
+        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
+        r, w, d, b, kind);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sliced_decide(void* t, const void* m, const void* active,
+                  const void* slab_rows, const void* nbrs, const void* wl,
+                  const void* count, const void* it, int64_t r, int64_t w,
+                  int d, int b, int kind, void* stream) {
+  using namespace repro_torch;
+  if (w > 0) {
+    sliced_decide_kernel<<<blocks_for(w), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint32_t*>(t), static_cast<const uint32_t*>(m),
+        static_cast<const uint8_t*>(active),
+        static_cast<const int32_t*>(slab_rows),
+        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
+        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
+        r, w, d, b, kind);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,16 @@
-"""Wrappers for the fused MIS-2 round passes.
+"""Wrappers for the fused MIS-2 round passes, over padded ELL and over one
+slab of the hybrid layout, and the hybrid layout's spill passes.
 
-``fused_refresh_columns`` and ``fused_decide`` take the resident driver's
-state as it lies on the device and update it in place.  A tensor on the
-CPU goes to the plain-torch twin (``ref``); a tensor on a CUDA device goes
-to the hand-written kernel (``csrc/minprop_ell.cu``), or the call raises —
-there is no fallback from one to the other.
+``fused_*`` and ``sliced_*`` take the resident drivers' state as it lies
+on the device and update it in place.  A tensor on the CPU goes to the
+plain-torch twin (``ref``); a tensor on a CUDA device goes to the
+hand-written kernel (``csrc/minprop_ell.cu``), or the call raises — there
+is no fallback from one to the other.
+
+``spill_refresh_columns`` / ``spill_decide`` are plain torch on every
+device, as the JAX package computes them with XLA segment reductions
+outside any Pallas kernel: ``scatter_reduce`` with ``amin`` / ``amax`` on
+widened int64, whose result does not depend on the order of the entries.
 
 ``LAUNCHES`` counts kernel launches per wrapper (twin calls are not
 counted), so a run can show that its hot loop went through the kernels.
@@ -16,19 +22,49 @@ import ctypes
 import torch
 
 from ...core.hashing import PRIORITY_CODES
+from ...core.tuples import IN, OUT, is_undecided, narrow, widen
 from .. import _build
 from . import ref
 
-LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0}
+LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0,
+            "sliced_refresh_columns": 0, "sliced_decide": 0}
 
+_TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p)
 _SIGNATURES = {
-    "fused_refresh_columns": (ctypes.c_void_p,) * 6
-    + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p),
-    "fused_decide": (ctypes.c_void_p,) * 7
-    + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p),
+    "fused_refresh_columns": (ctypes.c_void_p,) * 6 + _TAIL,
+    "fused_decide": (ctypes.c_void_p,) * 7 + _TAIL,
+    "sliced_refresh_columns": (ctypes.c_void_p,) * 7 + _TAIL,
+    "sliced_decide": (ctypes.c_void_p,) * 8 + _TAIL,
 }
+
+# ---------------------------------------------------------------------------
+# adjacency row traffic of one live worklist row per pass: the sliced
+# kernels read the row's ids once from the slab and materialize no copy;
+# the spill is COO, counted per entry
+# ---------------------------------------------------------------------------
+
+ELL_ROW_TRAFFIC = {"cuda_hybrid": {"reads": 1, "writes": 0}}
+
+
+def ell_row_movements(engine: str) -> int:
+    """Device-memory movements of one worklist row's ids per pass."""
+    t = ELL_ROW_TRAFFIC[engine]
+    return t["reads"] + t["writes"]
+
+
+def hybrid_row_traffic_bytes(slice_widths, slice_rows_processed,
+                             spill_entries: int, spill_passes: int) -> int:
+    """Analytic adjacency traffic of one hybrid MIS-2 solve, in bytes:
+    every live worklist row of slice ``i`` (refresh and decide, every round)
+    moves its ``W_i`` int32 ids ``ell_row_movements('cuda_hybrid')`` times;
+    every spill pass reads all ``spill_entries`` int32 column ids once."""
+    moves = ell_row_movements("cuda_hybrid")
+    total = 0
+    for w, rows in zip(slice_widths, slice_rows_processed):
+        total += int(rows) * int(w) * 4 * moves
+    total += int(spill_passes) * int(spill_entries) * 4
+    return total
 
 
 def reset_launches() -> None:
@@ -40,14 +76,18 @@ def _entry(name: str):
     return _build.function("minprop_ell", name, _SIGNATURES[name])
 
 
-def _check_args(t, nbrs_flat, wl, count, it, state, b: int,
-                priority: str) -> tuple[int, int]:
-    """Validate device, dtype, shape and contiguity; returns (V, D)."""
+def _check_args(t, nbrs_flat, wl, count, it, state, b: int, priority: str,
+                slab_rows=None) -> tuple[int, int, int]:
+    """Validate device, dtype, shape and contiguity; returns (V, R, D),
+    with ``R = V`` for the padded ELL and ``R = len(slab_rows)`` for a
+    hybrid slab."""
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     named = {"t": t, "nbrs_flat": nbrs_flat, "wl": wl, "count": count,
              "it": it, **state}
+    if slab_rows is not None:
+        named["slab_rows"] = slab_rows
     for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, t on {dev}")
@@ -62,16 +102,25 @@ def _check_args(t, nbrs_flat, wl, count, it, state, b: int,
     for name, x in state.items():
         if x.shape[0] != v:
             raise ValueError(f"{name} has {x.shape[0]} rows, t has {v}")
-    if v == 0 or nbrs_flat.shape[0] % v:
+    r = v if slab_rows is None else slab_rows.shape[0]
+    if r == 0 or nbrs_flat.shape[0] % r:
         raise ValueError(f"nbrs_flat length {nbrs_flat.shape[0]} is not a "
-                         f"multiple of V={v}")
+                         f"multiple of the {r} rows")
     if count.shape[0] != 1 or it.shape[0] != 1:
         raise ValueError("count and it must hold one element each")
     if not 0 < b < 32:
         raise ValueError(f"id bits b={b} out of range")
     if priority not in PRIORITY_CODES:
         raise ValueError(f"unknown priority {priority!r}")
-    return v, nbrs_flat.shape[0] // v
+    return v, r, nbrs_flat.shape[0] // r
+
+
+def _launch(name: str, t, *ptrs_and_sizes) -> None:
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        status = _entry(name)(*ptrs_and_sizes, stream)
+    _build.check(status, name)
+    LAUNCHES[name] += 1
 
 
 def fused_refresh_columns(t, m, nbrs_flat, wl, count, it, *, priority: str,
@@ -83,18 +132,14 @@ def fused_refresh_columns(t, m, nbrs_flat, wl, count, it, *, priority: str,
     [V*D] self-padded ELL; ``wl``: int32 [W] (sentinel V); ``count``,
     ``it``: int32 [1] on the same device.
     """
-    v, d = _check_args(t, nbrs_flat, wl, count, it, {"m": m}, b, priority)
+    v, _, d = _check_args(t, nbrs_flat, wl, count, it, {"m": m}, b,
+                          priority)
     if t.device.type == "cpu":
         return ref.fused_refresh_columns_ref(t, m, nbrs_flat, wl, count, it,
                                              priority=priority, b=b)
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        status = _entry("fused_refresh_columns")(
-            t.data_ptr(), m.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
-            count.data_ptr(), it.data_ptr(), v, wl.shape[0], d, b,
-            PRIORITY_CODES[priority], stream)
-    _build.check(status, "fused_refresh_columns")
-    LAUNCHES["fused_refresh_columns"] += 1
+    _launch("fused_refresh_columns", t, t.data_ptr(), m.data_ptr(),
+            nbrs_flat.data_ptr(), wl.data_ptr(), count.data_ptr(),
+            it.data_ptr(), v, wl.shape[0], d, b, PRIORITY_CODES[priority])
     return m
 
 
@@ -106,18 +151,110 @@ def fused_decide(t, m, active, nbrs_flat, wl, count, it, *, priority: str,
     returns ``t``).  ``active``: bool [V]; the rest as
     :func:`fused_refresh_columns`.
     """
-    v, d = _check_args(t, nbrs_flat, wl, count, it,
-                       {"m": m, "active": active}, b, priority)
+    v, _, d = _check_args(t, nbrs_flat, wl, count, it,
+                          {"m": m, "active": active}, b, priority)
     if t.device.type == "cpu":
         return ref.fused_decide_ref(t, m, active, nbrs_flat, wl, count, it,
                                     priority=priority, b=b)
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        status = _entry("fused_decide")(
-            t.data_ptr(), m.data_ptr(), active.data_ptr(),
+    _launch("fused_decide", t, t.data_ptr(), m.data_ptr(), active.data_ptr(),
             nbrs_flat.data_ptr(), wl.data_ptr(), count.data_ptr(),
-            it.data_ptr(), v, wl.shape[0], d, b, PRIORITY_CODES[priority],
-            stream)
-    _build.check(status, "fused_decide")
-    LAUNCHES["fused_decide"] += 1
+            it.data_ptr(), v, wl.shape[0], d, b, PRIORITY_CODES[priority])
+    return t
+
+
+# ---------------------------------------------------------------------------
+# hybrid layout: one slab per call (slab-local worklists, sentinel R), and
+# the heavy rows of the COO spill
+# ---------------------------------------------------------------------------
+
+def sliced_refresh_columns(t, m, slab_rows, nbrs_flat, wl, count, it, *,
+                           priority: str, b: int) -> torch.Tensor:
+    """M[slab_rows[wl[i]]] <- min over the slab row's ids of the refreshed
+    T, with IN -> OUT, for every live slot ``i < count`` (in place; returns
+    ``m``).
+
+    ``t``, ``m``: int32 [V]; ``slab_rows``: int32 [R] global ids;
+    ``nbrs_flat``: int32 [R*W] global neighbour ids, self-padded;
+    ``wl``: int32 slab-local rows (sentinel R); ``count``, ``it``: int32
+    [1] on the same device.
+    """
+    _, r, d = _check_args(t, nbrs_flat, wl, count, it, {"m": m}, b,
+                          priority, slab_rows)
+    if t.device.type == "cpu":
+        return ref.sliced_refresh_columns_ref(
+            t, m, slab_rows, nbrs_flat, wl, count, it, priority=priority, b=b)
+    _launch("sliced_refresh_columns", t, t.data_ptr(), m.data_ptr(),
+            slab_rows.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
+            count.data_ptr(), it.data_ptr(), r, wl.shape[0], d, b,
+            PRIORITY_CODES[priority])
+    return m
+
+
+def sliced_decide(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
+                  priority: str, b: int) -> torch.Tensor:
+    """The decide of :func:`fused_decide` for the live slots of one slab:
+    the global row ``slab_rows[wl[i]]`` keys the T read, the refresh and
+    the write (in place; returns ``t``).  ``active``: bool [V]; the rest as
+    :func:`sliced_refresh_columns`."""
+    _, r, d = _check_args(t, nbrs_flat, wl, count, it,
+                          {"m": m, "active": active}, b, priority, slab_rows)
+    if t.device.type == "cpu":
+        return ref.sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl,
+                                     count, it, priority=priority, b=b)
+    _launch("sliced_decide", t, t.data_ptr(), m.data_ptr(), active.data_ptr(),
+            slab_rows.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
+            count.data_ptr(), it.data_ptr(), r, wl.shape[0], d, b,
+            PRIORITY_CODES[priority])
+    return t
+
+
+def segment_reduce(vals: torch.Tensor, seg: torch.Tensor, num: int,
+                   reduce: str, identity: int) -> torch.Tensor:
+    """``[num]`` per-segment ``amin`` / ``amax`` of int64 ``vals``; an empty
+    segment holds ``identity`` (``jax.ops.segment_min`` / ``_max``)."""
+    out = torch.full((num,), identity, dtype=torch.int64, device=vals.device)
+    return out.scatter_reduce_(0, seg.to(torch.int64), vals, reduce)
+
+
+def spill_refresh_columns(t, m, spill_rows, spill_seg, spill_cols, live, it,
+                          *, priority: str, b: int) -> torch.Tensor:
+    """M over the heavy (spill) rows: the closed min of the refreshed T
+    with IN -> OUT, as the slab kernels; rows off the round's ``live`` mask
+    keep their M (in place; returns ``m``)."""
+    h = spill_rows.shape[0]
+    rows = spill_rows.to(torch.int64)
+    cols = spill_cols.to(torch.int64)
+    te = ref._refresh(widen(t)[cols], cols, it, priority, b)
+    mv = segment_reduce(te, spill_seg, h, "amin", OUT)
+    tself = ref._refresh(widen(t)[rows], rows, it, priority, b)
+    mv = torch.minimum(mv, tself)
+    mv = torch.where(mv == IN, OUT, mv)
+    m[rows] = torch.where(live[rows], narrow(mv), m[rows])
+    return m
+
+
+def spill_decide(t, m, active, spill_rows, spill_seg, spill_cols, it, *,
+                 priority: str, b: int) -> torch.Tensor:
+    """The IN/OUT decision of the heavy rows by segment reductions, equal
+    to the slab decide: neighbour terms gated by ``active``, the self term
+    folded in, still-undecided rows written with their refreshed tuple (in
+    place; returns ``t``)."""
+    h = spill_rows.shape[0]
+    rows = spill_rows.to(torch.int64)
+    cols = spill_cols.to(torch.int64)
+    seg = spill_seg.to(torch.int64)
+    tv_old = widen(t)[rows]
+    tv = ref._refresh(tv_old, rows, it, priority, b)
+    mn = widen(m)[cols]
+    an = active[cols]
+    any_out = segment_reduce((an & (mn == OUT)).to(torch.int64), seg, h,
+                             "amax", 0) > 0
+    neq = segment_reduce((an & (mn != tv[seg])).to(torch.int64), seg, h,
+                         "amax", 0) > 0
+    m_self = widen(m)[rows]
+    a_self = active[rows]
+    any_out = any_out | (a_self & (m_self == OUT))
+    neq = neq | (a_self & (m_self != tv))
+    newt = torch.where(any_out, OUT, torch.where(~neq, IN, tv))
+    t[rows] = narrow(torch.where(is_undecided(tv_old), newt, tv_old))
     return t

@@ -1,9 +1,10 @@
 """Plain-torch twins of the fused MIS-2 kernels (``csrc/minprop_ell.cu``).
 
 Each twin computes what its kernel computes, in place: the function of
-``repro.kernels.minprop_ell.ref.fused_*_ref`` followed by the drop-scatter
-``x.at[wl].set(out, mode="drop")`` of the JAX ops wrapper.  Slots at or past
-``count`` and sentinel slots (``wl[i] == V``) write nothing.
+``repro.kernels.minprop_ell.ref.fused_*_ref`` (or of the sliced Pallas
+kernels) followed by the drop-scatter ``x.at[gids].set(out, mode="drop")``
+of the JAX ops wrapper.  Slots at or past ``count`` and sentinel slots
+(``wl[i] == V``, or ``R`` for a hybrid slab of ``R`` rows) write nothing.
 
 The words are stored as int32 bit patterns and widened to int64 for every
 compare (see ``core.tuples``).  ``count`` and ``it`` are one-element int32
@@ -26,12 +27,11 @@ def _refresh(t_u: torch.Tensor, ids: torch.Tensor, it: torch.Tensor,
     return torch.where(is_undecided(t_u), fresh, t_u)
 
 
-def _live_rows(wl: torch.Tensor, count: torch.Tensor, v: int):
-    """(rows clamped into [0, V), scatter targets with dead slots -> V)."""
+def _live_slots(wl: torch.Tensor, count: torch.Tensor, r: int):
+    """(worklist entries clamped into [0, R), live mask of the slots)."""
     slot = torch.arange(wl.shape[0], device=wl.device)
-    live = (slot < count.to(torch.int64)) & (wl >= 0) & (wl < v)
-    rows = wl.to(torch.int64).clamp(0, v - 1)
-    return rows, torch.where(live, rows, v)
+    live = (slot < count.to(torch.int64)) & (wl >= 0) & (wl < r)
+    return wl.to(torch.int64).clamp(0, r - 1), live
 
 
 def _scatter_drop(x: torch.Tensor, target: torch.Tensor,
@@ -44,18 +44,37 @@ def _scatter_drop(x: torch.Tensor, target: torch.Tensor,
     x.copy_(buf[:v])
 
 
+def _refresh_min(t, nb, it, priority: str, b: int) -> torch.Tensor:
+    """Per row of ``nb`` [n, D]: min of the refreshed T over the ids, with
+    IN -> OUT (the widened M values)."""
+    vids = torch.arange(t.shape[0], device=t.device)
+    t_ref = _refresh(widen(t), vids, it, priority, b)
+    mv = t_ref[nb].amin(dim=1)
+    return torch.where(mv == 0, OUT, mv)
+
+
+def _decide(t, m, active, rows, nb, it, priority: str,
+            b: int) -> torch.Tensor:
+    """The widened new T of global rows ``rows`` [n] with adjacency ``nb``
+    [n, D]: IN / OUT / the refreshed tuple; decided rows keep theirs."""
+    tv_old = widen(t)[rows]
+    tv = _refresh(tv_old, rows, it, priority, b)
+    mn = widen(m)[nb]
+    an = active[nb]
+    any_out = (an & (mn == OUT)).any(dim=1)
+    all_eq = (~an | (mn == tv[:, None])).all(dim=1)
+    newt = torch.where(any_out, OUT, torch.where(all_eq, 0, tv))
+    return torch.where(is_undecided(tv_old), newt, tv_old)
+
+
 def fused_refresh_columns_ref(t, m, nbrs_flat, wl, count, it, *,
                               priority: str, b: int) -> torch.Tensor:
     """M[wl] <- closed-neighborhood min of the refreshed T, IN -> OUT."""
     v = t.shape[0]
-    d = nbrs_flat.shape[0] // v
-    rows, target = _live_rows(wl, count, v)
-    vids = torch.arange(v, device=t.device)
-    t_ref = _refresh(widen(t), vids, it, priority, b)
-    nb = nbrs_flat.view(v, d)[rows].to(torch.int64)
-    mv = t_ref[nb].amin(dim=1)
-    mv = torch.where(mv == 0, OUT, mv)
-    _scatter_drop(m, target, narrow(mv))
+    rows, live = _live_slots(wl, count, v)
+    nb = nbrs_flat.view(v, -1)[rows].to(torch.int64)
+    mv = _refresh_min(t, nb, it, priority, b)
+    _scatter_drop(m, torch.where(live, rows, v), narrow(mv))
     return m
 
 
@@ -63,16 +82,35 @@ def fused_decide_ref(t, m, active, nbrs_flat, wl, count, it, *,
                      priority: str, b: int) -> torch.Tensor:
     """T[wl] <- IN / OUT / refreshed tuple for the still-undecided rows."""
     v = t.shape[0]
-    d = nbrs_flat.shape[0] // v
-    rows, target = _live_rows(wl, count, v)
-    tv_old = widen(t)[rows]
-    tv = _refresh(tv_old, rows, it, priority, b)
-    nb = nbrs_flat.view(v, d)[rows].to(torch.int64)
-    mn = widen(m)[nb]
-    an = active[nb]
-    any_out = (an & (mn == OUT)).any(dim=1)
-    all_eq = (~an | (mn == tv[:, None])).all(dim=1)
-    newt = torch.where(any_out, OUT, torch.where(all_eq, 0, tv))
-    newt = torch.where(is_undecided(tv_old), newt, tv_old)
-    _scatter_drop(t, target, narrow(newt))
+    rows, live = _live_slots(wl, count, v)
+    nb = nbrs_flat.view(v, -1)[rows].to(torch.int64)
+    newt = _decide(t, m, active, rows, nb, it, priority, b)
+    _scatter_drop(t, torch.where(live, rows, v), narrow(newt))
+    return t
+
+
+def sliced_refresh_columns_ref(t, m, slab_rows, nbrs_flat, wl, count, it, *,
+                               priority: str, b: int) -> torch.Tensor:
+    """The fused refresh over one hybrid slab ``[R, W]``: ``wl`` holds
+    slab-local rows (sentinel ``R``); M is written at the global ids
+    ``slab_rows[wl]``."""
+    r = slab_rows.shape[0]
+    local, live = _live_slots(wl, count, r)
+    rows = slab_rows.to(torch.int64)[local]
+    nb = nbrs_flat.view(r, -1)[local].to(torch.int64)
+    mv = _refresh_min(t, nb, it, priority, b)
+    _scatter_drop(m, torch.where(live, rows, t.shape[0]), narrow(mv))
+    return m
+
+
+def sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
+                      priority: str, b: int) -> torch.Tensor:
+    """The fused decide over one hybrid slab: the row's global id keys the
+    T read, the refresh and the write."""
+    r = slab_rows.shape[0]
+    local, live = _live_slots(wl, count, r)
+    rows = slab_rows.to(torch.int64)[local]
+    nb = nbrs_flat.view(r, -1)[local].to(torch.int64)
+    newt = _decide(t, m, active, rows, nb, it, priority, b)
+    _scatter_drop(t, torch.where(live, rows, t.shape[0]), narrow(newt))
     return t

@@ -225,12 +225,11 @@ def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
 
 def _aggregation(aggregation: str, options, mis2_engine: Optional[str]):
     """``graph -> AggregationResult`` for the named coarsening method."""
-    from ..api.backend import DEFAULT_MIS2_ENGINE
+    from ..api.backend import default_mis2_engine
     from ..api.registry import get_engine
 
     fn = get_engine("aggregation", aggregation)
-    inner = DEFAULT_MIS2_ENGINE if mis2_engine is None else mis2_engine
-    return lambda g: fn(g, options, inner, 2)
+    return lambda g: fn(g, options, mis2_engine or default_mis2_engine(g), 2)
 
 
 def _build_hierarchy_impl(a, aggregation: str = "two_phase",

@@ -91,3 +91,53 @@ def ref_level_arrays(setup) -> list:
 def rhs(n: int, seed: int = 0) -> np.ndarray:
     """The right-hand side of the solver anchors: standard normal, f32."""
     return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+#: the graphs of the hybrid-layout tests (the reference's
+#: ``tests/test_hybrid.py`` cases), structure only
+HYBRID_GRAPHS = {
+    "laplace3d": lambda: ref_gen.laplace3d(8).graph,
+    "er_random": lambda: ref_gen.random_uniform_graph(600, 5.0, seed=21),
+    "powerlaw": lambda: ref_gen.powerlaw_graph(900, 8.0, seed=4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def ref_hybrid_graph(name: str):
+    return repro.Graph(HYBRID_GRAPHS[name]())
+
+
+def port_hybrid_graph(name: str, device="cpu") -> Graph:
+    """The port's graph of the same CSR (equal ``digest``)."""
+    csr = ref_hybrid_graph(name).csr
+    return Graph.from_reference(csr.indptr, csr.indices, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def ref_hybrid_mis2(name: str, priority: str = "xorshift_star",
+                    active: str | None = None):
+    """The reference's ``pallas_hybrid`` (Pallas in interpret mode);
+    ``active`` is None, ``"random"`` or ``"none"``."""
+    return repro.mis2(ref_hybrid_graph(name), engine="pallas_hybrid",
+                      active=hybrid_active(name, active),
+                      options=repro.Mis2Options(priority=priority))
+
+
+def hybrid_active(name: str, kind: str | None):
+    if kind is None:
+        return None
+    v = ref_hybrid_graph(name).num_vertices
+    if kind == "none":
+        return np.zeros(v, dtype=bool)
+    return np.random.default_rng(2).random(v) < 0.6
+
+
+@functools.lru_cache(maxsize=None)
+def ref_hybrid_coarsen(name: str, method: str):
+    return repro.coarsen(ref_hybrid_graph(name), method=method,
+                         mis2_engine="pallas_hybrid")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_hybrid_color(name: str):
+    return repro.color(ref_hybrid_graph(name), engine="luby_hybrid")

@@ -5,6 +5,11 @@ below, from ``repro.mis2`` / ``repro.coarsen`` with the
 ``repro.cluster_gs_setup`` with the ``host`` engine).  Every test skips
 without a card.
 
+The slice-3 cases hold the sliced kernels against their twins on random
+hybrid slabs and drive the hybrid path (``cuda_hybrid``, hybrid
+coarsening, ``luby_hybrid``) on ``powerlaw_graph(900, 8.0, seed=4)``
+against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.
+
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
 
@@ -93,7 +98,8 @@ def test_kernels_match_twins(cuda_device, name, priority):
     torch.cuda.synchronize()
     assert torch.equal(x["m"], y["m"]) and torch.equal(x["t"], y["t"])
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_refresh_columns": 1, "fused_decide": 1}
+        "fused_refresh_columns": 1, "fused_decide": 1,
+        "sliced_refresh_columns": 0, "sliced_decide": 0}
 
 
 def test_wrapper_on_cuda_raises_instead_of_falling_back(cuda_device):
@@ -122,7 +128,9 @@ def test_main_path_matches_reference_digests(cuda_device, name):
     r = rt.mis2(g)
     assert (r.engine, r.size, r.iterations, r.digest) == (
         "cuda_resident", size, iters, digest)
-    assert all(ops.LAUNCHES[k] - before[k] == iters for k in before)
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_refresh_columns": iters, "fused_decide": iters,
+        "sliced_refresh_columns": 0, "sliced_decide": 0}
     assert rt.mis2(g, engine="dense").digest == digest
     a = rt.coarsen(g, method="two_phase")
     assert (a.num_aggregates, a.iterations, a.digest) == (
@@ -211,8 +219,9 @@ def no_twins_on_cuda(monkeypatch):
         return wrapped
     for mod, names in ((spmv_ref, ("spmv_ref", "spmv_t_ref")),
                        (hash_ref, ("hash_pack_ref",)),
-                       (ref, ("fused_refresh_columns_ref",
-                              "fused_decide_ref"))):
+                       (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
+                              "sliced_refresh_columns_ref",
+                              "sliced_decide_ref"))):
         for n in names:
             monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
 
@@ -245,3 +254,87 @@ def test_coloring_and_cluster_gs_on_the_card(cuda_device, no_twins_on_cuda):
     assert (gs.num_colors, gs.num_clusters, gs.digest, gs.colors_digest) == (
         7, 82, "dfda3c0aa9776009", "d47697dd4d599e36")
     assert gs.preconditioner.color_rows[0].is_cuda
+
+
+# -- slice 3: the sliced kernels and the hybrid path --------------------------
+
+def _slab_state(r: int, w: int, count: int, device, seed: int):
+    """A random slab of ``r`` rows and width ``w`` over V = 4r + 7 vertices
+    (global rows distinct, pads holding the row's own id), random T / M /
+    active, and a slab-local worklist: ``count`` live slots with some
+    sentinels R, the rest sentinels."""
+    rng = np.random.default_rng(seed)
+    v = 4 * r + 7
+    rows = np.sort(rng.choice(v, size=r, replace=False)).astype(np.int32)
+    nbrs = rng.integers(0, v, size=(r, w), dtype=np.int64).astype(np.int32)
+    deg = rng.integers(0, w + 1, size=r)
+    pad = np.arange(w)[None, :] >= deg[:, None]
+    nbrs[pad] = np.broadcast_to(rows[:, None], (r, w))[pad]
+    t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
+    t[rng.random(v) < 0.1] = 0
+    t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
+    m[rng.random(v) < 0.2] = 0xFFFFFFFF
+    wl = np.full(r, r, dtype=np.int32)
+    wl[:count] = rng.permutation(r)[:count]
+    wl[:count][rng.random(count) < 0.1] = r
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return dict(t=to(t.view(np.int32)), m=to(m.view(np.int32)),
+                active=to(rng.random(v) < 0.9), slab_rows=to(rows),
+                nbrs_flat=to(nbrs.reshape(-1)), wl=to(wl),
+                count=torch.tensor([count], dtype=torch.int32, device=device),
+                it=torch.tensor([5], dtype=torch.int32, device=device),
+                b=id_bits(v))
+
+
+SLABS = {"8-wide": (5000, 8, 3000), "64-wide": (700, 64, 420),
+         "one-row": (1, 16, 1), "count-0": (300, 8, 0)}
+
+
+@pytest.mark.parametrize("priority", ["xorshift_star", "xorshift", "fixed"])
+@pytest.mark.parametrize("slab", list(SLABS))
+def test_sliced_kernels_match_twins(cuda_device, slab, priority):
+    x = _slab_state(*SLABS[slab], cuda_device, seed=len(slab + priority))
+    b = x.pop("b")
+    y = {k: v.clone() for k, v in x.items()}
+    kw = dict(priority=priority, b=b)
+    args = ("slab_rows", "nbrs_flat", "wl", "count", "it")
+    before = dict(ops.LAUNCHES)
+    ops.sliced_refresh_columns(x["t"], x["m"], *(x[k] for k in args), **kw)
+    ref.sliced_refresh_columns_ref(y["t"], y["m"], *(y[k] for k in args),
+                                   **kw)
+    ops.sliced_decide(x["t"], x["m"], x["active"], *(x[k] for k in args),
+                      **kw)
+    ref.sliced_decide_ref(y["t"], y["m"], y["active"], *(y[k] for k in args),
+                          **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(x["m"], y["m"]) and torch.equal(x["t"], y["t"])
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_refresh_columns": 0, "fused_decide": 0,
+        "sliced_refresh_columns": 1, "sliced_decide": 1}
+
+
+# the reference's pallas_hybrid / luby_hybrid on powerlaw_graph(900, 8, 4)
+PL900_MIS2 = (77, 4, "11b467b81997991b", [3339, 860, 269, 52], 233856)
+PL900_COARSEN = {"basic": (77, 4, "09eb70e071aeb5e2"),
+                 "two_phase": (119, 10, "3f244de0f1b1fece")}
+PL900_COLOR = (10, 15, "94e65700d0874dbb")
+
+
+def test_hybrid_path_on_the_card(cuda_device, no_twins_on_cuda):
+    g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4))
+    slices = g.hybrid().num_slices
+    before = dict(ops.LAUNCHES)
+    r = rt.mis2(g, engine="cuda_hybrid")
+    size, iters, digest, rows, nbytes = PL900_MIS2
+    assert (r.size, r.iterations, r.digest) == (size, iters, digest)
+    assert r.collectives["slice_rows_processed"] == rows
+    assert r.collectives["row_bytes_total"] == nbytes
+    for k in ("sliced_refresh_columns", "sliced_decide"):
+        assert ops.LAUNCHES[k] - before[k] == slices * iters
+    for method, want in PL900_COARSEN.items():
+        a = rt.coarsen(g, method=method, mis2_engine="cuda_hybrid")
+        assert (a.num_aggregates, a.iterations, a.digest) == want
+    c = rt.color(g, engine="luby_hybrid")
+    assert (c.num_colors, c.rounds, c.digest) == PL900_COLOR
+    assert "csr_to_ell" not in g.conversions

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one GPU.
 
-    python3 tools/profile_torch.py [--graphs Laplace3D_100 Elasticity3D_60]
+    python3 tools/profile_torch.py [--graphs Laplace3D_100 Elasticity3D_60
+                                          Powerlaw_1M]
 
 For each graph: one warm ``repro_torch.mis2`` and one warm
 ``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
 (ending in ``torch.cuda.synchronize()``) and then traced once with
 ``torch.profiler`` (CPU + CUDA).  On Laplace3D_100 the same is done for one
 AMG-preconditioned CG solve (``amg_setup`` once, untimed; tol 1e-6,
-``b = default_rng(0).standard_normal(V)``).  Prints one JSON line per call
+``b = default_rng(0).standard_normal(V)``); on Powerlaw_1M
+(``powerlaw_graph(1_000_000, 8.0, exponent=2.5, seed=42)``, where
+``engine=None`` takes the hybrid layout) for ``coarsen(method="basic")``
+and ``color(engine="luby_hybrid")`` too.  Prints one JSON line per call
 with the device time by kernel name (top entries), the summed device time,
 the unprofiled wall time and the device's idle share of it.
 """
@@ -22,8 +26,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-GRAPHS = {"Laplace3D_100": ("laplace3d", 100),
-          "Elasticity3D_60": ("elasticity3d", 60)}
+GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
+          "Elasticity3D_60": ("elasticity3d", (60,), {}),
+          "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
+                          {"exponent": 2.5, "seed": 42})}
 
 
 def _wall_ms(torch, call, reps: int = 5) -> list[float]:
@@ -63,6 +69,7 @@ def profile_call(torch, call, top: int = 10) -> dict:
     device_ms = sum(r[1] for r in rows) / 1e3
     wall_ms = walls[len(walls) // 2]
     return {"wall_ms": walls, "device_ms": device_ms,
+            "device_events": sum(r[2] for r in rows),
             "idle_share": 1.0 - device_ms / wall_ms if rows else None,
             "kernels": [{"name": k[:96], "device_ms": us / 1e3, "count": n}
                         for k, us, n in rows[:top]]}
@@ -101,12 +108,15 @@ def main() -> int:
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
     for label in args.graphs:
-        kind, n = GRAPHS[label]
-        g = rt.Graph(getattr(rt.graphs, kind)(n))
+        kind, args, kw = GRAPHS[label]
+        g = rt.Graph(getattr(rt.graphs, kind)(*args, **kw))
         calls = {"mis2": lambda: rt.mis2(g),
                  "coarsen": lambda: rt.coarsen(g, method="two_phase")}
         if label == "Laplace3D_100":
             calls["amg_cg"] = _amg_cg(torch, rt, g)
+        if label == "Powerlaw_1M":
+            calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
+            calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
         for what, call in calls.items():
             call()                                  # warm-up: ELL, kernels
             rec = {"graph": label, "call": what, **profile_call(torch, call)}
