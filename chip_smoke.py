@@ -11,8 +11,10 @@ Phases (any failure raises, and the script exits non-zero):
 3. hold each kernel against its plain-torch twin on the card: the fused
    MIS-2 passes at the Laplace3D_100 and Elasticity3D_60 shapes and the
    sliced passes at the 8- and 64-wide slabs of Powerlaw_1M (random
-   state, sentinel and dead worklist slots, all three priorities); the ELL
-   SpMV on both matrices and the hash-pack at V = 1M for three rounds, two
+   state, sentinel and dead worklist slots, all three priorities); the
+   unfused passes over pre-gathered rows of a pow2-padded worklist at the
+   two paper graphs' shapes (dead slots past ``count``); the ELL SpMV on
+   both matrices and the hash-pack at V = 1M for three rounds, two
    launches each, all bitwise;
 4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
@@ -39,12 +41,21 @@ Phases (any failure raises, and the script exits non-zero):
    ``color(engine="luby_hybrid")``, one launch of each sliced kernel per
    slab per MIS-2 round; then ``cuda_hybrid`` on Laplace3D_100 and
    Elasticity3D_60 against the ``mis2`` anchors;
-8. time each kernel (CUDA events, L2 flushed before each launch), its twin
+8. the host-driven path and the Fig. 2 chain: ``mis2`` with the
+   ``compacted`` and ``cuda_compacted`` engines on laplace3d(8),
+   Laplace3D_100 and Elasticity3D_60 against the ``mis2`` anchors (two
+   host syncs and, for ``cuda_compacted``, one launch of each unfused
+   kernel a round), ``cuda_compacted`` without worklists on
+   Laplace3D_100, ``coarsen(mis2_engine="cuda_compacted")`` on
+   Laplace3D_100, and every ``ABLATION_CHAIN`` entry through
+   ``engine=None`` on the two paper graphs (engine chosen, anchors, warm
+   wall times, speed-up over ``baseline_bell``);
+9. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside the bytes bound; the end-to-end wall times of
-   ``mis2`` / ``coarsen`` (and on Powerlaw_1M of the hybrid ``mis2`` /
-   ``coarsen`` / ``color``), of the setup phases, of one V-cycle, one GS
-   apply and each CG solve.
+   ``mis2`` (``engine=None`` and the host-driven engines) / ``coarsen``
+   (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
+   of the setup phases, of one V-cycle, one GS apply and each CG solve.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -118,6 +129,20 @@ POWERLAW_1M = dict(
     color=(36, 80, "f50cd95ad8b0addc"))
 TIMED_SLABS = (8, 64)
 
+# ABLATION_CHAIN["baseline_bell"] (fixed priorities) on the three graphs:
+# the reference's dense engine (JAX on the CPU); the other entries give
+# the ANCHORS' mis2 sets
+FIXED_MIS2 = {"laplace3d(8)": (54, 6, "b3d3b74da8f85b2d"),
+              "Laplace3D_100": (90_222, 13, "fc5670c01ec4a228"),
+              "Elasticity3D_60": (4_871, 14, "bdd9a343060ad454")}
+# the reference's compacted engine on laplace3d(8): pow2 bucket pairs
+COMPACTED_L8_COMPILES = 5
+# the engine engine=None takes for each chain entry
+CHAIN_ENGINES = {"baseline_bell": "compacted", "+rand_priority": "compacted",
+                 "+worklists": "compacted_resident",
+                 "+packed_status": "compacted_resident",
+                 "+simd_ell": "cuda_resident"}
+
 KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
     "fused_refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:216",
                               "src/repro_torch/kernels/csrc/minprop_ell.cu"),
@@ -133,8 +158,13 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
                                "src/repro_torch/kernels/csrc/minprop_ell.cu"),
     "sliced_decide": ("src/repro/kernels/minprop_ell/kernel.py:409",
                       "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:96",
+                        "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "decide": ("src/repro/kernels/minprop_ell/kernel.py:445",
+               "src/repro_torch/kernels/csrc/minprop_ell.cu"),
 }
 SLICED = ("sliced_refresh_columns", "sliced_decide")
+UNFUSED = ("refresh_columns", "decide")
 
 
 class SmokeFailure(RuntimeError):
@@ -266,6 +296,7 @@ def main() -> int:
         checks += _hold_round_pair(torch, ops, ref, "fused", label,
                                    _random_state(torch, rng, v, dev), args,
                                    id_bits(v), rng, errs)
+        checks += _hold_unfused_pair(torch, ops, ref, label, ell, rng, errs)
         # the ELL SpMV on the graph's matrix: two launches, twin, bitwise
         a_ell = graphs[label].ell_matrix
         x = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
@@ -485,19 +516,34 @@ def main() -> int:
     for k in SLICED:
         check(counts[k] > 0, f"{k} was never launched on the hybrid path")
     emit({"phase": "hybrid_path", "launches": counts, **hybrid})
+
+    # -- 8. the host-driven path and the Fig. 2 chain -------------------------------
+    launches.reset()
+    compacted = _compacted_path(torch, rt, graphs, launches)
+    counts = launches.read()
+    add_path(counts)
+    for k in UNFUSED:
+        check(counts[k] > 0, f"{k} was never launched on the host-driven path")
+    emit({"phase": "compacted_path", "launches": counts, **compacted})
     for k in KERNELS:
         check(path_launches[k] > 0, f"{k} was never launched on a path")
 
-    # -- 8. timing ------------------------------------------------------------------
+    # -- 9. timing ------------------------------------------------------------------
     timing = {}
     for label in PAPER_GRAPHS:
         timing[label] = _time_kernels(torch, graphs[label], ops, ref, id_bits)
+        timing[label].update(_time_unfused(torch, graphs[label], ops, ref,
+                                           id_bits))
         timing[label]["spmv"] = _time_spmv(torch, graphs[label].ell_matrix,
                                            spmv_ops, spmv_ref, rng)
         e2e = {}
-        for what, call in (("mis2", lambda g=graphs[label]: rt.mis2(g)),
-                           ("coarsen", lambda g=graphs[label]: rt.coarsen(
-                               g, method="two_phase"))):
+        g = graphs[label]
+        for what, call in (
+                ("mis2", lambda g=g: rt.mis2(g)),
+                ("mis2_compacted", lambda g=g: rt.mis2(g, engine="compacted")),
+                ("mis2_cuda_compacted",
+                 lambda g=g: rt.mis2(g, engine="cuda_compacted")),
+                ("coarsen", lambda g=g: rt.coarsen(g, method="two_phase"))):
             walls, res = [], None
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -506,7 +552,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             e2e[what] = {"wall_ms": walls, "iterations": res.iterations}
-            if what == "mis2":
+            if what.startswith("mis2"):
                 e2e[what]["host_syncs"] = res.host_syncs
         timing[label]["end_to_end"] = e2e
         emit({"phase": "timing", "graph": label, **timing[label]})
@@ -548,6 +594,8 @@ def main() -> int:
         "hash_pack": ("V = 1M", hash_time),
         **{k: ("Powerlaw_1M 8-wide slab round 0", sliced_time[8][k])
            for k in SLICED},
+        **{k: ("Laplace3D_100 round 0", timing["Laplace3D_100"][k])
+           for k in UNFUSED},
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -560,7 +608,7 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": shape,
         }
-        if k in ("fused_refresh_columns", "fused_decide", "spmv"):
+        if k in ("fused_refresh_columns", "fused_decide", "spmv", *UNFUSED):
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
         if k in SLICED:
             entry["by_slab"] = {f"width {w}": sliced_time[w][k]
@@ -617,6 +665,40 @@ def _hold_round_pair(torch, ops, ref, prefix: str, where: str, state, args,
         errs[decide] = max(errs[decide], _max_abs_err_u32(tk, tr))
         checks += 2
     return checks
+
+
+def _hold_unfused_pair(torch, ops, ref, where: str, ell, rng,
+                       errs: dict) -> int:
+    """One ``refresh_columns`` and one ``decide`` launch against their twins
+    on the pre-gathered rows of a pow2-padded worklist (``count`` of ``W``
+    slots live, the dead ones gathering row V-1 as the driver's clamp
+    does), random T (some IN, some OUT), M and active, bitwise.  Returns
+    the number of checks."""
+    import numpy as np
+
+    v = ell.num_vertices
+    dev = ell.neighbors.device
+    w = 1 << (v - 1).bit_length()
+    count = int(v * 0.6)
+    wl = np.full(w, v - 1, dtype=np.int64)
+    wl[:count] = rng.permutation(v)[:count]
+    rows = torch.from_numpy(wl).to(dev)
+    wl_nbrs = ell.neighbors[rows].contiguous()
+    t, m, active = _random_state(torch, rng, v, dev)
+    t_rows = t[rows].contiguous()
+    mk = ops.refresh_columns_rows(t, wl_nbrs, count)
+    mr = ref.refresh_columns_ref(t, wl_nbrs, count)
+    tk = ops.decide_rows(t_rows, m, active, wl_nbrs, count)
+    tr = ref.decide_ref(t_rows, m, active, wl_nbrs, count)
+    torch.cuda.synchronize()
+    check(torch.equal(mk, mr), f"refresh_columns != twin ({where})")
+    check(bool((mk[:count] != -1).any()), "refresh_columns wrote only OUT")
+    check(torch.equal(tk, tr), f"decide != twin ({where})")
+    check(not torch.equal(tk, t_rows), "decide decided nothing")
+    errs["refresh_columns"] = max(errs["refresh_columns"],
+                                  _max_abs_err_u32(mk, mr))
+    errs["decide"] = max(errs["decide"], _max_abs_err_u32(tk, tr))
+    return 2
 
 
 def _bits_equal(a, b) -> bool:
@@ -796,6 +878,142 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
         out[k] = {**_timed(torch, kernel, twin, None, nbytes,
                            restore=restore, reps=reps, plain_reps=plain_reps),
                   "V": v, "D": d}
+    return out
+
+
+def _time_unfused(torch, g, ops, ref, id_bits, reps: int = 50,
+                  plain_reps: int = 5) -> dict:
+    """The unfused kernels and their twins at the host-driven round 0:
+    every row live in a pow2 bucket (dead slots gathering row V-1), T
+    after the row refresh, M after the column refresh; each launch writes
+    a new output, so nothing is restored."""
+    from repro_torch.core.hashing import PRIORITY_FNS
+    from repro_torch.core.tuples import narrow, pack
+
+    ell = g.ell
+    v, d = ell.neighbors.shape
+    dev = ell.neighbors.device
+    w = 1 << (v - 1).bit_length()
+    rows = torch.arange(w, device=dev).clamp(max=v - 1)
+    wl_nbrs = ell.neighbors[rows].contiguous()
+    vids = torch.arange(v, device=dev)
+    t = narrow(pack(PRIORITY_FNS["xorshift_star"](0, vids), vids, id_bits(v)))
+    m = ops.refresh_columns_rows(t, wl_nbrs, v)[:v].contiguous()
+    t_rows = t[rows].contiguous()
+    active = torch.ones(v, dtype=torch.bool, device=dev)
+    n_distinct = int(torch.unique(ell.neighbors).numel())
+    ids = 4 * v * d                  # the live rows' ids, read once
+    # refresh: ids + T at distinct ids + [W] output written
+    refresh_bytes = ids + 4 * n_distinct + 4 * w
+    # decide: ids + t_rows + M and active at distinct ids + output written
+    decide_bytes = ids + 4 * w + 5 * n_distinct + 4 * w
+    cases = {
+        "refresh_columns": (
+            lambda: ops.refresh_columns_rows(t, wl_nbrs, v),
+            lambda: ref.refresh_columns_ref(t, wl_nbrs, v), refresh_bytes),
+        "decide": (
+            lambda: ops.decide_rows(t_rows, m, active, wl_nbrs, v),
+            lambda: ref.decide_ref(t_rows, m, active, wl_nbrs, v),
+            decide_bytes),
+    }
+    return {k: {**_timed(torch, kernel, twin, None, nbytes, reps=reps,
+                         plain_reps=plain_reps),
+                "V": v, "D": d, "W": w, "count": v}
+            for k, (kernel, twin, nbytes) in cases.items()}
+
+
+def _compacted_path(torch, rt, graphs, launches) -> dict:
+    """Phase 8: the host-driven engines against the ``mis2`` anchors, the
+    no-worklist ablation, coarsening on ``cuda_compacted``, and the Fig. 2
+    chain through ``engine=None``."""
+    import numpy as np
+
+    out = {}
+    others = [k for k in KERNELS if k not in UNFUSED and k in launches.read()]
+    for label, a in ANCHORS.items():
+        g = graphs[label]
+        res = {}
+        for engine in ("compacted", "cuda_compacted"):
+            before = launches.read()
+            r = rt.mis2(g, engine=engine)
+            after = launches.read()
+            got = (r.size, r.iterations, r.digest)
+            check(got == a["mis2"], f"{label}: {engine} {got} != {a['mis2']}")
+            check(r.converged, f"{label}: {engine} did not converge")
+            check(r.host_syncs == 2 * r.iterations,
+                  f"{label}: {engine} {r.host_syncs} host syncs in "
+                  f"{r.iterations} rounds")
+            want = r.iterations if engine == "cuda_compacted" else 0
+            for k in UNFUSED:
+                check(after[k] - before[k] == want,
+                      f"{label}: {engine} launched {k} "
+                      f"{after[k] - before[k]} times in {r.iterations} rounds")
+            check(all(after[k] == before[k] for k in others),
+                  f"{label}: {engine} launched another kernel")
+            res[engine] = {"size": r.size, "iterations": r.iterations,
+                           "digest": r.digest, "host_syncs": r.host_syncs,
+                           "num_compiles": r.num_compiles,
+                           "first_call_s": r.wall_time_s}
+        nc = {e: res[e]["num_compiles"] for e in res}
+        check(nc["compacted"] == nc["cuda_compacted"],
+              f"{label}: num_compiles {nc}")
+        if label == "laplace3d(8)":
+            check(nc["compacted"] == COMPACTED_L8_COMPILES,
+                  f"laplace3d(8): num_compiles {nc['compacted']} != "
+                  f"{COMPACTED_L8_COMPILES}")
+        out[label] = res
+    l100 = graphs["Laplace3D_100"]
+    before = launches.read()
+    r = rt.mis2(l100, engine="cuda_compacted",
+                options=rt.Mis2Options(worklists=False))
+    after = launches.read()
+    got = (r.size, r.iterations, r.digest)
+    check(got == ANCHORS["Laplace3D_100"]["mis2"] and r.num_compiles == 1,
+          f"Laplace3D_100: cuda_compacted without worklists {got} "
+          f"({r.num_compiles} compiles)")
+    check(all(after[k] - before[k] == r.iterations for k in UNFUSED),
+          "Laplace3D_100: cuda_compacted without worklists launches")
+    out["Laplace3D_100"]["cuda_compacted_no_worklists"] = {
+        "size": r.size, "iterations": r.iterations, "digest": r.digest,
+        "num_compiles": r.num_compiles}
+    before = launches.read()
+    agg = rt.coarsen(l100, method="two_phase", mis2_engine="cuda_compacted")
+    after = launches.read()
+    got = (agg.num_aggregates, agg.iterations, agg.digest)
+    check(got == ANCHORS["Laplace3D_100"]["coarsen"],
+          f"Laplace3D_100: coarsen on cuda_compacted {got}")
+    check(all(after[k] - before[k] == agg.iterations for k in UNFUSED),
+          "Laplace3D_100: coarsen on cuda_compacted launches")
+    out["Laplace3D_100"]["coarsen_cuda_compacted"] = {
+        "aggregates": agg.num_aggregates, "mis2_iterations": agg.iterations,
+        "digest": agg.digest, "first_call_s": agg.wall_time_s}
+    r = rt.mis2(graphs["laplace3d(8)"],
+                options=rt.ABLATION_CHAIN["baseline_bell"])
+    check((r.size, r.iterations, r.digest) == FIXED_MIS2["laplace3d(8)"],
+          f"laplace3d(8): baseline_bell {(r.size, r.iterations, r.digest)}")
+    chain = {}
+    for label in PAPER_GRAPHS:
+        g = graphs[label]
+        rows = {}
+        for entry, opts in rt.ABLATION_CHAIN.items():
+            r = rt.mis2(g, options=opts)
+            want = FIXED_MIS2[label] if opts.priority == "fixed" \
+                else ANCHORS[label]["mis2"]
+            got = (r.size, r.iterations, r.digest)
+            check(r.engine == CHAIN_ENGINES[entry],
+                  f"{label} {entry}: engine {r.engine}")
+            check(got == want and r.converged,
+                  f"{label} {entry}: {got} != {want}")
+            walls = _wall_ms(torch, lambda g=g, o=opts: rt.mis2(g, options=o))
+            rows[entry] = {"engine": r.engine, "digest": r.digest,
+                           "size": r.size, "iterations": r.iterations,
+                           "host_syncs": r.host_syncs, "wall_ms": walls}
+        base = float(np.median(rows["baseline_bell"]["wall_ms"]))
+        for row in rows.values():
+            row["speedup_vs_baseline_bell"] = base / float(
+                np.median(row["wall_ms"]))
+        chain[label] = rows
+    out["fig2_chain"] = chain
     return out
 
 

@@ -8,6 +8,7 @@ each part of the port is held against (equal determinism digests).
 """
 from . import graphs, solvers
 from .api import (
+    ABLATION_CHAIN,
     AggregationResult,
     AmgSetup,
     Backend,
@@ -32,4 +33,5 @@ __all__ = [
     "coarsen", "color", "amg_setup", "amg", "cluster_gs_setup",
     "list_engines", "Result", "Mis2Result", "AggregationResult",
     "ColoringResult", "AmgSetup", "ClusterGsSetup", "determinism_digest",
+    "ABLATION_CHAIN",
 ]

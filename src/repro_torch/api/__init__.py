@@ -1,4 +1,5 @@
 """``repro_torch.api`` — the public surface of the port."""
+from ..core.mis2 import ABLATION_CHAIN, Mis2Options
 from . import engines as _engines  # noqa: F401  (registers built-in engines)
 from .backend import DEFAULT_MIS2_ENGINE, DEFAULT_MULTILEVEL_ENGINE, Backend
 from .facade import amg, amg_setup, cluster_gs_setup, coarsen, color, mis2
@@ -18,5 +19,5 @@ __all__ = [
     "Backend", "DEFAULT_MIS2_ENGINE", "DEFAULT_MULTILEVEL_ENGINE",
     "get_engine", "list_engines", "register_engine", "AggregationResult",
     "AmgSetup", "ClusterGsSetup", "ColoringResult", "Mis2Result", "Result",
-    "determinism_digest",
+    "determinism_digest", "Mis2Options", "ABLATION_CHAIN",
 ]

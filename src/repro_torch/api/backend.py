@@ -35,17 +35,32 @@ def resolve_backend(backend: Backend | None) -> Backend:
 DEFAULT_MIS2_ENGINE = "cuda_resident"
 
 
-def default_mis2_engine(graph) -> str:
+def default_mis2_engine(graph, options=None) -> str:
     """The ``engine=None`` rule of ``mis2`` and of the coarsening's inner
-    fixed points: ``cuda_hybrid`` once the graph's padded-ELL bytes
-    estimate exceeds ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES`` (a
-    skewed graph at scale), else :data:`DEFAULT_MIS2_ENGINE`.  The
-    threshold is read at call time, so a test can lower it."""
+    fixed points, kernel engines first and total over ``Mis2Options``:
+
+    * ``cuda_hybrid`` once the graph's padded-ELL bytes estimate exceeds
+      ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES`` (a skewed graph at
+      scale), for options the kernels take (worklists, packed, ``ell``);
+    * else :data:`DEFAULT_MIS2_ENGINE` for those options;
+    * else ``compacted_resident`` with worklists (the unpacked or
+      ``csr_segment`` ablations);
+    * else ``cuda_compacted`` for packed ``ell`` without worklists;
+    * else ``compacted``.
+
+    The threshold is read at call time, so a test can lower it."""
     from ..graphs import hybrid as _hybrid
 
-    if graph.ell_bytes_estimate() > _hybrid.HYBRID_AUTO_BYTES:
-        return "cuda_hybrid"
-    return DEFAULT_MIS2_ENGINE
+    worklists = options is None or options.worklists
+    kernel_layout = options is None or (options.packed
+                                        and options.layout == "ell")
+    if worklists and kernel_layout:
+        if graph.ell_bytes_estimate() > _hybrid.HYBRID_AUTO_BYTES:
+            return "cuda_hybrid"
+        return DEFAULT_MIS2_ENGINE
+    if worklists:
+        return "compacted_resident"
+    return "cuda_compacted" if kernel_layout else "compacted"
 
 
 #: ``engine=None`` of ``amg_setup`` / ``cluster_gs_setup``: the host setup

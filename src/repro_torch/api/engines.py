@@ -15,7 +15,12 @@ from ..core.aggregation import (
     _aggregate_two_phase_impl,
 )
 from ..core.coloring import _color_graph_impl, _color_hybrid_impl
-from ..core.mis2 import _mis2_dense_impl, _mis2_resident_impl
+from ..core.mis2 import (
+    _mis2_compacted_impl,
+    _mis2_dense_impl,
+    _mis2_resident_impl,
+    _mis2_resident_plain_impl,
+)
 from ..core.mis2_hybrid import _mis2_hybrid_impl
 from ..multilevel.hierarchy import (
     _build_hierarchy_impl,
@@ -24,8 +29,15 @@ from ..multilevel.hierarchy import (
 from .registry import register_engine
 
 register_engine("mis2", "dense")(_mis2_dense_impl)
+register_engine("mis2", "compacted")(_mis2_compacted_impl)
+register_engine("mis2", "compacted_resident")(_mis2_resident_plain_impl)
 register_engine("mis2", "cuda_resident")(_mis2_resident_impl)
 register_engine("mis2", "cuda_hybrid")(_mis2_hybrid_impl)
+
+
+@register_engine("mis2", "cuda_compacted")
+def _mis2_cuda_compacted(graph, active, options):
+    return _mis2_compacted_impl(graph, active, options, kernels=True)
 
 
 @register_engine("aggregation", "basic")

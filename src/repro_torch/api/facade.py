@@ -45,21 +45,27 @@ def mis2(graph, *, active=None, options: Mis2Options | None = None,
          engine: str | None = None,
          backend: Backend | None = None) -> Mis2Result:
     """Distance-2 maximal independent set (paper Alg. 1); ``dense``,
+    ``compacted``, ``cuda_compacted``, ``compacted_resident``,
     ``cuda_resident`` and ``cuda_hybrid`` return bit-identical sets (equal
     ``digest``), equal to the JAX package's for equal graph and options.
     ``engine=None`` selects ``cuda_resident``, or ``cuda_hybrid`` (the
     sliced-ELL + COO-spill layout, O(E) memory) once the padded-ELL bytes
-    estimate passes ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES``; the
-    hybrid engine reports its traffic accounting in ``collectives``."""
+    estimate passes ``repro_torch.graphs.hybrid.HYBRID_AUTO_BYTES``; for
+    options the kernels do not take (the Fig. 2 ablations of
+    ``ABLATION_CHAIN``) it selects the engine that runs them
+    (``api.backend.default_mis2_engine``).  The hybrid engine reports its
+    traffic accounting in ``collectives``; the host-driven engines their
+    worklist-bucket pairs in ``num_compiles``."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
-    engine = default_mis2_engine(gh) if engine is None else engine
+    engine = default_mis2_engine(gh, options) if engine is None else engine
     fn = get_engine("mis2", engine)
     t0 = time.perf_counter()
     r = fn(gh, active, options)
     dt = time.perf_counter() - t0
     return Mis2Result(r.in_set, r.iterations, r.converged, dt, engine=engine,
-                      host_syncs=r.host_syncs, collectives=r.collectives)
+                      host_syncs=r.host_syncs, collectives=r.collectives,
+                      num_compiles=r.num_compiles)
 
 
 def coarsen(graph, *, method: str = "two_phase",
@@ -75,7 +81,8 @@ def coarsen(graph, *, method: str = "two_phase",
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     fn = get_engine("aggregation", method)
-    inner = default_mis2_engine(gh) if mis2_engine is None else mis2_engine
+    inner = default_mis2_engine(gh, options) if mis2_engine is None \
+        else mis2_engine
     t0 = time.perf_counter()
     r = fn(gh, options, inner, min_secondary_neighbors)
     dt = time.perf_counter() - t0

@@ -43,16 +43,21 @@ class Mis2Result(Result):
     """Distance-2 MIS: ``payload`` is the bool membership mask.
 
     ``host_syncs`` counts the device->host reads inside the fixed point:
-    the resident engine reads the live count once per round to decide
+    the resident engines read the live count once per round to decide
     whether to go on, so a solve of ``R`` rounds that converges reports
-    ``R + 1``.  ``collectives`` is the ``cuda_hybrid`` engine's traffic
-    accounting (``slice_widths``, ``slice_rows_processed``,
-    ``spill_entries``, ``spill_passes``, ``row_bytes_total``), in the
-    reference's keys; None for the other engines."""
+    ``R + 1``; the host-driven ones pull T and M every round (``2 R``).
+    ``num_compiles`` is the reference's count of distinct jitted step
+    shapes: the host-driven engines' pow2 worklist-bucket pairs, 1 for the
+    resident ones, None for ``dense``.  ``collectives`` is the
+    ``cuda_hybrid`` engine's traffic accounting (``slice_widths``,
+    ``slice_rows_processed``, ``spill_entries``, ``spill_passes``,
+    ``row_bytes_total``), in the reference's keys; None for the other
+    engines."""
 
     engine: str = ""
     host_syncs: int = 0
     collectives: dict | None = None
+    num_compiles: int | None = None
 
     @property
     def in_set(self) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Parallel, deterministic distance-2 maximal independent set (paper Alg. 1),
 PyTorch port of ``repro.core.mis2``.
 
-Three engines, bit-identical results:
+Engines, bit-identical results for equal options:
 
 * ``dense`` — the plain referent: every round refreshes, min-propagates and
   decides over all ``V`` rows with masks (``mis2_dense_fixed_point``).
@@ -14,9 +14,33 @@ Three engines, bit-identical results:
   read by the kernels on the device.
 * ``cuda_hybrid`` — the same loop over the degree-aware hybrid layout
   (``core.mis2_hybrid``), for graphs whose padded ELL is too large.
+* ``compacted`` / ``cuda_compacted`` — the host-driven §V-B driver: each
+  round pulls T and M to the host, rebuilds both worklists with
+  ``np.flatnonzero`` and pads them to power-of-two buckets.  ``compacted``
+  runs the plain-torch steps, ``cuda_compacted`` (the counterpart of
+  ``pallas``) the unfused kernels ``refresh_columns`` / ``decide`` over
+  pre-gathered worklist rows.  This is the engine of the Fig. 2 ablation.
+* ``compacted_resident`` — the plain steps in the resident loop (worklists
+  compacted on the device), for the unpacked and ``csr_segment`` variants
+  the kernels do not take.
 
-The loop's only host involvement is one read of the live count per round,
-to decide whether to go on: ``Mis2Result.host_syncs`` reports it.
+The Fig. 2 chain of optimizations is ``Mis2Options`` (see
+:data:`ABLATION_CHAIN`):
+
+=============  =============================================================
+``priority``   §V-A fresh pseudo-random priorities (fixed | xorshift |
+               xorshift_star)
+``worklists``  §V-B worklist compaction
+``packed``     §V-C one 32-bit status word (False: the 3-field tuple, status
+               uint8 / rand uint32 / id uint32, whose lexicographic min costs
+               three reductions)
+``layout``     §V-D ``ell`` = padded rows gathered whole | ``csr_segment`` =
+               segment reductions over the COO entries
+=============  =============================================================
+
+The resident and hybrid loops read one live flag per round on the host, to
+decide whether to go on; the host-driven driver pulls two ``[V]`` arrays a
+round.  ``Mis2Result.host_syncs`` reports both.
 """
 from __future__ import annotations
 
@@ -26,22 +50,58 @@ import numpy as np
 import torch
 
 from ..graphs.handle import as_graph
-from ..kernels.minprop_ell import ops
+from ..kernels.minprop_ell import ops, ref
 from .hashing import PRIORITY_FNS
-from .tuples import IN, OUT, OUT_I32, id_bits, is_undecided, pack
+from .tuples import (
+    IN,
+    OUT,
+    OUT_I32,
+    S_IN,
+    S_OUT,
+    S_UND,
+    U32MAX,
+    effective_priority,
+    id_bits,
+    is_undecided,
+    narrow,
+    pack,
+    widen,
+)
 
 MAX_ITERS_DEFAULT = 128
+
+
+LAYOUTS = ("ell", "csr_segment")
 
 
 @dataclass(frozen=True)
 class Mis2Options:
     priority: str = "xorshift_star"     # fixed | xorshift | xorshift_star
+    worklists: bool = True              # §V-B
+    packed: bool = True                 # §V-C
+    layout: str = "ell"                 # ell | csr_segment  (§V-D)
     max_iters: int = MAX_ITERS_DEFAULT
 
     def __post_init__(self):
         if self.priority not in PRIORITY_FNS:
             raise ValueError(f"unknown priority {self.priority!r} "
                              f"({' | '.join(PRIORITY_FNS)})")
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {self.layout!r} "
+                             f"({' | '.join(LAYOUTS)})")
+
+
+def _require_worklists(options: Mis2Options, engine: str) -> None:
+    if not options.worklists:
+        raise ValueError(
+            f"{engine} implements §V-B worklist compaction by construction; "
+            "use engine='dense' (masked lanes) or the host-driven "
+            "'compacted' driver for the no-worklist ablation")
+
+
+def _require_kernel_layout(options: Mis2Options, engine: str) -> None:
+    if not (options.packed and options.layout == "ell"):
+        raise ValueError(f"{engine} requires packed tuples + ELL layout")
 
 
 @dataclass
@@ -51,6 +111,8 @@ class Mis2Result:
     converged: bool
     host_syncs: int = 0       # device->host reads inside the fixed point
     collectives: dict | None = None   # cuda_hybrid: the traffic accounting
+    num_compiles: int | None = None   # compacted engines: distinct pow2
+    #                                   worklist-bucket pairs; resident: 1
 
     @property
     def size(self) -> int:
@@ -174,6 +236,8 @@ def resident_ell_fixed_point(neighbors: torch.Tensor, active: torch.Tensor,
 def _mis2_resident_impl(graph, active=None,
                         options: Mis2Options | None = None) -> Mis2Result:
     options = Mis2Options() if options is None else options
+    _require_worklists(options, "cuda_resident")
+    _require_kernel_layout(options, "cuda_resident")
     ell = as_graph(graph).ell
     v = ell.num_vertices
     act = _active_mask(active, v, ell.neighbors.device)
@@ -181,14 +245,386 @@ def _mis2_resident_impl(graph, active=None,
         ell.neighbors, act, priority=options.priority,
         max_iters=options.max_iters, b=id_bits(v))
     return Mis2Result((t == IN).cpu().numpy(), iters, int(n1.item()) == 0,
-                      syncs)
+                      syncs, num_compiles=1)
 
+
+# ===========================================================================
+# the steps of the host-driven and plain resident engines (plain torch)
+#   packed: T, M int32 [V] (stored words); unpacked: status uint8, rand and
+#   id int32 (stored uint32 words), for T and M each.  Index worklists are
+#   int32 with the sentinel V past their live slots (dropped by every
+#   scatter); the csr_segment steps take [V] worklist masks instead.
+# ===========================================================================
+
+#: jax.ops.segment_max's identity for the int32 flags (an empty segment)
+_I32_MIN = -(2 ** 31)
+
+
+def _rows(wl: torch.Tensor, v: int) -> torch.Tensor:
+    return wl.to(torch.int64).clamp(0, v - 1)
+
+
+def _any_by_row(flags: torch.Tensor, seg: torch.Tensor, v: int):
+    """Per row: does any of its entries' ``flags`` hold (``segment_max`` of
+    the int32 flags ``> 0``)."""
+    return ops.segment_reduce(flags.to(torch.int64), seg, v, "amax",
+                              _I32_MIN) > 0
+
+
+# ---- packed representation ----
+
+def _refresh_rows_packed(t, wl1, it: int, priority: str, b: int):
+    """§V-A: the undecided wl1 rows take this round's packed priority."""
+    rows = _rows(wl1, t.shape[0])
+    told = widen(t[rows])
+    newt = pack(PRIORITY_FNS[priority](it, rows), rows, b)
+    newt = torch.where(is_undecided(told), newt, told)
+    return ops.set_drop(t, wl1, narrow(newt))
+
+
+def _refresh_cols_packed_ell(t, m, wl2, neighbors):
+    """M of the wl2 rows: the twin of the ``refresh_columns`` kernel over
+    every slot of the gathered rows."""
+    nb = neighbors[_rows(wl2, neighbors.shape[0])]
+    return ops.set_drop(m, wl2, ref.refresh_columns_ref(t, nb, nb.shape[0]))
+
+
+def _decide_packed_ell(t, m, wl1, neighbors, active):
+    """T of the wl1 rows: the twin of the ``decide`` kernel."""
+    rows = _rows(wl1, neighbors.shape[0])
+    newt = ref.decide_ref(t[rows], m, active, neighbors[rows], rows.shape[0])
+    return ops.set_drop(t, wl1, newt)
+
+
+def _refresh_cols_packed_csr(t, m, wl2_mask, edges, v: int):
+    edge_rows, edge_cols = edges
+    tw = widen(t)
+    mv = ops.segment_reduce(tw[edge_cols], edge_rows, v, "amin", U32MAX)
+    mv = torch.minimum(mv, tw)                 # closed neighborhood
+    mv = torch.where(mv == IN, OUT, mv)
+    return torch.where(wl2_mask, narrow(mv), m)
+
+
+def _decide_packed_csr(t, m, wl1_mask, edges, active, v: int):
+    edge_rows, edge_cols = edges
+    mn = m[edge_cols]
+    an = active[edge_cols]
+    has_out = _any_by_row(an & (mn == OUT_I32), edge_rows, v)
+    has_out = has_out | (m == OUT_I32)        # closed (self term)
+    neq = _any_by_row(an & (mn != t[edge_rows]), edge_rows, v)
+    all_eq = ~neq & (m == t)                  # closed (self term)
+    newt = torch.where(has_out, OUT_I32, torch.where(all_eq, IN, t))
+    newt = torch.where(is_undecided(t), newt, t)
+    return torch.where(wl1_mask, newt, t)
+
+
+# ---- unpacked (3-field) representation (§V-C ablation) ----
+# The lexicographic min of (status, rand, id) is taken field by field, as
+# the reference does: packing the three into one int64 key would be exact,
+# and would be the very optimization this variant switches off.
+
+def _lex_lt(s1, r1, i1, s2, r2, i2):
+    return (s1 < s2) | ((s1 == s2) & ((r1 < r2) | ((r1 == r2) & (i1 < i2))))
+
+
+def _refresh_rows_unpacked(ts, tr, wl1, it: int, priority: str, b: int):
+    """§V-A: the undecided wl1 rows take this round's rand field."""
+    rows = _rows(wl1, ts.shape[0])
+    prio = effective_priority(PRIORITY_FNS[priority](it, rows), b)
+    newr = torch.where(ts[rows] == S_UND, narrow(prio), tr[rows])
+    return ops.set_drop(tr, wl1, newr)
+
+
+def _refresh_cols_unpacked_ell(ts, tr, ti, ms, mr, mi, wl2, neighbors):
+    nb = neighbors[_rows(wl2, neighbors.shape[0])].to(torch.int64)
+    cs, cr, ci = ts[nb], widen(tr[nb]), widen(ti[nb])
+    bs, br, bi = cs[:, 0], cr[:, 0], ci[:, 0]
+    for j in range(1, nb.shape[1]):           # per-column lexicographic min
+        lt = _lex_lt(cs[:, j], cr[:, j], ci[:, j], bs, br, bi)
+        bs = torch.where(lt, cs[:, j], bs)
+        br = torch.where(lt, cr[:, j], br)
+        bi = torch.where(lt, ci[:, j], bi)
+    bs = torch.where(bs == S_IN, S_OUT, bs)   # IN-adjacent poison
+    return (ops.set_drop(ms, wl2, bs), ops.set_drop(mr, wl2, narrow(br)),
+            ops.set_drop(mi, wl2, narrow(bi)))
+
+
+def _refresh_cols_unpacked_csr(ts, tr, ti, ms, mr, mi, wl2_mask, edges,
+                               v: int):
+    """Three segment passes: the traffic cost packing removes (§V-C).  An
+    empty segment holds the uint8 / uint32 maximum, as
+    ``jax.ops.segment_min`` gives it."""
+    edge_rows, edge_cols = edges
+    ts_w = ts.to(torch.int64)
+    es = ts_w[edge_cols]
+    smin = ops.segment_reduce(es, edge_rows, v, "amin", 255)
+    smin = torch.minimum(smin, ts_w)
+    on_s = es == smin[edge_rows]
+    del es
+    er = widen(tr[edge_cols])
+    rmin = ops.segment_reduce(torch.where(on_s, er, U32MAX), edge_rows, v,
+                              "amin", U32MAX)
+    tr_w = widen(tr)
+    s_self = ts_w == smin
+    rmin = torch.where(s_self, torch.minimum(rmin, tr_w), rmin)
+    on_r = on_s & (er == rmin[edge_rows])
+    del on_s, er
+    ei = widen(ti[edge_cols])
+    imin = ops.segment_reduce(torch.where(on_r, ei, U32MAX), edge_rows, v,
+                              "amin", U32MAX)
+    del on_r, ei
+    imin = torch.where(s_self & (tr_w == rmin),
+                       torch.minimum(imin, widen(ti)), imin)
+    smin = torch.where(smin == S_IN, S_OUT, smin)
+    return (torch.where(wl2_mask, smin.to(torch.uint8), ms),
+            torch.where(wl2_mask, narrow(rmin), mr),
+            torch.where(wl2_mask, narrow(imin), mi))
+
+
+def _decide_unpacked_ell(ts, tr, ti, ms, mr, mi, wl1, neighbors, active):
+    rows = _rows(wl1, neighbors.shape[0])
+    nb = neighbors[rows].to(torch.int64)
+    an = active[nb]
+    cs, cr, ci = ms[nb], mr[nb], mi[nb]
+    tvs, tvr, tvi = ts[rows], tr[rows], ti[rows]
+    any_out = (an & (cs == S_OUT)).any(dim=1)
+    eq = (cs == S_UND) & (cr == tvr[:, None]) & (ci == tvi[:, None])
+    all_eq = (~an | eq).all(dim=1)
+    news = torch.where(any_out, S_OUT, torch.where(all_eq, S_IN, tvs))
+    news = torch.where(tvs == S_UND, news, tvs)
+    return ops.set_drop(ts, wl1, news)
+
+
+def _decide_unpacked_csr(ts, tr, ti, ms, mr, mi, wl1_mask, edges, active,
+                         v: int):
+    edge_rows, edge_cols = edges
+    an = active[edge_cols]
+    cs, cr, ci = ms[edge_cols], mr[edge_cols], mi[edge_cols]
+    any_out = _any_by_row(an & (cs == S_OUT), edge_rows, v) | (ms == S_OUT)
+    neq = (cs != S_UND) | (cr != tr[edge_rows]) | (ci != ti[edge_rows])
+    some_neq = _any_by_row(an & neq, edge_rows, v)
+    self_eq = (ms == S_UND) & (mr == tr) & (mi == ti)
+    all_eq = ~some_neq & self_eq
+    news = torch.where(any_out, S_OUT, torch.where(all_eq, S_IN, ts))
+    news = torch.where(ts == S_UND, news, ts)
+    return torch.where(wl1_mask, news, ts)
+
+
+# ---- one round, either representation ----
+
+def _initial_state(active: torch.Tensor, packed: bool) -> tuple:
+    """Round-0 state: ``(T, M)`` packed, ``(ts, tr, ti, ms, mr, mi)``
+    unpacked; inactive vertices are OUT and never refreshed."""
+    v, dev = active.shape[0], active.device
+    if packed:
+        return (torch.where(active, 1, OUT_I32).to(torch.int32),
+                torch.full((v,), OUT_I32, dtype=torch.int32, device=dev))
+    none = torch.full((v,), -1, dtype=torch.int32, device=dev)   # U32MAX
+    return (torch.where(active, S_UND, S_OUT).to(torch.uint8),
+            torch.zeros(v, dtype=torch.int32, device=dev),
+            torch.arange(v, dtype=torch.int32, device=dev),
+            torch.full((v,), S_OUT, dtype=torch.uint8, device=dev),
+            none, none.clone())
+
+
+def _ell_round(state: tuple, wl1, wl2, neighbors, active, it: int, *,
+               priority: str, b: int, counts=None) -> tuple:
+    """Row refresh, column refresh and decide over the ELL rows of the two
+    worklists.  ``counts`` (the live slots of ``wl1`` and ``wl2``) sends
+    the packed passes through the ``refresh_columns`` / ``decide`` kernels;
+    None runs the plain steps."""
+    if len(state) == 2:
+        t, m = state
+        t = _refresh_rows_packed(t, wl1, it, priority, b)
+        if counts is None:
+            m = _refresh_cols_packed_ell(t, m, wl2, neighbors)
+            t = _decide_packed_ell(t, m, wl1, neighbors, active)
+        else:
+            m = ops.refresh_columns(t, m, wl2, neighbors, counts[1])
+            t = ops.decide(t, m, wl1, neighbors, active, counts[0])
+        return t, m
+    ts, tr, ti, ms, mr, mi = state
+    tr = _refresh_rows_unpacked(ts, tr, wl1, it, priority, b)
+    ms, mr, mi = _refresh_cols_unpacked_ell(ts, tr, ti, ms, mr, mi, wl2,
+                                            neighbors)
+    ts = _decide_unpacked_ell(ts, tr, ti, ms, mr, mi, wl1, neighbors, active)
+    return ts, tr, ti, ms, mr, mi
+
+
+def _csr_round(state: tuple, wl1_mask, wl2_mask, edges, active, it: int, *,
+               priority: str, b: int) -> tuple:
+    """The round over the ``csr_segment`` layout, worklists as masks; the
+    row refresh goes through the mask (equal to the index scatter, as wl1
+    holds every undecided row)."""
+    v = active.shape[0]
+    vids = torch.arange(v, device=active.device)
+    prio = PRIORITY_FNS[priority](it, vids)
+    if len(state) == 2:
+        t, m = state
+        fresh = narrow(pack(prio, vids, b))
+        t = torch.where(wl1_mask & is_undecided(t), fresh, t)
+        m = _refresh_cols_packed_csr(t, m, wl2_mask, edges, v)
+        t = _decide_packed_csr(t, m, wl1_mask, edges, active, v)
+        return t, m
+    ts, tr, ti, ms, mr, mi = state
+    tr = torch.where(wl1_mask & (ts == S_UND),
+                     narrow(effective_priority(prio, b)), tr)
+    ms, mr, mi = _refresh_cols_unpacked_csr(ts, tr, ti, ms, mr, mi, wl2_mask,
+                                            edges, v)
+    ts = _decide_unpacked_csr(ts, tr, ti, ms, mr, mi, wl1_mask, edges,
+                              active, v)
+    return ts, tr, ti, ms, mr, mi
+
+
+def _undecided_live(state: tuple, host: bool = False):
+    """(undecided rows, rows whose M is not OUT): the next worklists, as
+    masks of either representation; ``host`` pulls T and M (the words or
+    the two statuses) to the host first."""
+    packed = len(state) == 2
+    t, m = state[0], state[1 if packed else 3]
+    if host:
+        t, m = t.cpu(), m.cpu()
+    if packed:
+        return is_undecided(t), m != OUT_I32
+    return t == S_UND, m != S_OUT
+
+
+def _in_set(state: tuple) -> np.ndarray:
+    return (state[0] == (IN if len(state) == 2 else S_IN)).cpu().numpy()
+
+
+def _layout(gh, options: Mis2Options):
+    """``(V, ELL neighbors or None, int64 COO edges or None)``."""
+    if options.layout == "ell":
+        nbrs = gh.ell.neighbors
+        return nbrs.shape[0], nbrs, None
+    return gh.num_vertices, None, tuple(x.to(torch.int64)
+                                        for x in gh.csr_edges)
+
+
+# ===========================================================================
+# the host-driven driver (compacted / cuda_compacted)
+# ===========================================================================
+
+def _bucket(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _pad_worklist(idx: np.ndarray, v: int, device) -> torch.Tensor:
+    out = np.full(_bucket(len(idx)), v, dtype=np.int32)
+    out[:len(idx)] = idx
+    return torch.from_numpy(out).to(device)
+
+
+class _WorklistPadCache:
+    """Per-solve record of the pow2 bucket shapes the host driver used.
+
+    ``shape_pairs`` holds the distinct ``(len(wl1), len(wl2))`` pairs: the
+    reference's jit-churn metric, reported as ``Mis2Result.num_compiles``.
+    Each pad is a fresh host buffer: ``torch.from_numpy`` aliases it, and
+    on the CPU ``.to`` keeps the alias, so refilling a reused buffer would
+    rewrite a live worklist.
+    """
+
+    def __init__(self, v: int, device):
+        self.v = v
+        self.device = device
+        self.shape_pairs: set[tuple[int, int]] = set()
+
+    def pad(self, idx: np.ndarray) -> torch.Tensor:
+        return _pad_worklist(idx, self.v, self.device)
+
+
+def _mask_of(wl: torch.Tensor, v: int) -> torch.Tensor:
+    buf = torch.zeros(v + 1, dtype=torch.bool, device=wl.device)
+    buf[wl.to(torch.int64)] = True
+    return buf[:v]
+
+
+def _mis2_compacted_impl(graph, active=None,
+                         options: Mis2Options | None = None, *,
+                         kernels: bool = False) -> Mis2Result:
+    """Engine entry for ``compacted`` and, with ``kernels``,
+    ``cuda_compacted``.
+
+    Without worklists the round-0 buffers (every active row, every row)
+    serve every round.  The kernels are given the live count of the buffer
+    they get, which is then the round-0 count: the reference's ``pallas``
+    engine passes the current worklist's length there instead, and its
+    kernels write OUT into the M of real rows past it.
+    """
+    options = Mis2Options() if options is None else options
+    if kernels:
+        _require_kernel_layout(options, "cuda_compacted")
+    gh = as_graph(graph)
+    v, nbrs, edges = _layout(gh, options)
+    act = _active_mask(active, v, gh.device)
+    kw = dict(priority=options.priority, b=id_bits(v))
+    state = _initial_state(act, options.packed)
+    pads = _WorklistPadCache(v, gh.device)
+    wl1_np = np.flatnonzero(act.cpu().numpy()).astype(np.int32)
+    wl2_np = np.arange(v, dtype=np.int32)
+    it = syncs = 0
+    while len(wl1_np) and it < options.max_iters:
+        if options.worklists or it == 0:
+            wl1, wl2 = pads.pad(wl1_np), pads.pad(wl2_np)
+            counts = (len(wl1_np), len(wl2_np))
+            if edges is not None:
+                wl1_mask, wl2_mask = _mask_of(wl1, v), _mask_of(wl2, v)
+        pads.shape_pairs.add((len(wl1), len(wl2)))
+        if edges is None:
+            state = _ell_round(state, wl1, wl2, nbrs, act, it,
+                               counts=counts if kernels else None, **kw)
+        else:
+            state = _csr_round(state, wl1_mask, wl2_mask, edges, act, it,
+                               **kw)
+        wl1_np, wl2_np = (np.flatnonzero(x.numpy()).astype(np.int32)
+                          for x in _undecided_live(state, host=True))
+        syncs += 2                    # T and M pulled to the host
+        it += 1
+    return Mis2Result(_in_set(state), it, len(wl1_np) == 0, syncs,
+                      num_compiles=max(1, len(pads.shape_pairs)))
+
+
+# ===========================================================================
+# the plain steps in the resident loop (compacted_resident)
+# ===========================================================================
+
+def _mis2_resident_plain_impl(graph, active=None,
+                              options: Mis2Options | None = None
+                              ) -> Mis2Result:
+    """Engine entry for ``compacted_resident``: the round of the host
+    driver over ``[V]`` device state, the worklists compacted on the device
+    (ELL) or kept as masks (``csr_segment``); one host read a round, as
+    ``cuda_resident``."""
+    options = Mis2Options() if options is None else options
+    _require_worklists(options, "compacted_resident")
+    gh = as_graph(graph)
+    v, nbrs, edges = _layout(gh, options)
+    act = _active_mask(active, v, gh.device)
+    kw = dict(priority=options.priority, b=id_bits(v))
+    state = _initial_state(act, options.packed)
+    und, live = act, torch.ones(v, dtype=torch.bool, device=gh.device)
+    it = syncs = 0
+    while it < options.max_iters:
+        syncs += 1
+        if not bool(und.any()):       # the one host read per round
+            break
+        if edges is None:
+            wl1, _ = compact_worklist(und)
+            wl2, _ = compact_worklist(live)
+            state = _ell_round(state, wl1, wl2, nbrs, act, it, **kw)
+        else:
+            state = _csr_round(state, und, live, edges, act, it, **kw)
+        und, live = _undecided_live(state)
+        it += 1
+    return Mis2Result(_in_set(state), it, not bool(und.any()), syncs,
+                      num_compiles=1)
 
 def run_mis2(graph, active=None, options: Mis2Options | None = None,
              engine: str = "cuda_resident") -> Mis2Result:
-    """Engine dispatch used by the facade and the coarsening drivers;
-    ``dense``, ``cuda_resident`` and ``cuda_hybrid`` give bit-identical
-    sets."""
+    """Engine dispatch used by the facade and the coarsening drivers; every
+    engine gives a bit-identical set for equal options."""
     if engine == "dense":
         return _mis2_dense_impl(graph, active, options)
     if engine == "cuda_resident":
@@ -197,5 +633,28 @@ def run_mis2(graph, active=None, options: Mis2Options | None = None,
         from .mis2_hybrid import _mis2_hybrid_impl
 
         return _mis2_hybrid_impl(graph, active, options)
-    raise ValueError(f"unknown mis2 engine {engine!r} "
-                     "(dense | cuda_resident | cuda_hybrid)")
+    if engine in ("compacted", "cuda_compacted"):
+        return _mis2_compacted_impl(graph, active, options,
+                                    kernels=engine == "cuda_compacted")
+    if engine == "compacted_resident":
+        return _mis2_resident_plain_impl(graph, active, options)
+    raise ValueError(f"unknown mis2 engine {engine!r} (dense | compacted | "
+                     "cuda_compacted | compacted_resident | cuda_resident | "
+                     "cuda_hybrid)")
+
+
+# Fig. 2 cumulative ablation chain: Bell's baseline, then each of the
+# paper's four optimizations switched on in turn (the last entry is the
+# production default)
+ABLATION_CHAIN = {
+    "baseline_bell": Mis2Options(priority="fixed", worklists=False,
+                                 packed=False, layout="csr_segment"),
+    "+rand_priority": Mis2Options(priority="xorshift_star", worklists=False,
+                                  packed=False, layout="csr_segment"),
+    "+worklists": Mis2Options(priority="xorshift_star", worklists=True,
+                              packed=False, layout="csr_segment"),
+    "+packed_status": Mis2Options(priority="xorshift_star", worklists=True,
+                                  packed=True, layout="csr_segment"),
+    "+simd_ell": Mis2Options(priority="xorshift_star", worklists=True,
+                             packed=True, layout="ell"),
+}

@@ -26,7 +26,14 @@ import torch
 
 from ..graphs.handle import as_graph
 from ..kernels.minprop_ell import ops
-from .mis2 import Mis2Options, Mis2Result, _active_mask, compact_worklist
+from .mis2 import (
+    Mis2Options,
+    Mis2Result,
+    _active_mask,
+    _require_kernel_layout,
+    _require_worklists,
+    compact_worklist,
+)
 from .tuples import IN, OUT_I32, id_bits, is_undecided
 
 
@@ -81,6 +88,8 @@ def _mis2_hybrid_impl(graph, active=None,
     """Engine entry for ``cuda_hybrid``: works where the monolithic padded
     ELL cannot even be allocated (never touches ``graph.ell``)."""
     options = Mis2Options() if options is None else options
+    _require_worklists(options, "cuda_hybrid")
+    _require_kernel_layout(options, "cuda_hybrid")
     gh = as_graph(graph)
     hyb = gh.hybrid()
     v = hyb.num_vertices
@@ -101,4 +110,4 @@ def _mis2_hybrid_impl(graph, active=None,
             "slice_rows_processed": rows_processed,
             "spill_entries": hyb.num_spill_entries,
             "spill_passes": spill_passes,
-        })
+        }, num_compiles=1)

@@ -16,6 +16,10 @@ and shifts), so the port keeps two forms of the same word:
 * **widened**: an ``int64`` tensor holding the value in ``[0, 2**32)`` —
   where the plain torch code computes and compares, so signed order is
   unsigned order.
+
+The unpacked 3-field tuple of the §V-C ablation keeps the status as a
+``uint8`` (``S_IN`` / ``S_UND`` / ``S_OUT``) and the rand and id fields as
+uint32 words in the same stored / widened forms.
 """
 from __future__ import annotations
 
@@ -29,6 +33,11 @@ U32_MASK = 0xFFFFFFFF
 
 #: the stored (int32 bit pattern) form of OUT; IN is 0 in both forms
 OUT_I32 = -1
+
+#: status codes of the unpacked tuple (uint8), ordered IN < UND < OUT
+S_IN, S_UND, S_OUT = 0, 1, 2
+#: the largest uint32 (widened): an unpacked field's "no value"
+U32MAX = 0xFFFFFFFF
 
 
 def id_bits(num_vertices: int) -> int:

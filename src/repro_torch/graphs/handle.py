@@ -108,6 +108,9 @@ class Graph:
                 if key in self._cache:
                     self._cache[key] = type(self._cache[key])(
                         *(x.to(device) for x in self._cache[key]))
+            if "csr_edges" in self._cache:
+                self._cache["csr_edges"] = tuple(
+                    x.to(device) for x in self._cache["csr_edges"])
             for key, val in self._cache.items():
                 if isinstance(val, HybridEllGraph):
                     self._cache[key] = val.to(device)
@@ -158,6 +161,22 @@ class Graph:
                 csr_matrix, device=self._device)
             self._count("csr_to_ell_matrix")
         return self._cache["ell_matrix"]
+
+    @property
+    def csr_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """COO edge list ``(edge_rows, edge_cols)``, int32 tensors on the
+        handle's device, one entry per CSR entry in CSR order: the
+        ``csr_segment`` layout of the segment-reduction MIS-2 steps."""
+        if "csr_edges" not in self._cache:
+            csr = self.csr
+            rows = np.repeat(np.arange(csr.num_vertices, dtype=np.int32),
+                             np.diff(csr.indptr))
+            self._cache["csr_edges"] = (
+                torch.from_numpy(rows).to(self._device),
+                torch.from_numpy(np.array(csr.indices, dtype=np.int32)).to(
+                    self._device))
+            self._count("csr_edges")
+        return self._cache["csr_edges"]
 
     @staticmethod
     def _check_ell_budget(num_rows: int, width: int) -> None:

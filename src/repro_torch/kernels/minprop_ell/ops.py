@@ -1,8 +1,13 @@
-"""Wrappers for the fused MIS-2 round passes, over padded ELL and over one
-slab of the hybrid layout, and the hybrid layout's spill passes.
+"""Wrappers for the MIS-2 round passes: the fused ones over padded ELL and
+over one slab of the hybrid layout, the hybrid layout's spill passes, and
+the unfused ones of the host-driven round.
 
 ``fused_*`` and ``sliced_*`` take the resident drivers' state as it lies
-on the device and update it in place.  A tensor on the CPU goes to the
+on the device and update it in place.  ``refresh_columns_rows`` /
+``decide_rows`` take pre-gathered worklist rows ``[W, D]`` and return a
+new ``[W]`` output; ``refresh_columns`` / ``decide`` wrap them in the
+host-driven round's plain-torch row gather and drop-scatter, as the JAX
+package wraps its Pallas kernels in XLA.  A tensor on the CPU goes to the
 plain-torch twin (``ref``); a tensor on a CUDA device goes to the
 hand-written kernel (``csrc/minprop_ell.cu``), or the call raises — there
 is no fallback from one to the other.
@@ -25,26 +30,35 @@ from ...core.hashing import PRIORITY_CODES
 from ...core.tuples import IN, OUT, is_undecided, narrow, widen
 from .. import _build
 from . import ref
+from .ref import set_drop
 
 LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0,
-            "sliced_refresh_columns": 0, "sliced_decide": 0}
+            "sliced_refresh_columns": 0, "sliced_decide": 0,
+            "refresh_columns": 0, "decide": 0}
 
 _TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p)
+_ROWS_TAIL = (ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p)
 _SIGNATURES = {
     "fused_refresh_columns": (ctypes.c_void_p,) * 6 + _TAIL,
     "fused_decide": (ctypes.c_void_p,) * 7 + _TAIL,
     "sliced_refresh_columns": (ctypes.c_void_p,) * 7 + _TAIL,
     "sliced_decide": (ctypes.c_void_p,) * 8 + _TAIL,
+    "refresh_columns": (ctypes.c_void_p,) * 3 + _ROWS_TAIL,
+    "decide": (ctypes.c_void_p,) * 5 + _ROWS_TAIL,
 }
 
 # ---------------------------------------------------------------------------
-# adjacency row traffic of one live worklist row per pass: the sliced
-# kernels read the row's ids once from the slab and materialize no copy;
-# the spill is COO, counted per entry
+# adjacency row traffic of one live worklist row per pass: the host-driven
+# round gathers the row in plain torch (1 read), writes the [W, D] copy (1
+# write) and the kernel reads the copy back (1 read); the fused and sliced
+# kernels read the row's ids once and materialize no copy; the spill is
+# COO, counted per entry
 # ---------------------------------------------------------------------------
 
-ELL_ROW_TRAFFIC = {"cuda_hybrid": {"reads": 1, "writes": 0}}
+ELL_ROW_TRAFFIC = {"cuda_compacted": {"reads": 2, "writes": 1},
+                   "cuda_resident": {"reads": 1, "writes": 0},
+                   "cuda_hybrid": {"reads": 1, "writes": 0}}
 
 
 def ell_row_movements(engine: str) -> int:
@@ -206,6 +220,91 @@ def sliced_decide(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
             count.data_ptr(), it.data_ptr(), r, wl.shape[0], d, b,
             PRIORITY_CODES[priority])
     return t
+
+
+# ---------------------------------------------------------------------------
+# the host-driven round (engine cuda_compacted): pre-gathered rows
+# ---------------------------------------------------------------------------
+
+def _check_rows(wl_neighbors, count: int, **vectors) -> tuple[int, int]:
+    """Validate the unfused kernels' inputs; returns (W, D)."""
+    dev = wl_neighbors.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for name, x in {"wl_neighbors": wl_neighbors, **vectors}.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, wl_neighbors on "
+                             f"{dev}")
+        want = torch.bool if name == "active" else torch.int32
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.dim() != (2 if name == "wl_neighbors" else 1):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}")
+    w, d = wl_neighbors.shape
+    if w == 0 or d == 0:
+        raise ValueError(f"wl_neighbors is empty: {tuple(wl_neighbors.shape)}")
+    if "t_rows" in vectors and vectors["t_rows"].shape[0] != w:
+        raise ValueError(f"t_rows has {vectors['t_rows'].shape[0]} rows, "
+                         f"wl_neighbors {w}")
+    if "active" in vectors and vectors["active"].shape != vectors["m"].shape:
+        raise ValueError("active and m differ in length")
+    if count < 0:
+        raise ValueError(f"count={count} is negative")
+    return w, d
+
+
+def refresh_columns_rows(t, wl_neighbors, count: int) -> torch.Tensor:
+    """M of each pre-gathered worklist row (int32 [W]): the min of T over
+    the row's ids with IN -> OUT; OUT at slots ``>= count``.
+
+    ``t``: int32 [V] (uint32 bit patterns); ``wl_neighbors``: int32
+    [W, D] ids in ``[0, V)``; ``count``: the live slots, a host int."""
+    w, d = _check_rows(wl_neighbors, count, t=t)
+    if t.device.type == "cpu":
+        return ref.refresh_columns_ref(t, wl_neighbors, count)
+    out = torch.empty(w, dtype=torch.int32, device=t.device)
+    _launch("refresh_columns", t, t.data_ptr(), wl_neighbors.data_ptr(),
+            out.data_ptr(), w, d, count)
+    return out
+
+
+def decide_rows(t_rows, m, active, wl_neighbors, count: int) -> torch.Tensor:
+    """New T of each pre-gathered worklist row (int32 [W]): OUT if an
+    active neighbour's M is OUT, else IN if every active neighbour's M
+    equals the row's tuple, else the tuple; decided rows and slots
+    ``>= count`` keep theirs.  ``t_rows``: int32 [W]; ``m``: int32 [V];
+    ``active``: bool [V]; the rest as :func:`refresh_columns_rows`."""
+    w, d = _check_rows(wl_neighbors, count, t_rows=t_rows, m=m,
+                       active=active)
+    if m.device.type == "cpu":
+        return ref.decide_ref(t_rows, m, active, wl_neighbors, count)
+    out = torch.empty(w, dtype=torch.int32, device=m.device)
+    _launch("decide", m, t_rows.data_ptr(), m.data_ptr(), active.data_ptr(),
+            wl_neighbors.data_ptr(), out.data_ptr(), w, d, count)
+    return out
+
+
+def _clamped(wl, v: int) -> torch.Tensor:
+    return wl.to(torch.int64).clamp(0, v - 1)
+
+
+def refresh_columns(t, m, wl2, neighbors, count: int) -> torch.Tensor:
+    """``m.at[wl2].set(M of the wl2 rows, mode="drop")`` (a new tensor):
+    the rows gathered from the ELL ``neighbors`` [V, D] in plain torch, the
+    min in the kernel.  ``wl2``: int32 [W], sentinel ``V`` past ``count``."""
+    rows = neighbors[_clamped(wl2, neighbors.shape[0])]
+    return set_drop(m, wl2, refresh_columns_rows(t, rows, count))
+
+
+def decide(t, m, wl1, neighbors, active, count: int) -> torch.Tensor:
+    """``t.at[wl1].set(the decision of the wl1 rows, mode="drop")`` (a new
+    tensor): the rows and their tuples gathered in plain torch, the
+    decision in the kernel."""
+    rows = _clamped(wl1, neighbors.shape[0])
+    newt = decide_rows(t[rows], m, active, neighbors[rows], count)
+    return set_drop(t, wl1, newt)
 
 
 def segment_reduce(vals: torch.Tensor, seg: torch.Tensor, num: int,

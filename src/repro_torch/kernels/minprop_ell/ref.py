@@ -1,10 +1,17 @@
-"""Plain-torch twins of the fused MIS-2 kernels (``csrc/minprop_ell.cu``).
+"""Plain-torch twins of the MIS-2 kernels (``csrc/minprop_ell.cu``).
 
-Each twin computes what its kernel computes, in place: the function of
-``repro.kernels.minprop_ell.ref.fused_*_ref`` (or of the sliced Pallas
-kernels) followed by the drop-scatter ``x.at[gids].set(out, mode="drop")``
-of the JAX ops wrapper.  Slots at or past ``count`` and sentinel slots
-(``wl[i] == V``, or ``R`` for a hybrid slab of ``R`` rows) write nothing.
+The fused and sliced twins compute what their kernels compute, in place:
+the function of ``repro.kernels.minprop_ell.ref.fused_*_ref`` (or of the
+sliced Pallas kernels) followed by the drop-scatter
+``x.at[gids].set(out, mode="drop")`` of the JAX ops wrapper.  Slots at or
+past ``count`` and sentinel slots (``wl[i] == V``, or ``R`` for a hybrid
+slab of ``R`` rows) write nothing.
+
+``refresh_columns_ref`` / ``decide_ref`` are the twins of the host-driven
+round's kernels: they take pre-gathered worklist rows ``[W, D]`` and return
+a ``[W]`` output, exactly as ``repro.kernels.minprop_ell.ref``'s functions
+of the same names (slots at or past ``count`` hold OUT, or the row's own
+tuple for decide).
 
 The words are stored as int32 bit patterns and widened to int64 for every
 compare (see ``core.tuples``).  ``count`` and ``it`` are one-element int32
@@ -17,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...core.hashing import PRIORITY_FNS
-from ...core.tuples import OUT, is_undecided, narrow, pack, widen
+from ...core.tuples import IN, OUT, OUT_I32, is_undecided, narrow, pack, widen
 
 
 def _refresh(t_u: torch.Tensor, ids: torch.Tensor, it: torch.Tensor,
@@ -34,14 +41,22 @@ def _live_slots(wl: torch.Tensor, count: torch.Tensor, r: int):
     return wl.to(torch.int64).clamp(0, r - 1), live
 
 
-def _scatter_drop(x: torch.Tensor, target: torch.Tensor,
-                  vals: torch.Tensor) -> None:
-    """x[target] = vals in place, dropping target == V (a [V+1] buffer)."""
+def set_drop(x: torch.Tensor, target: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """``x.at[target].set(vals, mode="drop")`` for a ``[V]`` tensor whose
+    out-of-range targets are the sentinel ``V``: a new tensor (a ``[V+1]``
+    buffer whose dump slot ``V`` is sliced off)."""
     v = x.shape[0]
     buf = torch.empty(v + 1, dtype=x.dtype, device=x.device)
     buf[:v] = x
-    buf.scatter_(0, target, vals)
-    x.copy_(buf[:v])
+    buf.scatter_(0, target.to(torch.int64), vals)
+    return buf[:v]
+
+
+def _scatter_drop(x: torch.Tensor, target: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """x[target] = vals in place, dropping target == V."""
+    x.copy_(set_drop(x, target, vals))
 
 
 def _refresh_min(t, nb, it, priority: str, b: int) -> torch.Tensor:
@@ -114,3 +129,37 @@ def sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
     newt = _decide(t, m, active, rows, nb, it, priority, b)
     _scatter_drop(t, torch.where(live, rows, t.shape[0]), narrow(newt))
     return t
+
+
+# ---------------------------------------------------------------------------
+# the host-driven round: pre-gathered worklist rows in, a [W] output out
+# ---------------------------------------------------------------------------
+
+def _live(w: int, count: int, device) -> torch.Tensor:
+    return torch.arange(w, device=device) < count
+
+
+def refresh_columns_ref(t, wl_neighbors, count: int) -> torch.Tensor:
+    """M of each pre-gathered worklist row: the min of T over the row's
+    ids with IN -> OUT; OUT at slots ``>= count``.  ``t``: int32 [V]
+    (stored words); ``wl_neighbors``: int32 [W, D]; returns int32 [W]."""
+    mv = widen(t)[wl_neighbors.to(torch.int64)].amin(dim=1)
+    mv = torch.where(mv == IN, OUT, mv)
+    return narrow(torch.where(_live(mv.shape[0], count, t.device), mv, OUT))
+
+
+def decide_ref(t_rows, m, active, wl_neighbors, count: int) -> torch.Tensor:
+    """New T of each pre-gathered worklist row: OUT if an active
+    neighbour's M is OUT, else IN if every active neighbour's M equals the
+    row's tuple, else the tuple; decided rows and slots ``>= count`` keep
+    theirs.  ``t_rows``: int32 [W]; ``m``: int32 [V]; ``active``: bool [V];
+    ``wl_neighbors``: int32 [W, D]; returns int32 [W].  Only equality is
+    asked of the words, so they stay in the stored form."""
+    nb = wl_neighbors.to(torch.int64)
+    mn = m[nb]
+    an = active[nb]
+    any_out = (an & (mn == OUT_I32)).any(dim=1)
+    all_eq = (~an | (mn == t_rows[:, None])).all(dim=1)
+    newt = torch.where(any_out, OUT_I32, torch.where(all_eq, IN, t_rows))
+    keep = ~is_undecided(t_rows) | ~_live(t_rows.shape[0], count, m.device)
+    return torch.where(keep, t_rows, newt)

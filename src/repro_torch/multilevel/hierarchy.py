@@ -229,7 +229,8 @@ def _aggregation(aggregation: str, options, mis2_engine: Optional[str]):
     from ..api.registry import get_engine
 
     fn = get_engine("aggregation", aggregation)
-    return lambda g: fn(g, options, mis2_engine or default_mis2_engine(g), 2)
+    return lambda g: fn(g, options,
+                        mis2_engine or default_mis2_engine(g, options), 2)
 
 
 def _build_hierarchy_impl(a, aggregation: str = "two_phase",

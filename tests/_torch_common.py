@@ -141,3 +141,24 @@ def ref_hybrid_coarsen(name: str, method: str):
 @functools.lru_cache(maxsize=None)
 def ref_hybrid_color(name: str):
     return repro.color(ref_hybrid_graph(name), engine="luby_hybrid")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_ablation(name: str, entry: str, priority: str | None = None,
+                 active_seed: int | None = None, engine: str = "compacted",
+                 **replace):
+    """The reference's host-driven ``compacted`` driver (or ``engine``) on
+    an ``ABLATION_CHAIN`` entry, ``priority`` and further fields replaced;
+    returns ``(Mis2Result, host syncs counted by the reference)``."""
+    import dataclasses
+
+    from repro.core.mis2 import ABLATION_CHAIN, HOTLOOP_STATS
+
+    opts = ABLATION_CHAIN[entry]
+    if priority is not None:
+        replace["priority"] = priority
+    opts = dataclasses.replace(opts, **replace)
+    before = HOTLOOP_STATS.host_syncs
+    r = repro.mis2(ref_graph(name), active=active_mask(name, active_seed),
+                   options=opts, engine=engine)
+    return r, HOTLOOP_STATS.host_syncs - before

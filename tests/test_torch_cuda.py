@@ -8,7 +8,10 @@ without a card.
 The slice-3 cases hold the sliced kernels against their twins on random
 hybrid slabs and drive the hybrid path (``cuda_hybrid``, hybrid
 coarsening, ``luby_hybrid``) on ``powerlaw_graph(900, 8.0, seed=4)``
-against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.
+against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.  The
+slice-4 cases hold the unfused ``refresh_columns`` / ``decide`` kernels
+against their twins on pre-gathered rows and drive the host-driven
+``cuda_compacted`` engine against the plain ``compacted`` one.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -99,7 +102,8 @@ def test_kernels_match_twins(cuda_device, name, priority):
     assert torch.equal(x["m"], y["m"]) and torch.equal(x["t"], y["t"])
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 1, "fused_decide": 1,
-        "sliced_refresh_columns": 0, "sliced_decide": 0}
+        "sliced_refresh_columns": 0, "sliced_decide": 0,
+        "refresh_columns": 0, "decide": 0}
 
 
 def test_wrapper_on_cuda_raises_instead_of_falling_back(cuda_device):
@@ -130,7 +134,8 @@ def test_main_path_matches_reference_digests(cuda_device, name):
         "cuda_resident", size, iters, digest)
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": iters, "fused_decide": iters,
-        "sliced_refresh_columns": 0, "sliced_decide": 0}
+        "sliced_refresh_columns": 0, "sliced_decide": 0,
+        "refresh_columns": 0, "decide": 0}
     assert rt.mis2(g, engine="dense").digest == digest
     a = rt.coarsen(g, method="two_phase")
     assert (a.num_aggregates, a.iterations, a.digest) == (
@@ -221,7 +226,8 @@ def no_twins_on_cuda(monkeypatch):
                        (hash_ref, ("hash_pack_ref",)),
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
-                              "sliced_decide_ref"))):
+                              "sliced_decide_ref", "refresh_columns_ref",
+                              "decide_ref"))):
         for n in names:
             monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
 
@@ -311,7 +317,8 @@ def test_sliced_kernels_match_twins(cuda_device, slab, priority):
     assert torch.equal(x["m"], y["m"]) and torch.equal(x["t"], y["t"])
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
-        "sliced_refresh_columns": 1, "sliced_decide": 1}
+        "sliced_refresh_columns": 1, "sliced_decide": 1,
+        "refresh_columns": 0, "decide": 0}
 
 
 # the reference's pallas_hybrid / luby_hybrid on powerlaw_graph(900, 8, 4)
@@ -338,3 +345,73 @@ def test_hybrid_path_on_the_card(cuda_device, no_twins_on_cuda):
     c = rt.color(g, engine="luby_hybrid")
     assert (c.num_colors, c.rounds, c.digest) == PL900_COLOR
     assert "csr_to_ell" not in g.conversions
+
+
+# -- slice 4: the unfused kernels of the host-driven round -----------------
+
+ROWS = {"laplace3d(12)": (0.6,), "elasticity3d(4)": (0.3,),
+        "count-0": (0.0,)}
+
+
+def _rows_state(name: str, device, seed: int):
+    """Pre-gathered rows of a pow2-padded worklist (dead slots gather row
+    V-1, as the driver's clamp does) and random T / M / active."""
+    graph = GRAPHS["laplace3d(8)" if name == "count-0" else name]()
+    ell = rt.Graph(graph, device=device).ell
+    v = ell.num_vertices
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
+    t[rng.random(v) < 0.1] = 0
+    t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
+    m[rng.random(v) < 0.2] = 0xFFFFFFFF
+    count = int(v * ROWS[name][0])
+    w = 1 << max(0, v - 1).bit_length()
+    wl = np.full(w, v - 1, dtype=np.int64)
+    wl[:count] = rng.permutation(v)[:count]
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    rows = to(wl)
+    return dict(t=to(t.view(np.int32)), m=to(m.view(np.int32)),
+                active=to(rng.random(v) < 0.9),
+                wl_nbrs=ell.neighbors[rows].contiguous(), rows=rows,
+                count=count)
+
+
+@pytest.mark.parametrize("name", list(ROWS))
+def test_unfused_kernels_match_twins(cuda_device, name):
+    x = _rows_state(name, cuda_device, seed=len(name))
+    before = dict(ops.LAUNCHES)
+    mk = ops.refresh_columns_rows(x["t"], x["wl_nbrs"], x["count"])
+    t_rows = x["t"][x["rows"]].contiguous()
+    tk = ops.decide_rows(t_rows, x["m"], x["active"], x["wl_nbrs"],
+                         x["count"])
+    mr = ref.refresh_columns_ref(x["t"], x["wl_nbrs"], x["count"])
+    tr = ref.decide_ref(t_rows, x["m"], x["active"], x["wl_nbrs"],
+                        x["count"])
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mr) and torch.equal(tk, tr)
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_refresh_columns": 0, "fused_decide": 0,
+        "sliced_refresh_columns": 0, "sliced_decide": 0,
+        "refresh_columns": 1, "decide": 1}
+
+
+@pytest.mark.parametrize("worklists", [True, False])
+def test_cuda_compacted_on_the_card(cuda_device, no_twins_on_cuda,
+                                    worklists):
+    g = rt.Graph(gen.laplace3d(12))
+    opts = rt.Mis2Options(worklists=worklists)
+    size, iters, digest = ANCHORS["laplace3d(12)"][0]
+    before = dict(ops.LAUNCHES)
+    r = rt.mis2(g, engine="cuda_compacted", options=opts)
+    assert (r.size, r.iterations, r.digest) == (size, iters, digest)
+    assert r.host_syncs == 2 * iters
+    for k in ("refresh_columns", "decide"):
+        assert ops.LAUNCHES[k] - before[k] == iters
+    want = rt.mis2(rt.Graph(gen.laplace3d(12), device="cpu"),
+                   engine="compacted", options=opts,
+                   backend=rt.Backend(device="cpu"))
+    assert (r.digest, r.num_compiles) == (want.digest, want.num_compiles)
+    a = rt.coarsen(g, method="two_phase", mis2_engine="cuda_compacted")
+    assert (a.num_aggregates, a.iterations, a.digest) == \
+        ANCHORS["laplace3d(12)"][1]

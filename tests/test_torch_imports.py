@@ -25,7 +25,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.spmv_ell.ops,"
             "repro_torch.kernels.hash_priority.ops, repro_torch.solvers,"
             "repro_torch.multilevel, repro_torch.graphs.ops,"
-            "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid;"
+            "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid,"
+            "repro_torch.core.mis2, repro_torch.api.backend;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")

@@ -7,7 +7,9 @@
 For each graph: one warm ``repro_torch.mis2`` and one warm
 ``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
 (ending in ``torch.cuda.synchronize()``) and then traced once with
-``torch.profiler`` (CPU + CUDA).  On Laplace3D_100 the same is done for one
+``torch.profiler`` (CPU + CUDA), and so are the host-driven engines
+(``mis2`` with ``engine="cuda_compacted"`` and ``"compacted"``) on the two
+paper graphs.  On Laplace3D_100 the same is done for one
 AMG-preconditioned CG solve (``amg_setup`` once, untimed; tol 1e-6,
 ``b = default_rng(0).standard_normal(V)``); on Powerlaw_1M
 (``powerlaw_graph(1_000_000, 8.0, exponent=2.5, seed=42)``, where
@@ -112,6 +114,10 @@ def main() -> int:
         g = rt.Graph(getattr(rt.graphs, kind)(*args, **kw))
         calls = {"mis2": lambda: rt.mis2(g),
                  "coarsen": lambda: rt.coarsen(g, method="two_phase")}
+        if label != "Powerlaw_1M":
+            for engine in ("cuda_compacted", "compacted"):
+                calls[f"mis2_{engine}"] = \
+                    lambda e=engine: rt.mis2(g, engine=e)
         if label == "Laplace3D_100":
             calls["amg_cg"] = _amg_cg(torch, rt, g)
         if label == "Powerlaw_1M":
