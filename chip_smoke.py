@@ -14,8 +14,8 @@ Phases (any failure raises, and the script exits non-zero):
    state, sentinel and dead worklist slots, all three priorities); the
    unfused passes over pre-gathered rows of a pow2-padded worklist at the
    two paper graphs' shapes (dead slots past ``count``); the ELL SpMV on
-   both matrices and the hash-pack at V = 1M for three rounds, two
-   launches each, all bitwise;
+   the three graphs' matrices and the hash-pack at V = 1M for three
+   rounds, two launches each, all bitwise;
 4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
    Elasticity3D_60 against the reference's digests, one launch of each
@@ -29,9 +29,10 @@ Phases (any failure raises, and the script exits non-zero):
    SpMV of the explicit R, bitwise;
 6. the cluster-GS path: ``cluster_gs_setup`` on Elasticity3D_60 and
    Laplace3D_100 (labels and coarse-coloring digests against the
-   reference's), GS-preconditioned CG on Laplace3D_100 within one
-   iteration of the reference, ``color(laplace3d(8))``, and one hash-pack
-   launch per Luby round;
+   reference's), GS-preconditioned CG on both (tol 1e-6, ``b =
+   default_rng(0).standard_normal(V)``, one SpMV launch per iteration plus
+   one) within one iteration of the reference's, ``color(laplace3d(8))``,
+   and one hash-pack launch per Luby round;
 7. the hybrid path on Powerlaw_1M (``powerlaw_graph(1_000_000, 8.0,
    exponent=2.5, seed=42)``, whose padded ELL would take 120 GB): the
    graph digest and the layout, ``Graph.ell`` raising
@@ -55,7 +56,8 @@ Phases (any failure raises, and the script exits non-zero):
    function, beside the bytes bound; the end-to-end wall times of
    ``mis2`` (``engine=None`` and the host-driven engines) / ``coarsen``
    (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
-   of the setup phases, of one V-cycle, one GS apply and each CG solve.
+   of the setup phases, of one V-cycle, one GS apply on each paper graph
+   and each CG solve.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -102,10 +104,12 @@ AMG_L100 = dict(
              "8815a1a409a1ae65"],
     cg_iterations=14)
 # cluster_gs_setup(engine="host"): clusters, labels digest, coarse colors
-# and their digest; on Laplace3D_100 also GS-preconditioned CG iterations
+# and their digest, and GS-preconditioned CG iterations (tol 1e-6, b =
+# default_rng(0).standard_normal(V); tools/reference_gs_cg.py)
 CLUSTER_GS = {
     "Elasticity3D_60": dict(clusters=9_434, digest="aa49f95af32b7e4f",
-                            colors=13, colors_digest="a569e43161f155f3"),
+                            colors=13, colors_digest="a569e43161f155f3",
+                            cg_iterations=28),
     "Laplace3D_100": dict(clusters=147_865, digest="e11aa9fbaab77f88",
                           colors=10, colors_digest="14544e81b327e426",
                           cg_iterations=115),
@@ -297,9 +301,11 @@ def main() -> int:
                                    _random_state(torch, rng, v, dev), args,
                                    id_bits(v), rng, errs)
         checks += _hold_unfused_pair(torch, ops, ref, label, ell, rng, errs)
+    for label in ANCHORS:
         # the ELL SpMV on the graph's matrix: two launches, twin, bitwise
         a_ell = graphs[label].ell_matrix
-        x = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal(a_ell.num_rows).astype(
+            np.float32)).to(dev)
         y1 = spmv_ops.spmv(a_ell.cols, a_ell.vals, x)
         y2 = spmv_ops.spmv(a_ell.cols, a_ell.vals, x)
         yr = spmv_ref.spmv_ref(a_ell.cols, a_ell.vals, x)
@@ -390,8 +396,7 @@ def main() -> int:
     # -- 5. the AMG path on Laplace3D_100 -------------------------------------
     l100 = graphs["Laplace3D_100"]
     a100 = l100.ell_matrix
-    b100 = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        l100.num_vertices).astype(np.float32)).to(dev)
+    b100 = _rhs(torch, np, l100)
 
     def matvec(x):
         return rt.graphs.ops.spmv_ell(a100, x)
@@ -481,29 +486,39 @@ def main() -> int:
         gs[label] = {**got, "color_rounds": c.color_rounds,
                      "setup_s": c.wall_time_s, "timings": c.timings,
                      "steps": c.preconditioner.num_steps, "setup": c}
-    pre100 = gs["Laplace3D_100"]["setup"]
-    before = launches.read()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = rt.solvers.cg(matvec, b100, precond=pre100.as_precond(), tol=CG_TOL)
-    torch.cuda.synchronize()
-    gs_solve_s = time.perf_counter() - t0
-    after = launches.read()
-    want_it = CLUSTER_GS["Laplace3D_100"]["cg_iterations"]
-    check(res.converged and abs(res.iterations - want_it) <= 1,
-          f"cluster GS CG: {res.iterations} iterations (reference "
-          f"{want_it}), converged={res.converged}")
-    check(after["spmv"] - before["spmv"] == res.iterations + 1,
-          "cluster GS CG: one spmv per iteration expected")
+    gs_rhs = {label: _rhs(torch, np, graphs[label]) for label in CLUSTER_GS}
+    gs_cg = {}
+    for label, want in CLUSTER_GS.items():
+        a_l = graphs[label].ell_matrix
+        before = launches.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.solvers.cg(lambda x, a=a_l: rt.graphs.ops.spmv_ell(a, x),
+                            gs_rhs[label],
+                            precond=gs[label]["setup"].as_precond(),
+                            tol=CG_TOL)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        after = launches.read()
+        want_it = want["cg_iterations"]
+        check(res.converged and abs(res.iterations - want_it) <= 1,
+              f"{label}: cluster GS CG {res.iterations} iterations (anchor "
+              f"{want_it}), converged={res.converged}")
+        check(after["spmv"] - before["spmv"] == res.iterations + 1,
+              f"{label}: cluster GS CG launched spmv "
+              f"{after['spmv'] - before['spmv']} times in {res.iterations} "
+              "iterations (one per iteration plus one expected)")
+        check(bool(np.isfinite(res.x).all()), f"{label}: GS-CG x not finite")
+        gs_cg[label] = {"iterations": res.iterations,
+                        "residual": res.residual_norm, "solve_s": solve_s,
+                        "spmv": after["spmv"] - before["spmv"]}
     c8 = rt.color(graphs["laplace3d(8)"])
     check((c8.num_colors, c8.digest) == COLOR_L8,
           f"color(laplace3d(8)): {(c8.num_colors, c8.digest)}")
     counts = launches.read()
     add_path(counts)
     check(counts["hash_pack"] > 0, "hash_pack never launched")
-    emit({"phase": "cluster_gs_path", "launches": counts,
-          "cg": {"iterations": res.iterations,
-                 "residual": res.residual_norm, "solve_s": gs_solve_s},
+    emit({"phase": "cluster_gs_path", "launches": counts, "cg": gs_cg,
           "color_laplace3d(8)": {"colors": c8.num_colors,
                                  "digest": c8.digest, "rounds": c8.rounds},
           **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
@@ -562,9 +577,11 @@ def main() -> int:
         "v_cycle_ms": {k: _wall_ms(torch, lambda s=amg[k]["setup"]:
                                    s.as_precond()(b100))
                        for k in amg},
-        "gs_apply_ms": _wall_ms(torch, lambda: pre100.as_precond()(b100)),
+        "gs_apply_ms": {k: _wall_ms(torch, lambda k=k: gs[k][
+            "setup"].as_precond()(gs_rhs[k])) for k in gs},
+        "gs_steps": {k: gs[k]["steps"] for k in gs},
         "cg_amg_s": {k: amg[k]["solve_s"] for k in amg},
-        "cg_cluster_gs_s": gs_solve_s,
+        "cg_cluster_gs_s": {k: gs_cg[k]["solve_s"] for k in gs_cg},
         "amg_setup_s": {k: amg[k]["setup_s"] for k in amg},
         "amg_setup_phases_s": {k: amg[k]["timings"] for k in amg},
         "cluster_gs_setup_s": {k: gs[k]["setup_s"] for k in gs},
@@ -701,6 +718,13 @@ def _hold_unfused_pair(torch, ops, ref, where: str, ell, rng,
     return 2
 
 
+def _rhs(torch, np, g):
+    """The solves' right-hand side: ``default_rng(0).standard_normal(V)``,
+    float32, on the graph's device."""
+    return torch.from_numpy(np.random.default_rng(0).standard_normal(
+        g.num_vertices).astype(np.float32)).to(g.device)
+
+
 def _bits_equal(a, b) -> bool:
     import torch
 
@@ -730,15 +754,21 @@ def _wall_ms(torch, call, reps: int = 3) -> list[float]:
     return out
 
 
-def _event_ms(torch, fn, n: int, restore=None) -> float:
+def _event_ms(torch, fn, n: int, restore=None,
+              clean: bool = False) -> float:
     """Median of ``n`` launches of ``fn``, each alone between CUDA events,
-    after ``restore()`` and an L2 flush (a 256 MB write)."""
+    after ``restore()`` and an L2 flush: a 256 MB write, which leaves the
+    L2 full of dirty lines whose write-back the launch pays, or, with
+    ``clean``, a 256 MB read."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     evs = []
     for _ in range(n):
         if restore is not None:
             restore()
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()

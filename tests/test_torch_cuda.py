@@ -20,6 +20,8 @@ with only torch:
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -165,29 +167,88 @@ def _rand_coo(rows: int, ncols: int, max_deg: int, seed: int):
     return r, c, rng.standard_normal(len(r)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["laplace3d(12)", "elasticity3d(4)"])
+def _rand_ell(rows: int, d: int, ncols: int, seed: int):
+    """A random ELL ``[rows, d]`` with about a fifth of its slots padding
+    (val 0, column 0)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, ncols, size=(rows, d)).astype(np.int32)
+    vals = rng.standard_normal((rows, d)).astype(np.float32)
+    pad = rng.random((rows, d)) < 0.2
+    cols[pad], vals[pad] = 0, 0.0
+    return cols, vals
+
+
+# graphs, and random ELL widths: the kernel stages 256 rows a block at
+# D <= 8, 64 at D = 81 and 32 at D = 96 (odd row strides for the even
+# widths); 1,037 rows leave every width a ragged last block.  "unaligned"
+# drops the first row of a [1038, 7] matrix: cols / vals then start 28
+# bytes into their storage, and the kernel takes its 4-byte loads
+SPMV_CASES = ["laplace3d(12)", "elasticity3d(4)",
+              *(f"D={d}" for d in (1, 2, 7, 8, 81, 96)), "D=7-unaligned"]
+
+
+@pytest.mark.parametrize("name", SPMV_CASES)
 def test_spmv_kernel_matches_twin_bitwise(cuda_device, name):
-    a = rt.Graph(GRAPHS[name](), device=cuda_device).ell_matrix
+    if name.startswith("D="):
+        d = int(name[2:].split("-")[0])
+        skip = int(name.endswith("unaligned"))
+        cols, vals = _rand_ell(1037 + skip, d, 2000, seed=len(name))
+        cols = torch.from_numpy(cols).to(cuda_device)[skip:]
+        vals = torch.from_numpy(vals).to(cuda_device)[skip:]
+        assert (cols.data_ptr() % 16 != 0) == bool(skip)
+        n = 2000
+    else:
+        a = rt.Graph(GRAPHS[name](), device=cuda_device).ell_matrix
+        cols, vals, n = a.cols, a.vals, a.num_rows
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        a.num_rows).astype(np.float32)).to(cuda_device)
+        n).astype(np.float32)).to(cuda_device)
     before = dict(spmv_ops.LAUNCHES)
-    y1 = spmv_ops.spmv(a.cols, a.vals, x)
-    y2 = spmv_ops.spmv(a.cols, a.vals, x)
-    want = spmv_ref.spmv_ref(a.cols, a.vals, x)
+    y1 = spmv_ops.spmv(cols, vals, x)
+    y2 = spmv_ops.spmv(cols, vals, x)
+    want = spmv_ref.spmv_ref(cols, vals, x)
     torch.cuda.synchronize()
     assert torch.equal(_bits(y1), _bits(want))
     assert torch.equal(_bits(y1), _bits(y2))
     assert spmv_ops.LAUNCHES["spmv"] - before["spmv"] == 2
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+# (seed, fine rows, num_out, max entries a row, hub): "hub" adds column 0
+# to every row, a segment longer than the transposed kernel's staged chunk
+# (kTChunk products), and so an explicit R whose row 0 is wider than one
+# staged chunk of D
+SPMV_T_CASES = {
+    "0": (0, 3000, 257, 9, False),
+    "1": (1, 3000, 257, 9, False),
+    "empty-segments": (2, 2000, 1500, 2, False),
+    "hub-8000": (3, 8000, 300, 3, True),
+    "num_out-1": (4, 3000, 1, 1, False),
+    "num_out-gt-rows": (5, 100, 4000, 9, False),
+}
+
+
+def _kernel_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name>`` in ``csrc/<source>.cu``."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("case", list(SPMV_T_CASES))
 def test_spmv_t_kernel_matches_twin_and_explicit_transpose(cuda_device,
-                                                           seed):
-    rows, num_out = 3000, 257
-    r, c, v = _rand_coo(rows, num_out, 9, seed)
+                                                           case):
+    seed, rows, num_out, max_deg, hub = SPMV_T_CASES[case]
+    r, c, v = _rand_coo(rows, num_out - hub, max_deg, seed)
+    if hub:
+        r = np.concatenate([r, np.arange(rows)])
+        c = np.concatenate([c + 1, np.zeros(rows, np.int64)])
+        v = np.concatenate([v, np.random.default_rng(seed).standard_normal(
+            rows).astype(np.float32)])
     p = rect_ell(r, c, v, rows, cuda_device)
     rt_ = rect_ell(c, r, v, num_out, cuda_device)
     t = spmv_ops.ell_transpose(p.cols, p.mask, num_out)
+    if case in ("empty-segments", "num_out-gt-rows"):
+        assert (np.diff(t.offsets.cpu().numpy()) == 0).any()
+    if hub:
+        assert t.max_len > _kernel_constant("spmv_ell", "kTChunk")
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         rows).astype(np.float32)).to(cuda_device)
     y1 = spmv_ops.spmv_t(p.vals, t, x)

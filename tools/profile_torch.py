@@ -11,7 +11,9 @@ For each graph: one warm ``repro_torch.mis2`` and one warm
 (``mis2`` with ``engine="cuda_compacted"`` and ``"compacted"``) on the two
 paper graphs.  On Laplace3D_100 the same is done for one
 AMG-preconditioned CG solve (``amg_setup`` once, untimed; tol 1e-6,
-``b = default_rng(0).standard_normal(V)``); on Powerlaw_1M
+``b = default_rng(0).standard_normal(V)``), and on Elasticity3D_60 for one
+cluster-GS-preconditioned CG solve (``cluster_gs_setup`` once, untimed;
+the same tol and b); on Powerlaw_1M
 (``powerlaw_graph(1_000_000, 8.0, exponent=2.5, seed=42)``, where
 ``engine=None`` takes the hybrid layout) for ``coarsen(method="basic")``
 and ``color(engine="luby_hybrid")`` too.  Prints one JSON line per call
@@ -77,12 +79,12 @@ def profile_call(torch, call, top: int = 10) -> dict:
                         for k, us, n in rows[:top]]}
 
 
-def _amg_cg(torch, rt, g):
-    """One AMG-preconditioned CG solve on ``g`` (the setup runs once,
-    here, outside every timed or traced window)."""
+def _cg(torch, rt, g, setup):
+    """One CG solve on ``g`` preconditioned by ``setup(g)``, which runs
+    once, here, outside every timed or traced window."""
     import numpy as np
 
-    s = rt.amg_setup(g)
+    s = setup(g)
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(
         g.num_vertices).astype(np.float32)).to(g.device)
     a = g.ell_matrix
@@ -119,7 +121,9 @@ def main() -> int:
                 calls[f"mis2_{engine}"] = \
                     lambda e=engine: rt.mis2(g, engine=e)
         if label == "Laplace3D_100":
-            calls["amg_cg"] = _amg_cg(torch, rt, g)
+            calls["amg_cg"] = _cg(torch, rt, g, rt.amg_setup)
+        if label == "Elasticity3D_60":
+            calls["gs_cg"] = _cg(torch, rt, g, rt.cluster_gs_setup)
         if label == "Powerlaw_1M":
             calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
             calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
