@@ -53,8 +53,10 @@ Phases (any failure raises, and the script exits non-zero):
    wall times, speed-up over ``baseline_bell``);
 9. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
-   function, beside the bytes bound; the end-to-end wall times of
-   ``mis2`` (``engine=None`` and the host-driven engines) / ``coarsen``
+   function, beside its bound (bytes, float32 flops or the integer
+   instructions of the §V-A hashes, whichever takes longest); the
+   end-to-end wall times of ``mis2`` (``engine=None`` and the host-driven
+   engines) / ``coarsen``
    (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
    of the setup phases, of one V-cycle, one GS apply on each paper graph
    and each CG solve.
@@ -76,6 +78,12 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
+# SASS instructions of one §V-A tuple, the round's f(it + 1) hoisted: the
+# hashed branch of minprop_ell.cu's per-vertex pass, from id + 1 to the
+# packing (tools/bench_minprop.py --sass; hash_pack's, which also computes
+# f(it + 1), is 47)
+INSTR_PER_HASH = 33
 
 # the reference's anchors (the JAX package, compacted_resident engine)
 ANCHORS = {
@@ -781,7 +789,12 @@ def _event_ms(torch, fn, n: int, restore=None,
 
 
 def _timed(torch, kernel, twin, library, nbytes: int, flops: int = 0,
-           restore=None, reps: int = 50, plain_reps: int = 5) -> dict:
+           hashes: int = 0, restore=None, reps: int = 50,
+           plain_reps: int = 5) -> dict:
+    """Times of the kernel, its twin and the library call, beside the least
+    time the card could take: the bytes over the memory rate, the float32
+    flops over the float32 rate, or the integer instructions of ``hashes``
+    §V-A tuples over the INT32 rate, whichever is longest."""
     _event_ms(torch, kernel, 3, restore)             # warm-up
     ms = _event_ms(torch, kernel, reps, restore)
     plain_ms = _event_ms(torch, twin, plain_reps, restore)
@@ -790,12 +803,15 @@ def _timed(torch, kernel, twin, library, nbytes: int, flops: int = 0,
         _event_ms(torch, library, 3)
         library_ms = _event_ms(torch, library, reps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    ops_ms = max(flops / FP32_FLOP_PER_S,
+                 hashes * INSTR_PER_HASH / INT32_OPS_PER_S) * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops, "bound_share": bound_ms / ms}
+            "bytes": nbytes, "flops": flops, "hashes": hashes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_share": bound_ms / ms}
 
 
 def _csr_of(torch, cols, vals, mask, num_cols: int):
@@ -851,14 +867,14 @@ def _time_spmv_t(torch, lvl, r_ell, spmv_ops, spmv_ref, rng) -> dict:
 
 
 def _time_hash_pack(torch, vids, hash_ops, hash_ref, id_bits) -> dict:
-    """One round's priorities of V ids: ids read, words written (the
-    integer hash is not counted: the table has no integer ALU rate)."""
+    """One round's priorities of V ids: ids read, words written, V
+    hashes."""
     n = vids.shape[0]
     it = torch.ones(1, dtype=torch.int32, device=vids.device)
     b = id_bits(n)
     return {**_timed(torch, lambda: hash_ops.hash_pack(vids, it, b),
                      lambda: hash_ref.hash_pack_ref(vids, it, b), None,
-                     nbytes=8 * n + 4), "n": n}
+                     nbytes=8 * n + 4, hashes=n), "n": n}
 
 
 def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
@@ -889,23 +905,25 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
     refresh_bytes = 4 * v + ids + 4 * n_distinct + 4 * v + 8
     # decide: wl + ids + own T + M, active at distinct neighbours + T written
     decide_bytes = 4 * v + ids + 4 * v + 5 * n_distinct + 4 * v + 8
+    # hashes, one per undecided vertex: every distinct neighbour (refresh),
+    # every live row (decide)
     cases = {
         "fused_refresh_columns": (
             lambda: ops.fused_refresh_columns(t0, m, nbrs_flat, wl, cnt, it,
                                               **kw),
             lambda: ref.fused_refresh_columns_ref(t0, m, nbrs_flat, wl, cnt,
                                                   it, **kw),
-            lambda: m.copy_(m0), refresh_bytes),
+            lambda: m.copy_(m0), refresh_bytes, n_distinct),
         "fused_decide": (
             lambda: ops.fused_decide(t, m_ready, active, nbrs_flat, wl, cnt,
                                      it, **kw),
             lambda: ref.fused_decide_ref(t, m_ready, active, nbrs_flat, wl,
                                          cnt, it, **kw),
-            lambda: t.copy_(t0), decide_bytes),
+            lambda: t.copy_(t0), decide_bytes, v),
     }
     out = {}
-    for k, (kernel, twin, restore, nbytes) in cases.items():
-        out[k] = {**_timed(torch, kernel, twin, None, nbytes,
+    for k, (kernel, twin, restore, nbytes, hashes) in cases.items():
+        out[k] = {**_timed(torch, kernel, twin, None, nbytes, hashes=hashes,
                            restore=restore, reps=reps, plain_reps=plain_reps),
                   "V": v, "D": d}
     return out
@@ -1169,20 +1187,22 @@ def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
         # ids + T written
         decide_bytes = (4 * r + 4 * r + 4 * r * w + 4 * r + 5 * n_distinct
                         + 4 * r + 8)
+        # hashes, one per undecided vertex: every distinct id (refresh),
+        # every live row (decide)
         cases = {
             "sliced_refresh_columns": (
                 lambda: ops.sliced_refresh_columns(t0, m, *slab, **kw),
                 lambda: ref.sliced_refresh_columns_ref(t0, m, *slab, **kw),
-                lambda: m.copy_(m0), refresh_bytes),
+                lambda: m.copy_(m0), refresh_bytes, n_distinct),
             "sliced_decide": (
                 lambda: ops.sliced_decide(t, m_ready, active, *slab, **kw),
                 lambda: ref.sliced_decide_ref(t, m_ready, active, *slab, **kw),
-                lambda: t.copy_(t0), decide_bytes),
+                lambda: t.copy_(t0), decide_bytes, r),
         }
         out[w] = {}
-        for k, (kernel, twin, restore, nbytes) in cases.items():
+        for k, (kernel, twin, restore, nbytes, hashes) in cases.items():
             out[w][k] = {**_timed(torch, kernel, twin, None, nbytes,
-                                  restore=restore, reps=reps,
+                                  hashes=hashes, restore=restore, reps=reps,
                                   plain_reps=plain_reps),
                          "R": r, "W": w, "distinct_ids": n_distinct}
     return out

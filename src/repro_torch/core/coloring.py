@@ -76,8 +76,9 @@ def _color_round_rows(neighbors, mask, row_ids, colors, prio):
     has = real & (cn >= 0)
     lo_bits = torch.where(has & (cn < 32), 1 << cn.clamp(0, 31), 0)
     hi_bits = torch.where(has & (cn >= 32), 1 << (cn - 32).clamp(0, 31), 0)
-    forb_lo, forb_hi = lo_bits[:, 0], hi_bits[:, 0]
-    for j in range(1, nb.shape[1]):        # torch has no OR reduction
+    forb_lo = torch.zeros_like(own, dtype=torch.int64)   # ELL width may be 0
+    forb_hi = torch.zeros_like(forb_lo)
+    for j in range(nb.shape[1]):           # torch has no OR reduction
         forb_lo = forb_lo | lo_bits[:, j]
         forb_hi = forb_hi | hi_bits[:, j]
     chosen = _smallest_free_color(forb_lo, forb_hi)

@@ -59,4 +59,39 @@ __device__ __forceinline__ uint32_t refresh(uint32_t t, uint32_t v, int kind,
   return is_undecided(t) ? pack_tuple(priority_hash(kind, it, v), v, b) : t;
 }
 
+template <int Kind>
+__device__ __forceinline__ uint64_t mix(uint64_t x) {
+  return Kind == kXorshift ? xorshift64(x) : xorshift64_star(x);
+}
+
+// One round's §V-A tuples for one priority kind, fixed at compile time:
+// f(it + 1) is computed once, so a tuple costs two f's, not three.
+// tuple(v, b) == pack_tuple(priority_hash(Kind, it, v), v, b).
+template <int Kind>
+struct RoundPriority {
+  uint64_t fa;
+
+  __device__ __forceinline__ explicit RoundPriority(uint32_t it)
+      : fa(mix<Kind>(static_cast<uint32_t>((Kind == kFixed ? 0u : it) + 1u))) {}
+
+  __device__ __forceinline__ uint32_t tuple(uint32_t v, int b) const {
+    const uint64_t h = mix<Kind>(fa ^ mix<Kind>(static_cast<uint32_t>(v + 1u)));
+    return pack_tuple(static_cast<uint32_t>(h >> 32), v, b);
+  }
+};
+
+// this round's tuple of an undecided vertex v, the kind read at run time
+// (a branch on a value every thread shares, so one kind's code runs)
+__device__ __forceinline__ uint32_t fresh_tuple(int kind, uint32_t it,
+                                                uint32_t v, int b) {
+  switch (kind) {
+    case kXorshift:
+      return RoundPriority<kXorshift>(it).tuple(v, b);
+    case kFixed:
+      return RoundPriority<kFixed>(it).tuple(v, b);
+    default:
+      return RoundPriority<kXorshiftStar>(it).tuple(v, b);
+  }
+}
+
 }  // namespace repro_torch

@@ -28,19 +28,65 @@
 //
 // Bound: memory.  Per live slot a pass reads wl, the row's D neighbour
 // ids (contiguous) and one 4-byte word per neighbour at a data-dependent
-// address, and writes one word.  One thread per slot loops over the row;
-// a warp per row (coalesced id reads, paper §V-D) is later work, as is
-// folding every slab of a round into one launch.  Blocks wholly past
-// *count exit before touching memory, standing in for the TPU's pl.when
-// block skipping.  The unfused passes read the [W, D] row copy that was
-// written outside (one more movement of each live row than the fused
-// ones), and write every slot of their [W] output, dead ones included.
+// address (T in refresh; M and the active byte in decide), and writes one
+// word; at D = 81 the ids are nearly all of it.  The §V-A refresh is
+// integer work on top: a tuple is two xorshift64* (64-bit shifts and xors
+// of two 32-bit instructions each, a 64-bit multiply) and the packing once
+// the round's f(it + 1) is hoisted, 33 SASS instructions (hash_pack, which
+// also computes f(it + 1), takes 47; tools/bench_minprop.py --sass).  The
+// TPU kernels inline it per neighbour slot, to keep a refreshed T out of
+// HBM: D hashes per vertex a round, V * D = 52.5M at Elasticity3D_60 round
+// 0, about 100 us of this card's integer issue against a 65 us bytes bound.
 //
-// In place is safe: refresh writes only M and reads only T; decide reads T
-// only at its own row and writes that row.  The slabs of the hybrid layout
-// hold disjoint rows, and every refresh of a round is enqueued before the
-// first decide on the same stream.
+// The fused passes, redesigned for the card (their shapes were picked by
+// timing variants at Laplace3D_100 and Elasticity3D_60 with
+// tools/bench_minprop.py, round 0 and every round of a solve; PERF.md):
+// - A group of G lanes per worklist row, G the smallest power of two that
+//   leaves a lane at most kLaneSlots of the row's D slots (1 lane at
+//   D = 7, 8 at D = 81).  A lane loads a chunk of C of its slots' ids, then
+//   all C words they point at, before it uses any (C a power of two up to
+//   kChunk, covering its turns where it can): no per-slot
+//   branch stops the loads.  Refresh reduces with a group min, decide with
+//   two ballots (an active M that is OUT; an active M unequal to the row's
+//   tuple).  Integer min, any and all are exact in any order, so the bits
+//   are the twins'.  A chunk of 16 holds the registers of 4 blocks an SM,
+//   a smaller one those of 8 (__launch_bounds__).
+// - A warp takes 32 consecutive worklist slots at a time.  Lane L loads
+//   slot L's row, and in decide its T and its fresh tuple: one hash per
+//   row, not one per lane of its group.  The groups take the rows from the
+//   lanes by shuffles, and each result goes back to its slot's lane, which
+//   writes it.
+// - Each vertex is hashed once a round where rows are wide (D >=
+//   kHashOnceMinD): refresh first runs a pass over T that writes every
+//   vertex's refreshed tuple (the undecided ones hashed) to a [V] scratch
+//   the wrapper allocates, and the column min reads that instead of T.
+//   The pass moves 8 * V bytes more (2% of the pass's bytes at D = 81) in
+//   a second launch of the same C call.  At short rows the hash stays
+//   inline, f(it + 1) hoisted and the priority kind a template, behind a
+//   real branch for decided neighbours: there the pass, streaming all V
+//   every round while the worklist shrinks, costs more over a solve than
+//   the D hashes a vertex.  refresh writes only M either way.
+// - A grid sized to the card: the blocks that fit on it at once, each warp
+//   striding over batches up to *count (read on the device), so a late
+//   round with a short worklist costs a few hundred idle blocks, not one
+//   block per 256 slots of the whole capacity.
+//
+// The sliced and unfused passes put one thread on a slot, which loops over
+// its row; blocks wholly past *count exit before touching memory, standing
+// in for the TPU's pl.when block skipping.  The unfused passes read the
+// [W, D] row copy that was written outside (one more movement of each live
+// row than the fused ones), and write every slot of their [W] output, dead
+// ones included.
+//
+// In place is safe: refresh writes only M and reads only T (or its
+// scratch); decide reads T only at its own row and writes that row.  The
+// slabs of the hybrid layout hold disjoint rows, and every refresh of a
+// round is enqueued before the first decide on the same stream.
+
 #include <cstdint>
+#include <mutex>
+#include <type_traits>
+#include <unordered_map>
 
 #include <cuda_runtime.h>
 
@@ -86,36 +132,6 @@ __device__ __forceinline__ void decide_row(
     all_eq = all_eq && mv == tv;
   }
   t[row] = all_eq ? kIn : tv;
-}
-
-// M[row] for every live worklist row of the padded ELL
-__global__ void fused_refresh_columns_kernel(
-    const uint32_t* __restrict__ t, uint32_t* __restrict__ m,
-    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
-    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
-    int64_t v, int64_t w, int d, int b, int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t row = wl[i];
-  if (row < 0 || row >= v) return;  // sentinel slot
-  m[row] = refreshed_min(t, nbrs + static_cast<int64_t>(row) * d, d, kind,
-                         *it_ptr, b);
-}
-
-__global__ void fused_decide_kernel(
-    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
-    const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
-    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
-    const uint32_t* __restrict__ it_ptr, int64_t v, int64_t w, int d, int b,
-    int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t row = wl[i];
-  if (row < 0 || row >= v) return;  // sentinel slot
-  decide_row(t, m, active, nbrs + static_cast<int64_t>(row) * d, row, d, kind,
-             *it_ptr, b);
 }
 
 // M[slab_rows[local]] for every live slab-local worklist row of one slab
@@ -200,6 +216,313 @@ __global__ void decide_kernel(const uint32_t* __restrict__ t_rows,
   out[i] = all_eq ? kIn : tv;
 }
 
+// ---------------------------------------------------------------------------
+// the fused passes: a group of G lanes per worklist row
+// ---------------------------------------------------------------------------
+
+// Tuning constants (tools/bench_minprop.py builds variants of them).
+constexpr int kLaneSlots = 16;      // a row's slots a lane may take (picks G)
+constexpr int kChunk = 16;          // slots a lane loads at once, at most
+constexpr int kHashOnceMinD = 16;   // refresh: one hash per vertex from this D
+// blocks an SM must hold (a register cap): for chunks of up to 8 slots,
+// and for wider ones, whose loads in flight need the registers
+constexpr int kMinBlocks = 8;
+constexpr int kMinBlocksWide = 4;
+
+template <int C>
+constexpr int min_blocks() {
+  return C > 8 ? kMinBlocksWide : kMinBlocks;
+}
+
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+
+// G: the smallest power of two, at most 32, that leaves a lane at most
+// kLaneSlots of a row's d slots
+int group_lanes(int d) {
+  int g = 1;
+  while (g < 32 && g * kLaneSlots < d) g <<= 1;
+  return g;
+}
+
+// C: the slots a lane loads at once, a power of two <= kChunk covering its
+// turns where it can
+int chunk_slots(int g, int d) {
+  const int turns = (d + g - 1) / g;
+  int c = 1;
+  while (c < kChunk && c < turns) c <<= 1;
+  return c;
+}
+
+__device__ __forceinline__ int64_t live_slots(const int32_t* count,
+                                              int64_t w) {
+  const int64_t n = *count;
+  return n < w ? n : w;
+}
+
+// the row of worklist slot `slot`, or -1 for a dead or sentinel slot
+__device__ __forceinline__ int32_t slot_row(const int32_t* __restrict__ wl,
+                                            int64_t slot, int64_t n,
+                                            int64_t v) {
+  if (slot >= n) return -1;
+  const int32_t row = wl[slot];
+  return row >= 0 && row < v ? row : -1;
+}
+
+template <int G>
+__device__ __forceinline__ uint32_t group_min(uint32_t x) {
+  if constexpr (G == 32) {
+    return __reduce_min_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const uint32_t y = __shfl_xor_sync(kFull, x, o);
+      x = y < x ? y : x;
+    }
+    return x;
+  }
+}
+
+// the ballot bits of group grp's lanes
+template <int G>
+__device__ __forceinline__ uint32_t group_bits(int grp) {
+  if constexpr (G == 32) {
+    return kFull;
+  } else {
+    return ((1u << G) - 1u) << (grp * G);
+  }
+}
+
+// A warp's step s hands slot s + q of its batch to group q.  Returns, on
+// the lane that owns that slot, its group's result x, and `res` on every
+// other lane.
+template <int G>
+__device__ __forceinline__ uint32_t to_owner(uint32_t res, uint32_t x, int s,
+                                             int lane) {
+  const int q = lane - s;
+  const bool mine = q >= 0 && q < 32 / G;
+  const uint32_t y = __shfl_sync(kFull, x, (mine ? q : 0) * G);
+  return mine ? y : res;
+}
+
+// The ids of a lane's slots k0 .. k0 + C - 1 of row r (turns of G lanes;
+// -1 past the row's end or for a dead row), loaded together
+template <int G, int C>
+__device__ __forceinline__ void load_ids(int32_t (&nb)[C],
+                                         const int32_t* __restrict__ nbrs,
+                                         int32_t r, int k0, int sub, int d) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = (k0 + c) * G + sub;
+    nb[c] = r >= 0 && j < d ? nbrs[static_cast<int64_t>(r) * d + j] : -1;
+  }
+}
+
+// One round's refreshed tuple of every vertex: h[i] = T[i], or T[i]'s fresh
+// tuple where it is undecided
+template <int Kind>
+__global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
+    const uint32_t* __restrict__ t, uint32_t* __restrict__ h,
+    const uint32_t* __restrict__ it_ptr, int64_t v, int b) {
+  const RoundPriority<Kind> prio(*it_ptr);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < v; i += stride) {
+    uint32_t x = t[i];
+    if (is_undecided(x)) x = prio.tuple(static_cast<uint32_t>(i), b);
+    h[i] = x;
+  }
+}
+
+// M[row] for every live worklist row of the padded ELL: the min over the
+// row's ids of the refreshed tuples, IN -> OUT.  `src` holds them already
+// (kOnce) or is T, refreshed here per slot.
+template <int G, int C, bool kOnce, int Kind>
+__global__ void __launch_bounds__(kThreads, min_blocks<C>())
+fused_refresh_columns_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
+    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
+    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
+    int64_t v, int64_t w, int d, int b) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int grp = lane / G;
+  const int turns = (d + G - 1) / G;
+  const int64_t n = live_slots(count, w);
+  const RoundPriority<Kind> prio(kOnce ? 0u : *it_ptr);
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
+  for (int64_t base = warp * 32; base < n; base += warps * 32) {
+    const int32_t row = slot_row(wl, base + lane, n, v);
+    uint32_t res = kOut;
+    for (int s = 0; s < 32; s += 32 / G) {
+      const int32_t r = __shfl_sync(kFull, row, s + grp);
+      uint32_t mn = kOut;
+      for (int k0 = 0; k0 < turns; k0 += C) {
+        int32_t nb[C];
+        uint32_t x[C];
+        load_ids<G, C>(nb, nbrs, r, k0, sub, d);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          x[c] = nb[c] >= 0 ? src[nb[c]] : kOut;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (!kOnce && nb[c] >= 0 && is_undecided(x[c])) {
+            x[c] = prio.tuple(static_cast<uint32_t>(nb[c]), b);
+          }
+          mn = x[c] < mn ? x[c] : mn;
+        }
+      }
+      res = to_owner<G>(res, group_min<G>(mn), s, lane);
+    }
+    if (row >= 0) m[row] = res == kIn ? kOut : res;
+  }
+}
+
+// T[row] <- OUT if an active neighbour's M is OUT, else IN if every active
+// neighbour's M equals the row's refreshed tuple, else that tuple, for
+// every live undecided worklist row; decided rows are left as they are.
+// Reads T only at its own row.
+template <int G, int C>
+__global__ void __launch_bounds__(kThreads, min_blocks<C>())
+fused_decide_kernel(
+    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
+    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
+    const uint32_t* __restrict__ it_ptr, int64_t v, int64_t w, int d, int b,
+    int kind) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int grp = lane / G;
+  const int turns = (d + G - 1) / G;
+  const uint32_t gbits = group_bits<G>(grp);
+  const int64_t n = live_slots(count, w);
+  const uint32_t it = *it_ptr;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
+  for (int64_t base = warp * 32; base < n; base += warps * 32) {
+    int32_t row = slot_row(wl, base + lane, n, v);
+    uint32_t tv = 0;
+    if (row >= 0) {
+      if (is_undecided(t[row])) {
+        tv = fresh_tuple(kind, it, static_cast<uint32_t>(row), b);
+      } else {
+        row = -1;
+      }
+    }
+    uint32_t res = 0;
+    for (int s = 0; s < 32; s += 32 / G) {
+      const int32_t r = __shfl_sync(kFull, row, s + grp);
+      const uint32_t tr = __shfl_sync(kFull, tv, s + grp);
+      bool out = false, neq = false;
+      for (int k0 = 0; k0 < turns; k0 += C) {
+        int32_t nb[C];
+        uint32_t mv[C], av[C];
+        load_ids<G, C>(nb, nbrs, r, k0, sub, d);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          mv[c] = nb[c] >= 0 ? m[nb[c]] : 0u;
+          av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool a = av[c] != 0;
+          out |= a & (mv[c] == kOut);
+          neq |= a & (mv[c] != tr);
+        }
+      }
+      const bool any_out = (__ballot_sync(kFull, out) & gbits) != 0;
+      const bool all_eq = (__ballot_sync(kFull, neq) & gbits) == 0;
+      res = to_owner<G>(res, any_out ? kOut : all_eq ? kIn : tr, s, lane);
+    }
+    if (row >= 0) t[row] = res;
+  }
+}
+
+// the blocks of `kernel` that fit on the current card at once, asked once
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, int> cache;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  cache.emplace(key, blocks);
+  return blocks;
+}
+
+// blocks for `slots` worklist slots or vertices: one per kThreads of them,
+// at most the blocks that fit on the card (the rest are strided over)
+template <typename Kernel>
+int grid_for(Kernel kernel, int64_t slots) {
+  const int64_t need = (slots + kThreads - 1) / kThreads;
+  const int fit = resident_blocks(kernel);
+  return need < fit ? static_cast<int>(need) : fit;
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+template <int G, typename F>
+void with_chunk(int c, F&& f) {
+  if constexpr (kChunk >= 16) {
+    if (c == 16) return f(Int<G>{}, Int<16>{});
+  }
+  if constexpr (kChunk >= 8) {
+    if (c == 8) return f(Int<G>{}, Int<8>{});
+  }
+  switch (c) {
+    case 1: return f(Int<G>{}, Int<1>{});
+    case 2: return f(Int<G>{}, Int<2>{});
+    default: return f(Int<G>{}, Int<4>{});
+  }
+}
+
+// f(Int<G>, Int<C>) for the group shape picked from d: G lanes a row, C
+// slots a lane loads at once
+template <typename F>
+void with_group_shape(int d, F&& f) {
+  const int g = group_lanes(d);
+  const int c = chunk_slots(g, d);
+  switch (g) {
+    case 1: return with_chunk<1>(c, f);
+    case 2: return with_chunk<2>(c, f);
+    case 4: return with_chunk<4>(c, f);
+    case 8: return with_chunk<8>(c, f);
+    case 16: return with_chunk<16>(c, f);
+    default: return with_chunk<32>(c, f);
+  }
+}
+
+template <int Kind>
+void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
+                          const int32_t* nbrs, const int32_t* wl,
+                          const int32_t* count, const uint32_t* it, int64_t v,
+                          int64_t w, int d, int b, cudaStream_t stream) {
+  with_group_shape(d, [&](auto g, auto c) {
+    constexpr int kG = decltype(g)::value, kC = decltype(c)::value;
+    if (d >= kHashOnceMinD) {
+      auto pre = refreshed_tuples_kernel<Kind>;
+      pre<<<grid_for(pre, v), kThreads, 0, stream>>>(t, h, it, v, b);
+      auto k = fused_refresh_columns_kernel<kG, kC, true, kXorshiftStar>;
+      k<<<grid_for(k, w), kThreads, 0, stream>>>(h, m, nbrs, wl, count, it,
+                                                 v, w, d, b);
+    } else {
+      auto k = fused_refresh_columns_kernel<kG, kC, false, Kind>;
+      k<<<grid_for(k, w), kThreads, 0, stream>>>(t, m, nbrs, wl, count, it,
+                                                 v, w, d, b);
+    }
+  });
+}
+
 int blocks_for(int64_t w) {
   return static_cast<int>((w + kThreads - 1) / kThreads);
 }
@@ -209,18 +532,32 @@ int blocks_for(int64_t w) {
 
 extern "C" {
 
-int fused_refresh_columns(const void* t, void* m, const void* nbrs,
-                          const void* wl, const void* count, const void* it,
-                          int64_t v, int64_t w, int d, int b, int kind,
-                          void* stream) {
+int fused_refresh_columns(const void* t, void* m, void* scratch,
+                          const void* nbrs, const void* wl, const void* count,
+                          const void* it, int64_t v, int64_t w, int d, int b,
+                          int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    fused_refresh_columns_kernel<<<blocks_for(w), kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(t), static_cast<uint32_t*>(m),
-        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
-        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
-        v, w, d, b, kind);
+    const auto* tt = static_cast<const uint32_t*>(t);
+    auto* mm = static_cast<uint32_t*>(m);
+    auto* hh = static_cast<uint32_t*>(scratch);
+    const auto* nb = static_cast<const int32_t*>(nbrs);
+    const auto* ww = static_cast<const int32_t*>(wl);
+    const auto* cc = static_cast<const int32_t*>(count);
+    const auto* ii = static_cast<const uint32_t*>(it);
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (kind) {
+      case kXorshift:
+        launch_fused_refresh<kXorshift>(tt, mm, hh, nb, ww, cc, ii, v, w, d, b,
+                                        s);
+        break;
+      case kFixed:
+        launch_fused_refresh<kFixed>(tt, mm, hh, nb, ww, cc, ii, v, w, d, b, s);
+        break;
+      default:
+        launch_fused_refresh<kXorshiftStar>(tt, mm, hh, nb, ww, cc, ii, v, w, d,
+                                            b, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -230,12 +567,15 @@ int fused_decide(void* t, const void* m, const void* active, const void* nbrs,
                  int64_t w, int d, int b, int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    fused_decide_kernel<<<blocks_for(w), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint32_t*>(t), static_cast<const uint32_t*>(m),
-        static_cast<const uint8_t*>(active), static_cast<const int32_t*>(nbrs),
-        static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
-        static_cast<const uint32_t*>(it), v, w, d, b, kind);
+    with_group_shape(d, [&](auto g, auto c) {
+      auto k = fused_decide_kernel<decltype(g)::value, decltype(c)::value>;
+      k<<<grid_for(k, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint32_t*>(t), static_cast<const uint32_t*>(m),
+          static_cast<const uint8_t*>(active),
+          static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
+          static_cast<const int32_t*>(count),
+          static_cast<const uint32_t*>(it), v, w, d, b, kind);
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }

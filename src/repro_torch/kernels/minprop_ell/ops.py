@@ -40,7 +40,7 @@ _TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p)
 _ROWS_TAIL = (ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p)
 _SIGNATURES = {
-    "fused_refresh_columns": (ctypes.c_void_p,) * 6 + _TAIL,
+    "fused_refresh_columns": (ctypes.c_void_p,) * 7 + _TAIL,
     "fused_decide": (ctypes.c_void_p,) * 7 + _TAIL,
     "sliced_refresh_columns": (ctypes.c_void_p,) * 7 + _TAIL,
     "sliced_decide": (ctypes.c_void_p,) * 8 + _TAIL,
@@ -144,16 +144,20 @@ def fused_refresh_columns(t, m, nbrs_flat, wl, count, it, *, priority: str,
 
     ``t``, ``m``: int32 [V] (uint32 bit patterns); ``nbrs_flat``: int32
     [V*D] self-padded ELL; ``wl``: int32 [W] (sentinel V); ``count``,
-    ``it``: int32 [1] on the same device.
+    ``it``: int32 [1] on the same device.  On the card, at wide rows, the
+    kernel first hashes each vertex once into a ``[V]`` scratch allocated
+    here; ``t`` is not written.
     """
     v, _, d = _check_args(t, nbrs_flat, wl, count, it, {"m": m}, b,
                           priority)
     if t.device.type == "cpu":
         return ref.fused_refresh_columns_ref(t, m, nbrs_flat, wl, count, it,
                                              priority=priority, b=b)
+    scratch = torch.empty_like(t)
     _launch("fused_refresh_columns", t, t.data_ptr(), m.data_ptr(),
-            nbrs_flat.data_ptr(), wl.data_ptr(), count.data_ptr(),
-            it.data_ptr(), v, wl.shape[0], d, b, PRIORITY_CODES[priority])
+            scratch.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
+            count.data_ptr(), it.data_ptr(), v, wl.shape[0], d, b,
+            PRIORITY_CODES[priority])
     return m
 
 

@@ -68,3 +68,24 @@ def test_check_coloring_rejects_a_clash():
     nbr = g.csr.indices[g.csr.indptr[0]:g.csr.indptr[1]]
     colors[nbr[nbr != 0][0]] = colors[0]
     assert not coloring.check_coloring(g, colors)
+
+
+# graphs with no entries: the reference gives every vertex color 0 in one
+# round (its digests, recorded)
+EMPTY = {5: "fbbe405d2943be32", 1: "349ec62966086377"}
+
+
+@pytest.mark.parametrize("engine", ["luby", "luby_hybrid"])
+@pytest.mark.parametrize("v", list(EMPTY))
+def test_color_of_a_graph_with_no_entries_matches_reference(v, engine):
+    from repro.graphs.csr import csr_from_coo as ref_csr_from_coo
+    from repro_torch.graphs.csr import csr_from_coo
+
+    empty = np.zeros(0, dtype=np.int64)
+    want = repro.color(repro.Graph(ref_csr_from_coo(empty, empty, v)),
+                       engine=engine)
+    got = rt.color(rt.Graph(csr_from_coo(empty, empty, v), device="cpu"),
+                   engine=engine, backend=CPU)
+    assert (got.digest, got.num_colors, got.rounds) == (
+        want.digest, want.num_colors, want.rounds)
+    assert got.digest == EMPTY[v] and (got.colors == 0).all()

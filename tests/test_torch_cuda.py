@@ -108,6 +108,119 @@ def test_kernels_match_twins(cuda_device, name, priority):
         "refresh_columns": 0, "decide": 0}
 
 
+# the fused kernels at the group shapes the host picks from D: G = 1 to 32
+# lanes a row, each lane loading chunks of 1 to 16 of its slots at once,
+# several chunks a row at D = 600
+FUSED_WIDTHS = (1, 4, 5, 7, 8, 9, 16, 17, 32, 33, 81, 130, 600)
+FUSED_V = 1037              # not a multiple of a block's 256 slots
+
+
+def _sym_ell(v: int, d: int, rng) -> np.ndarray:
+    """A symmetric circulant graph, relabelled at random, as an ELL
+    ``[v, d]`` of closed neighbourhoods (the row's own id in one slot, and
+    once more as padding where d is even), slots shuffled per row."""
+    k = (d - 1) // 2
+    offs = rng.choice(np.arange(1, v // 2), size=k, replace=False)
+    base = np.arange(v)[:, None]
+    cols = np.concatenate([base, (base + offs) % v, (base - offs) % v], 1)
+    if cols.shape[1] < d:
+        cols = np.concatenate([cols, base], 1)
+    perm = rng.permutation(v)
+    out = np.empty_like(cols)
+    out[perm] = perm[cols]
+    return rng.permuted(out, axis=1).astype(np.int32)
+
+
+def _fused_case(d: int, device, seed: int, priority: str, *,
+                w: int = FUSED_V, count: int = int(FUSED_V * 0.6),
+                it: int = 2**31 - 1):
+    """T with IN, OUT and undecided words, M random with some OUT, a
+    tenth of the vertices inactive, and a worklist of ``w`` slots (some
+    sentinels V) of which the first ``count`` are live.  ``m_round`` is M
+    as a round leaves it (the twin's refresh of every row over T with IN
+    made OUT), under which rows become IN."""
+    v = FUSED_V
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
+    t[rng.random(v) < 0.03] = 0
+    t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
+    m[rng.random(v) < 0.2] = 0xFFFFFFFF
+    wl = rng.permutation(v)[:w].astype(np.int32)
+    wl[rng.random(w) < 0.1] = v
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    x = dict(t=to(t.view(np.int32)), m=to(m.view(np.int32)),
+             active=to(rng.random(v) < 0.9),
+             nbrs_flat=to(_sym_ell(v, d, rng).reshape(-1)), wl=to(wl),
+             count=torch.tensor([count], dtype=torch.int32, device=device),
+             it=torch.tensor([it], dtype=torch.int32, device=device))
+    x["m_round"] = ref.fused_refresh_columns_ref(
+        torch.where(x["t"] == 0, -1, x["t"]), x["m"].clone(), x["nbrs_flat"],
+        torch.arange(v, dtype=torch.int32, device=device),
+        torch.tensor([v], dtype=torch.int32, device=device), x["it"],
+        priority=priority, b=id_bits(v))
+    return x
+
+
+def _fused_pair(x, priority: str):
+    """Kernel and twin of one refresh (on ``m``) and of two decides (on
+    ``m`` and on ``m_round``): [(kernel's, twin's)] results."""
+    kw = dict(priority=priority, b=id_bits(FUSED_V))
+    common = (x["nbrs_flat"], x["wl"], x["count"], x["it"])
+    mk, mr = x["m"].clone(), x["m"].clone()
+    ops.fused_refresh_columns(x["t"], mk, *common, **kw)
+    ref.fused_refresh_columns_ref(x["t"], mr, *common, **kw)
+    pairs = [(mk, mr)]
+    for m in (x["m"], x["m_round"]):
+        tk, tr = x["t"].clone(), x["t"].clone()
+        ops.fused_decide(tk, m, x["active"], *common, **kw)
+        ref.fused_decide_ref(tr, m, x["active"], *common, **kw)
+        pairs.append((tk, tr))
+    torch.cuda.synchronize()
+    return pairs
+
+
+@pytest.mark.parametrize("priority", ["xorshift_star", "xorshift", "fixed"])
+@pytest.mark.parametrize("d", FUSED_WIDTHS)
+def test_fused_kernels_match_twins_at_every_width(cuda_device, d, priority):
+    x = _fused_case(d, cuda_device, d + len(priority), priority)
+    before = dict(ops.LAUNCHES)
+    (mk, mr), (tk, tr), (tk_round, tr_round) = _fused_pair(x, priority)
+    assert torch.equal(mk, mr) and not torch.equal(mk, x["m"])
+    assert torch.equal(tk, tr) and torch.equal(tk_round, tr_round)
+    assert ((tk == -1) & (x["t"] != -1)).any()          # new OUT
+    if d > 1:                                           # else all IN
+        assert ((tk_round != x["t"]) & (tk_round != 0)
+                & (tk_round != -1)).any()               # refreshed tuples
+    if d <= 17:                                         # wider: too few
+        assert ((tk_round == 0) & (x["t"] != 0)).any()  # new IN
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_refresh_columns": 1, "fused_decide": 2,
+        "sliced_refresh_columns": 0, "sliced_decide": 0,
+        "refresh_columns": 0, "decide": 0}
+
+
+# (worklist slots, live count, it): no live slot; a count past the
+# worklist's end (the kernel stops at its W slots); round 0
+FUSED_EDGES = {"count-0": (FUSED_V, 0, 5),
+               "count-past-w": (700, FUSED_V, 5),
+               "it-0": (FUSED_V, FUSED_V, 0)}
+
+
+@pytest.mark.parametrize("d", [7, 81])
+@pytest.mark.parametrize("case", list(FUSED_EDGES))
+def test_fused_kernels_at_the_worklist_edges(cuda_device, case, d):
+    w, count, it = FUSED_EDGES[case]
+    x = _fused_case(d, cuda_device, d, "xorshift_star", w=w, count=count,
+                    it=it)
+    pairs = _fused_pair(x, "xorshift_star")
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    if case == "count-0":
+        assert torch.equal(pairs[0][0], x["m"])
+        assert torch.equal(pairs[1][0], x["t"])
+
+
 def test_wrapper_on_cuda_raises_instead_of_falling_back(cuda_device):
     x = _state(GRAPHS["laplace3d(8)"](), cuda_device, seed=0)
     with pytest.raises(ValueError, match="is on"):

@@ -2,7 +2,7 @@
 """Where the time of the port's main path goes, on one GPU.
 
     python3 tools/profile_torch.py [--graphs Laplace3D_100 Elasticity3D_60
-                                          Powerlaw_1M]
+                                          Powerlaw_1M] [--calls mis2 coarsen]
 
 For each graph: one warm ``repro_torch.mis2`` and one warm
 ``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
@@ -17,8 +17,12 @@ the same tol and b); on Powerlaw_1M
 (``powerlaw_graph(1_000_000, 8.0, exponent=2.5, seed=42)``, where
 ``engine=None`` takes the hybrid layout) for ``coarsen(method="basic")``
 and ``color(engine="luby_hybrid")`` too.  Prints one JSON line per call
-with the device time by kernel name (top entries), the summed device time,
-the unprofiled wall time and the device's idle share of it.
+with the device time by kernel name (top entries, and every kernel of the
+port's ``csrc/``), the summed device time,
+the unprofiled wall time and the device's idle share of it.  ``--calls``
+keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
+``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``coarsen_basic``, ``color``),
+and skips the setups of the others.
 """
 from __future__ import annotations
 
@@ -76,7 +80,10 @@ def profile_call(torch, call, top: int = 10) -> dict:
             "device_events": sum(r[2] for r in rows),
             "idle_share": 1.0 - device_ms / wall_ms if rows else None,
             "kernels": [{"name": k[:96], "device_ms": us / 1e3, "count": n}
-                        for k, us, n in rows[:top]]}
+                        for k, us, n in rows[:top]],
+            "port_kernels": [{"name": k[:96], "device_ms": us / 1e3,
+                              "count": n}
+                             for k, us, n in rows if "repro_torch" in k]}
 
 
 def _cg(torch, rt, g, setup):
@@ -98,7 +105,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graphs", nargs="+", default=list(GRAPHS),
                     choices=list(GRAPHS))
+    ap.add_argument("--calls", nargs="+", default=None)
     args = ap.parse_args()
+    wanted = args.calls
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 1
@@ -112,22 +121,27 @@ def main() -> int:
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
     for label in args.graphs:
-        kind, args, kw = GRAPHS[label]
-        g = rt.Graph(getattr(rt.graphs, kind)(*args, **kw))
+        kind, gen_args, kw = GRAPHS[label]
+        g = rt.Graph(getattr(rt.graphs, kind)(*gen_args, **kw))
         calls = {"mis2": lambda: rt.mis2(g),
                  "coarsen": lambda: rt.coarsen(g, method="two_phase")}
         if label != "Powerlaw_1M":
             for engine in ("cuda_compacted", "compacted"):
                 calls[f"mis2_{engine}"] = \
                     lambda e=engine: rt.mis2(g, engine=e)
+        # the solves' setups run when the call is first made, below
         if label == "Laplace3D_100":
-            calls["amg_cg"] = _cg(torch, rt, g, rt.amg_setup)
+            calls["amg_cg"] = lambda: _cg(torch, rt, g, rt.amg_setup)
         if label == "Elasticity3D_60":
-            calls["gs_cg"] = _cg(torch, rt, g, rt.cluster_gs_setup)
+            calls["gs_cg"] = lambda: _cg(torch, rt, g, rt.cluster_gs_setup)
         if label == "Powerlaw_1M":
             calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
             calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
         for what, call in calls.items():
+            if wanted is not None and what not in wanted:
+                continue
+            if what.endswith("_cg"):
+                call = call()
             call()                                  # warm-up: ELL, kernels
             rec = {"graph": label, "call": what, **profile_call(torch, call)}
             print(json.dumps(rec), flush=True)
