@@ -10,8 +10,9 @@ Phases (any failure raises, and the script exits non-zero):
    per source, all started together, ``sm_90a``) and print the build time;
 3. hold each kernel against its plain-torch twin on the card: the fused
    MIS-2 passes at the Laplace3D_100 and Elasticity3D_60 shapes and the
-   sliced passes at the 8- and 64-wide slabs of Powerlaw_1M (random
-   state, sentinel and dead worklist slots, all three priorities); the
+   sliced passes at the four slabs of Powerlaw_1M (random state, sentinel
+   and dead worklist slots, all three priorities; the decide also without
+   a mask, as the hybrid loop calls it for ``mis2``); the
    unfused passes over pre-gathered rows of a pow2-padded worklist at the
    two paper graphs' shapes (dead slots past ``count``); the ELL SpMV on
    the three graphs' matrices and the hash-pack at V = 1M for three
@@ -139,7 +140,7 @@ POWERLAW_1M = dict(
     two_phase=(183_951, 17, "ab870d9f4a61bf55"),
     basic=(135_109, 10, "406787ed01a9ed03"),
     color=(36, 80, "f50cd95ad8b0addc"))
-TIMED_SLABS = (8, 64)
+TIMED_SLABS = (8, 16, 32, 64)
 
 # ABLATION_CHAIN["baseline_bell"] (fixed priorities) on the three graphs:
 # the reference's dense engine (JAX on the CPU); the other entries give
@@ -334,9 +335,12 @@ def main() -> int:
         args = (sl.rows, sl.neighbors.reshape(-1),
                 torch.from_numpy(wl_np).to(dev),
                 torch.tensor([count], dtype=torch.int32, device=dev))
+        state = _random_state(torch, rng, pl.num_vertices, dev)
         checks += _hold_round_pair(
             torch, ops, ref, "sliced", f"Powerlaw_1M width {sl.width}",
-            _random_state(torch, rng, pl.num_vertices, dev), args,
+            state, args, id_bits(pl.num_vertices), rng, errs)
+        checks += _hold_unmasked_decide(
+            torch, ops, ref, f"Powerlaw_1M width {sl.width}", state, args,
             id_bits(pl.num_vertices), rng, errs)
     vids = torch.arange(1_000_000, dtype=torch.int32, device=dev)
     for rnd in range(3):
@@ -690,6 +694,30 @@ def _hold_round_pair(torch, ops, ref, prefix: str, where: str, state, args,
         errs[decide] = max(errs[decide], _max_abs_err_u32(tk, tr))
         checks += 2
     return checks
+
+
+def _hold_unmasked_decide(torch, ops, ref, where: str, state, args, b: int,
+                          rng, errs: dict) -> int:
+    """One ``sliced_decide`` launch without a mask (``active=None``, on the
+    word ``active ? M : IN``, as the hybrid loop calls it without one)
+    against its twin, bitwise, for each priority.  Returns the number of
+    checks."""
+    t, m, active = state
+    word = torch.where(active, m, 0).to(torch.int32)
+    for priority in ("xorshift_star", "xorshift", "fixed"):
+        it = torch.tensor([int(rng.integers(0, 12))], dtype=torch.int32,
+                          device=t.device)
+        kw = dict(priority=priority, b=b)
+        tk, tr = t.clone(), t.clone()
+        ops.sliced_decide(tk, word, None, *args, it, **kw)
+        ref.sliced_decide_ref(tr, word, None, *args, it, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(tk, tr), f"sliced_decide without a mask != twin "
+              f"({where}, {priority})")
+        check(not torch.equal(tk, t), "sliced_decide wrote nothing")
+        errs["sliced_decide"] = max(errs["sliced_decide"],
+                                    _max_abs_err_u32(tk, tr))
+    return 3
 
 
 def _hold_unfused_pair(torch, ops, ref, where: str, ell, rng,
@@ -1075,10 +1103,10 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     except rt.graphs.LayoutOverflowError as e:
         check("cuda_hybrid" in str(e), f"overflow message: {e}")
     check("csr_to_ell" not in pl.conversions, "Powerlaw_1M built an ELL")
-    slices = pl.hybrid().num_slices
     out = {}
 
-    def sliced_launches(before, after, rounds, what):
+    def sliced_launches(g, before, after, rounds, what):
+        slices = g.hybrid().num_slices
         for k in SLICED:
             got = after[k] - before[k]
             check(got == slices * rounds, f"{what}: {k} launched {got} times "
@@ -1096,7 +1124,7 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     for k in ("slice_rows_processed", "spill_passes", "row_bytes_total",
               "spill_entries"):
         check(col[k] == want[k], f"Powerlaw_1M: {k} {col[k]} != {want[k]}")
-    sliced_launches(before, after, r.iterations, "Powerlaw_1M mis2")
+    sliced_launches(pl, before, after, r.iterations, "Powerlaw_1M mis2")
     check(after["fused_decide"] == before["fused_decide"],
           "Powerlaw_1M mis2 launched a fused kernel")
     out["mis2"] = {"engine": r.engine, "size": r.size,
@@ -1112,7 +1140,7 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
         check(a.engine == "cuda_hybrid", f"Powerlaw_1M coarsen: {a.engine}")
         check(got == want[method],
               f"Powerlaw_1M: coarsen({method}) {got} != {want[method]}")
-        sliced_launches(before, after, a.iterations,
+        sliced_launches(pl, before, after, a.iterations,
                         f"Powerlaw_1M coarsen({method})")
         out[f"coarsen_{method}"] = {
             "aggregates": a.num_aggregates, "mis2_iterations": a.iterations,
@@ -1130,16 +1158,14 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     check("csr_to_ell" not in pl.conversions, "Powerlaw_1M built an ELL")
     for label in PAPER_GRAPHS:
         g = graphs[label]
-        slices_g = g.hybrid().num_slices
         before = launches.read()
         rh = rt.mis2(g, engine="cuda_hybrid")
         after = launches.read()
         got = (rh.size, rh.iterations, rh.digest)
         check(got == ANCHORS[label]["mis2"],
               f"{label}: cuda_hybrid {got} != {ANCHORS[label]['mis2']}")
-        for k in SLICED:
-            check(after[k] - before[k] == slices_g * rh.iterations,
-                  f"{label}: {k} launched {after[k] - before[k]} times")
+        sliced_launches(g, before, after, rh.iterations,
+                        f"{label} cuda_hybrid")
         out[f"cuda_hybrid_{label}"] = {
             "size": rh.size, "iterations": rh.iterations,
             "digest": rh.digest, "slice_widths": list(
@@ -1149,10 +1175,11 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
 
 def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
                  plain_reps: int = 5) -> dict:
-    """Each sliced kernel and its twin on the 8- and 64-wide slabs at the
-    hybrid loop's round-0 state: every row live, every tuple undecided, M
-    of the whole graph refreshed before the decide; the state each writes
-    restored before each launch."""
+    """Each sliced kernel and its twin on every slab at the hybrid loop's
+    round-0 state: every row live, every tuple undecided, M of the whole
+    graph refreshed before the decide, the decide without a mask as
+    ``mis2`` calls it; the state each writes restored before each
+    launch."""
     v = hyb.num_vertices
     dev = hyb.spill_rows.device
     b = id_bits(v)
@@ -1183,9 +1210,9 @@ def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
         n_distinct = int(torch.unique(nbrs_flat).numel())
         # refresh: wl + slab rows + ids + T at distinct ids + M written
         refresh_bytes = 4 * r + 4 * r + 4 * r * w + 4 * n_distinct + 4 * r + 8
-        # decide: wl + slab rows + ids + own T + M and active at distinct
-        # ids + T written
-        decide_bytes = (4 * r + 4 * r + 4 * r * w + 4 * r + 5 * n_distinct
+        # decide without a mask: wl + slab rows + ids + own T + M at
+        # distinct ids + T written
+        decide_bytes = (4 * r + 4 * r + 4 * r * w + 4 * r + 4 * n_distinct
                         + 4 * r + 8)
         # hashes, one per undecided vertex: every distinct id (refresh),
         # every live row (decide)
@@ -1195,8 +1222,8 @@ def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
                 lambda: ref.sliced_refresh_columns_ref(t0, m, *slab, **kw),
                 lambda: m.copy_(m0), refresh_bytes, n_distinct),
             "sliced_decide": (
-                lambda: ops.sliced_decide(t, m_ready, active, *slab, **kw),
-                lambda: ref.sliced_decide_ref(t, m_ready, active, *slab, **kw),
+                lambda: ops.sliced_decide(t, m_ready, None, *slab, **kw),
+                lambda: ref.sliced_decide_ref(t, m_ready, None, *slab, **kw),
                 lambda: t.copy_(t0), decide_bytes, r),
         }
         out[w] = {}

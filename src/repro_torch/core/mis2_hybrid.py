@@ -5,7 +5,11 @@ counterpart of the JAX package's ``pallas_hybrid``).
 The resident loop of ``core.mis2`` re-plumbed for ``graphs.hybrid``: each
 round runs the refresh pass over every slab (``sliced_refresh_columns``, a
 CUDA kernel on the card), then the spill refresh, then the decide pass
-over every slab (``sliced_decide``), then the spill decide.  Slab
+over every slab (``sliced_decide``), then the spill decide.  Without an
+``active`` mask the slab decide reads M alone: M never holds IN, so the
+mask's gather is left out (with a mask it stays: building the word
+``active ? M : IN`` each round costs more than the gather it saves,
+``tools/bench_minprop.py``).  Slab
 worklists are compacted on the device from the global ``[V]`` live and
 undecided masks (sentinel ``R_i``).  Every vertex lies in exactly one slab
 or in the spill, so the in-place writes into the global T / M are
@@ -37,13 +41,17 @@ from .mis2 import (
 from .tuples import IN, OUT_I32, id_bits, is_undecided
 
 
-def hybrid_fixed_point(hyb, active: torch.Tensor, *, priority: str,
+def hybrid_fixed_point(hyb, active: torch.Tensor | None, *, priority: str,
                        max_iters: int, b: int):
     """The compacted fixed point over ``[V]`` device state and the hybrid
-    layout ``hyb``.  Returns ``(T stored int32 [V], iterations, live count
-    int32 [1], slab rows processed int64 [num_slices], host_syncs)``."""
+    layout ``hyb``; ``active`` None: every vertex, no mask.  Returns ``(T
+    stored int32 [V], iterations, live count int32 [1], slab rows
+    processed int64 [num_slices], host_syncs)``."""
     v = hyb.num_vertices
-    dev = active.device
+    dev = hyb.spill_rows.device
+    gate = active
+    if active is None:
+        active = torch.ones(v, dtype=torch.bool, device=dev)
     slabs = [(sl.rows, sl.neighbors.reshape(-1)) for sl in hyb.slices]
     has_spill = hyb.num_spill_rows > 0
     spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
@@ -70,8 +78,7 @@ def hybrid_fixed_point(hyb, active: torch.Tensor, *, priority: str,
         # decide: each pass reads and writes T only at its own rows
         for i, (rows, nbrs) in enumerate(slabs):
             wl1, n1_i = compact_worklist(und[rows])
-            ops.sliced_decide(t, m, active, rows, nbrs, wl1, n1_i, it_dev,
-                              **kw)
+            ops.sliced_decide(t, m, gate, rows, nbrs, wl1, n1_i, it_dev, **kw)
             acc[i:i + 1] += n1_i
         if has_spill:
             ops.spill_decide(t, m, active, *spill, it_dev, **kw)
@@ -93,7 +100,7 @@ def _mis2_hybrid_impl(graph, active=None,
     gh = as_graph(graph)
     hyb = gh.hybrid()
     v = hyb.num_vertices
-    act = _active_mask(active, v, gh.device)
+    act = None if active is None else _active_mask(active, v, gh.device)
     t, iters, n1, acc, syncs = hybrid_fixed_point(
         hyb, act, priority=options.priority, max_iters=options.max_iters,
         b=id_bits(v))

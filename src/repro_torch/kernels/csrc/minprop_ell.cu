@@ -29,54 +29,75 @@
 // Bound: memory.  Per live slot a pass reads wl, the row's D neighbour
 // ids (contiguous) and one 4-byte word per neighbour at a data-dependent
 // address (T in refresh; M and the active byte in decide), and writes one
-// word; at D = 81 the ids are nearly all of it.  The §V-A refresh is
-// integer work on top: a tuple is two xorshift64* (64-bit shifts and xors
-// of two 32-bit instructions each, a 64-bit multiply) and the packing once
-// the round's f(it + 1) is hoisted, 33 SASS instructions (hash_pack, which
-// also computes f(it + 1), takes 47; tools/bench_minprop.py --sass).  The
-// TPU kernels inline it per neighbour slot, to keep a refreshed T out of
-// HBM: D hashes per vertex a round, V * D = 52.5M at Elasticity3D_60 round
-// 0, about 100 us of this card's integer issue against a 65 us bytes bound.
+// word; at D = 81 the ids are nearly all of it.  At the slabs of a skewed
+// graph the neighbour words are the cost: the ids of a power-law graph
+// have no locality, so each word opens a 32-byte sector of its own (T and
+// M are 4 MB at V = 1M and stay in L2 after the first touch, so these are
+// L2 sector reads).  The §V-A refresh is integer work on top: a tuple is
+// two xorshift64* (64-bit shifts and xors of two 32-bit instructions
+// each, a 64-bit multiply) and the packing once the round's f(it + 1) is
+// hoisted, 33 SASS instructions (hash_pack, which also computes f(it + 1),
+// takes 47; tools/bench_minprop.py --sass).  The TPU kernels inline it per
+// neighbour slot, to keep a refreshed T out of HBM: D hashes per vertex a
+// round, V * D = 52.5M at Elasticity3D_60 round 0, about 100 us of this
+// card's integer issue against a 65 us bytes bound.
 //
-// The fused passes, redesigned for the card (their shapes were picked by
-// timing variants at Laplace3D_100 and Elasticity3D_60 with
-// tools/bench_minprop.py, round 0 and every round of a solve; PERF.md):
-// - A group of G lanes per worklist row, G the smallest power of two that
-//   leaves a lane at most kLaneSlots of the row's D slots (1 lane at
-//   D = 7, 8 at D = 81).  A lane loads a chunk of C of its slots' ids, then
-//   all C words they point at, before it uses any (C a power of two up to
-//   kChunk, covering its turns where it can): no per-slot
-//   branch stops the loads.  Refresh reduces with a group min, decide with
-//   two ballots (an active M that is OUT; an active M unequal to the row's
-//   tuple).  Integer min, any and all are exact in any order, so the bits
-//   are the twins'.  A chunk of 16 holds the registers of 4 blocks an SM,
-//   a smaller one those of 8 (__launch_bounds__).
-// - A warp takes 32 consecutive worklist slots at a time.  Lane L loads
-//   slot L's row, and in decide its T and its fresh tuple: one hash per
-//   row, not one per lane of its group.  The groups take the rows from the
+// The fused and sliced passes share one body per pass
+// (refresh_group_kernel, decide_group_kernel) over a row map: a worklist
+// entry is a row of the adjacency, whose vertex keys T, M and the hash --
+// the row itself in the padded ELL, slab_rows[row] in a slab, loaded once
+// by the lane that owns the slot.  Their shapes were picked by timing
+// variants with tools/bench_minprop.py, round 0 and every round of a solve
+// (Laplace3D_100 and Elasticity3D_60 for the fused passes, the four slabs
+// of Powerlaw_1M for the sliced ones; PERF.md):
+// - A group of G lanes per worklist row.  A lane loads a chunk of C of its
+//   slots' ids, then all C words they point at, before it uses any (C a
+//   power of two up to kChunk, covering its turns where it can): no
+//   per-slot branch stops the loads.  Refresh reduces with a group min,
+//   decide with two ballots (an active M that is OUT; an active M unequal
+//   to the row's tuple).  Integer min, any and all are exact in any order,
+//   so the bits are the twins'.  A chunk of 16 holds the registers of 4
+//   blocks an SM, a smaller one those of 8 (__launch_bounds__).
+// - A warp takes a batch of B worklist slots at a time.  Lane L loads slot
+//   L's row, and in decide its T and its fresh tuple: one hash per row,
+//   not one per lane of its group.  The groups take the rows from the
 //   lanes by shuffles, and each result goes back to its slot's lane, which
 //   writes it.
-// - Each vertex is hashed once a round where rows are wide (D >=
+// - The fused passes: G the smallest power of two that leaves a lane at
+//   most kLaneSlots of the row's D slots (1 lane at D = 7, 8 at D = 81),
+//   B = 32 slots (S = G steps of 32 / G rows).
+// - The sliced passes: a slab is short (17,077 rows at Powerlaw_1M's 64-wide
+//   one), so G is also raised from the slab's row count R, known on the
+//   host, until R * G reaches kSlabFillLanes or a lane would keep fewer
+//   than two slots of a row (G = 2, 8, 16, 32 at widths 8, 16, 32, 64), and
+//   a warp takes one row a group, B = 32 / G: the grid grows with G (one
+//   thread a row would give that slab 67 blocks of 64 dependent steps).
+// - Decide takes a null `active` (the hybrid loop without a mask): then a
+//   neighbour is active where its M is not IN, one gather a slot where the
+//   mask costs a second sector (M never holds IN: refresh maps IN to OUT).
+//   With a mask both gathers stay: a [V] pass building the word `active ?
+//   M : IN` each round costs more over a solve than the gather it saves.
+// - Each vertex is hashed once a round where fused rows are wide (D >=
 //   kHashOnceMinD): refresh first runs a pass over T that writes every
 //   vertex's refreshed tuple (the undecided ones hashed) to a [V] scratch
 //   the wrapper allocates, and the column min reads that instead of T.
 //   The pass moves 8 * V bytes more (2% of the pass's bytes at D = 81) in
-//   a second launch of the same C call.  At short rows the hash stays
-//   inline, f(it + 1) hoisted and the priority kind a template, behind a
-//   real branch for decided neighbours: there the pass, streaming all V
-//   every round while the worklist shrinks, costs more over a solve than
-//   the D hashes a vertex.  refresh writes only M either way.
+//   a second launch of the same C call.  At short rows and in the slabs
+//   the hash stays inline, f(it + 1) hoisted and the priority kind a
+//   template, behind a real branch for decided neighbours: there the pass,
+//   streaming all V every round while the worklists shrink, costs more
+//   over a solve than the D hashes a vertex.  refresh writes only M either
+//   way.
 // - A grid sized to the card: the blocks that fit on it at once, each warp
 //   striding over batches up to *count (read on the device), so a late
 //   round with a short worklist costs a few hundred idle blocks, not one
 //   block per 256 slots of the whole capacity.
 //
-// The sliced and unfused passes put one thread on a slot, which loops over
-// its row; blocks wholly past *count exit before touching memory, standing
-// in for the TPU's pl.when block skipping.  The unfused passes read the
-// [W, D] row copy that was written outside (one more movement of each live
-// row than the fused ones), and write every slot of their [W] output, dead
-// ones included.
+// The unfused passes put one thread on a slot, which loops over its row;
+// blocks wholly past *count exit before touching memory, standing in for
+// the TPU's pl.when block skipping.  They read the [W, D] row copy that was
+// written outside (one more movement of each live row than the fused
+// ones), and write every slot of their [W] output, dead ones included.
 //
 // In place is safe: refresh writes only M and reads only T (or its
 // scratch); decide reads T only at its own row and writes that row.  The
@@ -96,74 +117,6 @@ namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 256;
-
-// min over one row's D ids of the refreshed T, IN -> OUT
-__device__ __forceinline__ uint32_t refreshed_min(
-    const uint32_t* __restrict__ t, const int32_t* __restrict__ r, int d,
-    int kind, uint32_t it, int b) {
-  uint32_t mn = kOut;
-  for (int j = 0; j < d; ++j) {
-    const int32_t nb = r[j];
-    const uint32_t tv = refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b);
-    mn = tv < mn ? tv : mn;
-  }
-  return mn == kIn ? kOut : mn;
-}
-
-// T[row] <- OUT if an active neighbour's M is OUT, else IN if every active
-// neighbour's M equals the row's refreshed tuple, else the refreshed tuple;
-// decided rows are left as they are.  Reads T only at its own row.
-__device__ __forceinline__ void decide_row(
-    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
-    const uint8_t* __restrict__ active, const int32_t* __restrict__ r,
-    int32_t row, int d, int kind, uint32_t it, int b) {
-  const uint32_t told = t[row];
-  if (!is_undecided(told)) return;
-  const uint32_t tv = refresh(told, static_cast<uint32_t>(row), kind, it, b);
-  bool all_eq = true;
-  for (int j = 0; j < d; ++j) {
-    const int32_t nb = r[j];
-    if (!active[nb]) continue;
-    const uint32_t mv = m[nb];
-    if (mv == kOut) {
-      t[row] = kOut;
-      return;
-    }
-    all_eq = all_eq && mv == tv;
-  }
-  t[row] = all_eq ? kIn : tv;
-}
-
-// M[slab_rows[local]] for every live slab-local worklist row of one slab
-__global__ void sliced_refresh_columns_kernel(
-    const uint32_t* __restrict__ t, uint32_t* __restrict__ m,
-    const int32_t* __restrict__ slab_rows, const int32_t* __restrict__ nbrs,
-    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
-    const uint32_t* __restrict__ it_ptr, int64_t r, int64_t w, int d, int b,
-    int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t local = wl[i];
-  if (local < 0 || local >= r) return;  // sentinel slot
-  m[slab_rows[local]] = refreshed_min(
-      t, nbrs + static_cast<int64_t>(local) * d, d, kind, *it_ptr, b);
-}
-
-__global__ void sliced_decide_kernel(
-    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
-    const uint8_t* __restrict__ active, const int32_t* __restrict__ slab_rows,
-    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
-    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
-    int64_t r, int64_t w, int d, int b, int kind) {
-  const int64_t n = *count;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || i >= w) return;
-  const int32_t local = wl[i];
-  if (local < 0 || local >= r) return;  // sentinel slot
-  decide_row(t, m, active, nbrs + static_cast<int64_t>(local) * d,
-             slab_rows[local], d, kind, *it_ptr, b);
-}
 
 // M of pre-gathered worklist row i: min of T over its D ids, IN -> OUT
 __global__ void refresh_columns_kernel(const uint32_t* __restrict__ t,
@@ -216,14 +169,18 @@ __global__ void decide_kernel(const uint32_t* __restrict__ t_rows,
   out[i] = all_eq ? kIn : tv;
 }
 
+
 // ---------------------------------------------------------------------------
-// the fused passes: a group of G lanes per worklist row
+// the fused and sliced passes: a group of G lanes per worklist row
 // ---------------------------------------------------------------------------
 
 // Tuning constants (tools/bench_minprop.py builds variants of them).
 constexpr int kLaneSlots = 16;      // a row's slots a lane may take (picks G)
 constexpr int kChunk = 16;          // slots a lane loads at once, at most
-constexpr int kHashOnceMinD = 16;   // refresh: one hash per vertex from this D
+constexpr int kHashOnceMinD = 16;   // fused refresh: one hash a vertex from D
+// sliced passes: lanes a slab's rows should reach, G raised until R * G
+// does (2^20: four times the 270,336 threads the card holds at once)
+constexpr int64_t kSlabFillLanes = 1048576;
 // blocks an SM must hold (a register cap): for chunks of up to 8 slots,
 // and for wider ones, whose loads in flight need the registers
 constexpr int kMinBlocks = 8;
@@ -241,6 +198,14 @@ constexpr uint32_t kFull = 0xFFFFFFFFu;
 int group_lanes(int d) {
   int g = 1;
   while (g < 32 && g * kLaneSlots < d) g <<= 1;
+  return g;
+}
+
+// G for a slab of r rows: doubled from group_lanes while R * G is short
+// of kSlabFillLanes and each lane keeps two slots of a row at least
+int slab_group_lanes(int d, int64_t r) {
+  int g = group_lanes(d);
+  while (g < 32 && 4 * g <= d && r * g < kSlabFillLanes) g <<= 1;
   return g;
 }
 
@@ -262,10 +227,33 @@ __device__ __forceinline__ int64_t live_slots(const int32_t* count,
 // the row of worklist slot `slot`, or -1 for a dead or sentinel slot
 __device__ __forceinline__ int32_t slot_row(const int32_t* __restrict__ wl,
                                             int64_t slot, int64_t n,
-                                            int64_t v) {
+                                            int64_t rows) {
   if (slot >= n) return -1;
   const int32_t row = wl[slot];
-  return row >= 0 && row < v ? row : -1;
+  return row >= 0 && row < rows ? row : -1;
+}
+
+// the row of a warp's batch slot `lane` (B slots a batch), or -1
+template <int B>
+__device__ __forceinline__ int32_t batch_row(const int32_t* __restrict__ wl,
+                                             int64_t base, int lane,
+                                             int64_t n, int64_t rows) {
+  if constexpr (B < 32) {
+    if (lane >= B) return -1;
+  }
+  return slot_row(wl, base + lane, n, rows);
+}
+
+// the vertex of adjacency row `row` (-1 for none): the row itself in the
+// padded ELL, slab_rows[row] in a slab
+template <bool kSlab>
+__device__ __forceinline__ int32_t vertex_of(
+    int32_t row, const int32_t* __restrict__ slab_rows) {
+  if constexpr (kSlab) {
+    return row >= 0 ? slab_rows[row] : -1;
+  } else {
+    return row;
+  }
 }
 
 template <int G>
@@ -333,16 +321,19 @@ __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
   }
 }
 
-// M[row] for every live worklist row of the padded ELL: the min over the
-// row's ids of the refreshed tuples, IN -> OUT.  `src` holds them already
-// (kOnce) or is T, refreshed here per slot.
-template <int G, int C, bool kOnce, int Kind>
+// M at the vertex of every live worklist row: the min over the row's ids
+// of the refreshed tuples, IN -> OUT.  `src` holds them already (kOnce) or
+// is T, refreshed here per slot.  A warp takes B = S * 32 / G worklist
+// slots a batch: S = G (32 slots) in the padded ELL, S = 1 in a slab.
+template <int G, int S, int C, bool kOnce, int Kind, bool kSlab>
 __global__ void __launch_bounds__(kThreads, min_blocks<C>())
-fused_refresh_columns_kernel(
+refresh_group_kernel(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
     const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
-    int64_t v, int64_t w, int d, int b) {
+    int64_t rows, int64_t w, int d, int b,
+    const int32_t* __restrict__ slab_rows) {
+  constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
   const int grp = lane / G;
@@ -352,10 +343,11 @@ fused_refresh_columns_kernel(
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t base = warp * 32; base < n; base += warps * 32) {
-    const int32_t row = slot_row(wl, base + lane, n, v);
+  for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
+    const int32_t row = batch_row<kBatch>(wl, base, lane, n, rows);
+    const int32_t vid = vertex_of<kSlab>(row, slab_rows);
     uint32_t res = kOut;
-    for (int s = 0; s < 32; s += 32 / G) {
+    for (int s = 0; s < kBatch; s += 32 / G) {
       const int32_t r = __shfl_sync(kFull, row, s + grp);
       uint32_t mn = kOut;
       for (int k0 = 0; k0 < turns; k0 += C) {
@@ -376,22 +368,25 @@ fused_refresh_columns_kernel(
       }
       res = to_owner<G>(res, group_min<G>(mn), s, lane);
     }
-    if (row >= 0) m[row] = res == kIn ? kOut : res;
+    if (row >= 0) m[vid] = res == kIn ? kOut : res;
   }
 }
 
-// T[row] <- OUT if an active neighbour's M is OUT, else IN if every active
-// neighbour's M equals the row's refreshed tuple, else that tuple, for
-// every live undecided worklist row; decided rows are left as they are.
-// Reads T only at its own row.
-template <int G, int C>
+// T at the vertex of every live undecided worklist row <- OUT if an active
+// neighbour's M is OUT, else IN if every active neighbour's M equals the
+// row's refreshed tuple, else that tuple; decided rows are left as they
+// are.  Reads T only at its own vertex.  Without `active` (kGated false) a
+// neighbour is active where its M is not IN, one gather a slot.  Batches
+// as refresh_group_kernel.
+template <int G, int S, int C, bool kGated, bool kSlab>
 __global__ void __launch_bounds__(kThreads, min_blocks<C>())
-fused_decide_kernel(
+decide_group_kernel(
     uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
     const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
-    const uint32_t* __restrict__ it_ptr, int64_t v, int64_t w, int d, int b,
-    int kind) {
+    const uint32_t* __restrict__ it_ptr, int64_t rows, int64_t w, int d,
+    int b, int kind, const int32_t* __restrict__ slab_rows) {
+  constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
   const int grp = lane / G;
@@ -402,18 +397,21 @@ fused_decide_kernel(
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t base = warp * 32; base < n; base += warps * 32) {
-    int32_t row = slot_row(wl, base + lane, n, v);
+  for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
+    int32_t row = batch_row<kBatch>(wl, base, lane, n, rows);
+    const int32_t vid = vertex_of<kSlab>(row, slab_rows);
     uint32_t tv = 0;
+    // in the padded ELL a row is its vertex: `row` alone keys T there
     if (row >= 0) {
-      if (is_undecided(t[row])) {
-        tv = fresh_tuple(kind, it, static_cast<uint32_t>(row), b);
+      if (is_undecided(t[kSlab ? vid : row])) {
+        tv = fresh_tuple(kind, it, static_cast<uint32_t>(kSlab ? vid : row),
+                         b);
       } else {
         row = -1;
       }
     }
     uint32_t res = 0;
-    for (int s = 0; s < 32; s += 32 / G) {
+    for (int s = 0; s < kBatch; s += 32 / G) {
       const int32_t r = __shfl_sync(kFull, row, s + grp);
       const uint32_t tr = __shfl_sync(kFull, tv, s + grp);
       bool out = false, neq = false;
@@ -423,21 +421,30 @@ fused_decide_kernel(
         load_ids<G, C>(nb, nbrs, r, k0, sub, d);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          mv[c] = nb[c] >= 0 ? m[nb[c]] : 0u;
-          av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;
+          if constexpr (kGated) {
+            mv[c] = nb[c] >= 0 ? m[nb[c]] : 0u;
+            av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;
+          } else {
+            mv[c] = nb[c] >= 0 ? m[nb[c]] : kIn;
+          }
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const bool a = av[c] != 0;
-          out |= a & (mv[c] == kOut);
-          neq |= a & (mv[c] != tr);
+          if constexpr (kGated) {
+            const bool a = av[c] != 0;
+            out |= a & (mv[c] == kOut);
+            neq |= a & (mv[c] != tr);
+          } else {
+            out |= mv[c] == kOut;
+            neq |= (mv[c] != kIn) & (mv[c] != tr);
+          }
         }
       }
       const bool any_out = (__ballot_sync(kFull, out) & gbits) != 0;
       const bool all_eq = (__ballot_sync(kFull, neq) & gbits) == 0;
       res = to_owner<G>(res, any_out ? kOut : all_eq ? kIn : tr, s, lane);
     }
-    if (row >= 0) t[row] = res;
+    if (row >= 0) t[kSlab ? vid : row] = res;
   }
 }
 
@@ -459,11 +466,12 @@ int resident_blocks(Kernel kernel) {
   return blocks;
 }
 
-// blocks for `slots` worklist slots or vertices: one per kThreads of them,
-// at most the blocks that fit on the card (the rest are strided over)
+// blocks for `slots` worklist slots or vertices, `per_block` of them a
+// block, at most the blocks that fit on the card (the rest are strided
+// over)
 template <typename Kernel>
-int grid_for(Kernel kernel, int64_t slots) {
-  const int64_t need = (slots + kThreads - 1) / kThreads;
+int grid_for(Kernel kernel, int64_t slots, int64_t per_block) {
+  const int64_t need = (slots + per_block - 1) / per_block;
   const int fit = resident_blocks(kernel);
   return need < fit ? static_cast<int>(need) : fit;
 }
@@ -486,11 +494,10 @@ void with_chunk(int c, F&& f) {
   }
 }
 
-// f(Int<G>, Int<C>) for the group shape picked from d: G lanes a row, C
-// slots a lane loads at once
+// f(Int<G>, Int<C>) for G lanes a row: C = chunk_slots(G, d) slots a lane
+// loads at once
 template <typename F>
-void with_group_shape(int d, F&& f) {
-  const int g = group_lanes(d);
+void with_group_shape(int g, int d, F&& f) {
   const int c = chunk_slots(g, d);
   switch (g) {
     case 1: return with_chunk<1>(c, f);
@@ -502,25 +509,71 @@ void with_group_shape(int d, F&& f) {
   }
 }
 
+// f(Int<Kind>) for the priority kind code `kind`
+template <typename F>
+void with_kind(int kind, F&& f) {
+  switch (kind) {
+    case kXorshift: return f(Int<kXorshift>{});
+    case kFixed: return f(Int<kFixed>{});
+    default: return f(Int<kXorshiftStar>{});
+  }
+}
+
+// One refresh pass over `rows` adjacency rows in G lanes a row: the
+// padded ELL's (kSlab false, S = G) or a slab's (S = 1)
+template <bool kSlab, bool kOnce, int Kind>
+void launch_refresh(int g, const uint32_t* src, uint32_t* m,
+                    const int32_t* nbrs, const int32_t* wl,
+                    const int32_t* count, const uint32_t* it, int64_t rows,
+                    int64_t w, int d, int b, const int32_t* slab_rows,
+                    cudaStream_t stream) {
+  with_group_shape(g, d, [&](auto gg, auto cc) {
+    constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
+    constexpr int kS = kSlab ? 1 : kG;
+    auto k = refresh_group_kernel<kG, kS, kC, kOnce, Kind, kSlab>;
+    k<<<grid_for(k, w, kS * kThreads / kG), kThreads, 0, stream>>>(
+        src, m, nbrs, wl, count, it, rows, w, d, b, slab_rows);
+  });
+}
+
+// One decide pass, shaped as launch_refresh
+template <bool kSlab, bool kGated>
+void launch_decide(int g, uint32_t* t, const uint32_t* m,
+                   const uint8_t* active, const int32_t* nbrs,
+                   const int32_t* wl, const int32_t* count,
+                   const uint32_t* it, int64_t rows, int64_t w, int d, int b,
+                   int kind, const int32_t* slab_rows, cudaStream_t stream) {
+  with_group_shape(g, d, [&](auto gg, auto cc) {
+    constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
+    constexpr int kS = kSlab ? 1 : kG;
+    auto k = decide_group_kernel<kG, kS, kC, kGated, kSlab>;
+    k<<<grid_for(k, w, kS * kThreads / kG), kThreads, 0, stream>>>(
+        t, m, active, nbrs, wl, count, it, rows, w, d, b, kind, slab_rows);
+  });
+}
+
+template <int Kind>
+void launch_refreshed_tuples(const uint32_t* t, uint32_t* h,
+                             const uint32_t* it, int64_t v, int b,
+                             cudaStream_t stream) {
+  auto pre = refreshed_tuples_kernel<Kind>;
+  pre<<<grid_for(pre, v, kThreads), kThreads, 0, stream>>>(t, h, it, v, b);
+}
+
 template <int Kind>
 void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
                           const int32_t* nbrs, const int32_t* wl,
                           const int32_t* count, const uint32_t* it, int64_t v,
                           int64_t w, int d, int b, cudaStream_t stream) {
-  with_group_shape(d, [&](auto g, auto c) {
-    constexpr int kG = decltype(g)::value, kC = decltype(c)::value;
-    if (d >= kHashOnceMinD) {
-      auto pre = refreshed_tuples_kernel<Kind>;
-      pre<<<grid_for(pre, v), kThreads, 0, stream>>>(t, h, it, v, b);
-      auto k = fused_refresh_columns_kernel<kG, kC, true, kXorshiftStar>;
-      k<<<grid_for(k, w), kThreads, 0, stream>>>(h, m, nbrs, wl, count, it,
-                                                 v, w, d, b);
-    } else {
-      auto k = fused_refresh_columns_kernel<kG, kC, false, Kind>;
-      k<<<grid_for(k, w), kThreads, 0, stream>>>(t, m, nbrs, wl, count, it,
-                                                 v, w, d, b);
-    }
-  });
+  const int g = group_lanes(d);
+  if (d >= kHashOnceMinD) {
+    launch_refreshed_tuples<Kind>(t, h, it, v, b, stream);
+    launch_refresh<false, true, kXorshiftStar>(g, h, m, nbrs, wl, count, it,
+                                               v, w, d, b, nullptr, stream);
+  } else {
+    launch_refresh<false, false, Kind>(g, t, m, nbrs, wl, count, it, v, w, d,
+                                       b, nullptr, stream);
+  }
 }
 
 int blocks_for(int64_t w) {
@@ -538,26 +591,14 @@ int fused_refresh_columns(const void* t, void* m, void* scratch,
                           int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    const auto* tt = static_cast<const uint32_t*>(t);
-    auto* mm = static_cast<uint32_t*>(m);
-    auto* hh = static_cast<uint32_t*>(scratch);
-    const auto* nb = static_cast<const int32_t*>(nbrs);
-    const auto* ww = static_cast<const int32_t*>(wl);
-    const auto* cc = static_cast<const int32_t*>(count);
-    const auto* ii = static_cast<const uint32_t*>(it);
-    const auto s = static_cast<cudaStream_t>(stream);
-    switch (kind) {
-      case kXorshift:
-        launch_fused_refresh<kXorshift>(tt, mm, hh, nb, ww, cc, ii, v, w, d, b,
-                                        s);
-        break;
-      case kFixed:
-        launch_fused_refresh<kFixed>(tt, mm, hh, nb, ww, cc, ii, v, w, d, b, s);
-        break;
-      default:
-        launch_fused_refresh<kXorshiftStar>(tt, mm, hh, nb, ww, cc, ii, v, w, d,
-                                            b, s);
-    }
+    with_kind(kind, [&](auto k) {
+      launch_fused_refresh<decltype(k)::value>(
+          static_cast<const uint32_t*>(t), static_cast<uint32_t*>(m),
+          static_cast<uint32_t*>(scratch), static_cast<const int32_t*>(nbrs),
+          static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
+          static_cast<const uint32_t*>(it), v, w, d, b,
+          static_cast<cudaStream_t>(stream));
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -567,15 +608,12 @@ int fused_decide(void* t, const void* m, const void* active, const void* nbrs,
                  int64_t w, int d, int b, int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    with_group_shape(d, [&](auto g, auto c) {
-      auto k = fused_decide_kernel<decltype(g)::value, decltype(c)::value>;
-      k<<<grid_for(k, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<uint32_t*>(t), static_cast<const uint32_t*>(m),
-          static_cast<const uint8_t*>(active),
-          static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
-          static_cast<const int32_t*>(count),
-          static_cast<const uint32_t*>(it), v, w, d, b, kind);
-    });
+    launch_decide<false, true>(
+        group_lanes(d), static_cast<uint32_t*>(t),
+        static_cast<const uint32_t*>(m), static_cast<const uint8_t*>(active),
+        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
+        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
+        v, w, d, b, kind, nullptr, static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -586,31 +624,43 @@ int sliced_refresh_columns(const void* t, void* m, const void* slab_rows,
                            int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    sliced_refresh_columns_kernel<<<blocks_for(w), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(t), static_cast<uint32_t*>(m),
-        static_cast<const int32_t*>(slab_rows),
-        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
-        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
-        r, w, d, b, kind);
+    with_kind(kind, [&](auto k) {
+      launch_refresh<true, false, decltype(k)::value>(
+          slab_group_lanes(d, r), static_cast<const uint32_t*>(t),
+          static_cast<uint32_t*>(m), static_cast<const int32_t*>(nbrs),
+          static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
+          static_cast<const uint32_t*>(it), r, w, d, b,
+          static_cast<const int32_t*>(slab_rows),
+          static_cast<cudaStream_t>(stream));
+    });
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// `active` null: a neighbour is active where its M is not IN
 int sliced_decide(void* t, const void* m, const void* active,
                   const void* slab_rows, const void* nbrs, const void* wl,
                   const void* count, const void* it, int64_t r, int64_t w,
                   int d, int b, int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    sliced_decide_kernel<<<blocks_for(w), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint32_t*>(t), static_cast<const uint32_t*>(m),
-        static_cast<const uint8_t*>(active),
-        static_cast<const int32_t*>(slab_rows),
-        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
-        static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
-        r, w, d, b, kind);
+    const int g = slab_group_lanes(d, r);
+    auto* tt = static_cast<uint32_t*>(t);
+    const auto* mm = static_cast<const uint32_t*>(m);
+    const auto* aa = static_cast<const uint8_t*>(active);
+    const auto* sr = static_cast<const int32_t*>(slab_rows);
+    const auto* nb = static_cast<const int32_t*>(nbrs);
+    const auto* ww = static_cast<const int32_t*>(wl);
+    const auto* cc = static_cast<const int32_t*>(count);
+    const auto* ii = static_cast<const uint32_t*>(it);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (active == nullptr) {
+      launch_decide<true, false>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
+                                 kind, sr, s);
+    } else {
+      launch_decide<true, true>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
+                                kind, sr, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

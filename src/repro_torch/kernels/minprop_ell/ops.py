@@ -94,10 +94,11 @@ def _check_args(t, nbrs_flat, wl, count, it, state, b: int, priority: str,
                 slab_rows=None) -> tuple[int, int, int]:
     """Validate device, dtype, shape and contiguity; returns (V, R, D),
     with ``R = V`` for the padded ELL and ``R = len(slab_rows)`` for a
-    hybrid slab."""
+    hybrid slab.  A ``state`` entry that is None is not checked."""
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    state = {k: x for k, x in state.items() if x is not None}
     named = {"t": t, "nbrs_flat": nbrs_flat, "wl": wl, "count": count,
              "it": it, **state}
     if slab_rows is not None:
@@ -212,14 +213,17 @@ def sliced_decide(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
                   priority: str, b: int) -> torch.Tensor:
     """The decide of :func:`fused_decide` for the live slots of one slab:
     the global row ``slab_rows[wl[i]]`` keys the T read, the refresh and
-    the write (in place; returns ``t``).  ``active``: bool [V]; the rest as
-    :func:`sliced_refresh_columns`."""
+    the write (in place; returns ``t``).  ``active``: bool [V], or None:
+    then a neighbour is active where its M is not IN, and the kernel makes
+    one gather a slot, not two (the hybrid loop's M never holds IN); the
+    rest as :func:`sliced_refresh_columns`."""
     _, r, d = _check_args(t, nbrs_flat, wl, count, it,
                           {"m": m, "active": active}, b, priority, slab_rows)
     if t.device.type == "cpu":
         return ref.sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl,
                                      count, it, priority=priority, b=b)
-    _launch("sliced_decide", t, t.data_ptr(), m.data_ptr(), active.data_ptr(),
+    _launch("sliced_decide", t, t.data_ptr(), m.data_ptr(),
+            None if active is None else active.data_ptr(),
             slab_rows.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
             count.data_ptr(), it.data_ptr(), r, wl.shape[0], d, b,
             PRIORITY_CODES[priority])

@@ -5,7 +5,8 @@ the function of ``repro.kernels.minprop_ell.ref.fused_*_ref`` (or of the
 sliced Pallas kernels) followed by the drop-scatter
 ``x.at[gids].set(out, mode="drop")`` of the JAX ops wrapper.  Slots at or
 past ``count`` and sentinel slots (``wl[i] == V``, or ``R`` for a hybrid
-slab of ``R`` rows) write nothing.
+slab of ``R`` rows) write nothing.  The sliced decide also takes
+``active=None``: then a neighbour is active exactly when its M is not IN.
 
 ``refresh_columns_ref`` / ``decide_ref`` are the twins of the host-driven
 round's kernels: they take pre-gathered worklist rows ``[W, D]`` and return
@@ -71,11 +72,12 @@ def _refresh_min(t, nb, it, priority: str, b: int) -> torch.Tensor:
 def _decide(t, m, active, rows, nb, it, priority: str,
             b: int) -> torch.Tensor:
     """The widened new T of global rows ``rows`` [n] with adjacency ``nb``
-    [n, D]: IN / OUT / the refreshed tuple; decided rows keep theirs."""
+    [n, D]: IN / OUT / the refreshed tuple; decided rows keep theirs.
+    ``active=None``: the neighbours whose M is not IN are active."""
     tv_old = widen(t)[rows]
     tv = _refresh(tv_old, rows, it, priority, b)
     mn = widen(m)[nb]
-    an = active[nb]
+    an = mn != IN if active is None else active[nb]
     any_out = (an & (mn == OUT)).any(dim=1)
     all_eq = (~an | (mn == tv[:, None])).all(dim=1)
     newt = torch.where(any_out, OUT, torch.where(all_eq, 0, tv))
@@ -121,7 +123,8 @@ def sliced_refresh_columns_ref(t, m, slab_rows, nbrs_flat, wl, count, it, *,
 def sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
                       priority: str, b: int) -> torch.Tensor:
     """The fused decide over one hybrid slab: the row's global id keys the
-    T read, the refresh and the write."""
+    T read, the refresh and the write.  ``active=None``: the neighbours
+    whose M is not IN are active."""
     r = slab_rows.shape[0]
     local, live = _live_slots(wl, count, r)
     rows = slab_rows.to(torch.int64)[local]

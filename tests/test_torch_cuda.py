@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.core.mis2_hybrid import hybrid_fixed_point
 from repro_torch.core.tuples import id_bits
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.ops import spmv_ell
@@ -438,11 +439,13 @@ def test_coloring_and_cluster_gs_on_the_card(cuda_device, no_twins_on_cuda):
 
 # -- slice 3: the sliced kernels and the hybrid path --------------------------
 
-def _slab_state(r: int, w: int, count: int, device, seed: int):
+def _slab_state(r: int, w: int, count: int, device, seed: int,
+                decided: bool = False, active: str = "random"):
     """A random slab of ``r`` rows and width ``w`` over V = 4r + 7 vertices
     (global rows distinct, pads holding the row's own id), random T / M /
     active, and a slab-local worklist: ``count`` live slots with some
-    sentinels R, the rest sentinels."""
+    sentinels R, the rest sentinels.  ``decided``: the slab's rows hold IN
+    or OUT; ``active``: "random", "none" or "all"."""
     rng = np.random.default_rng(seed)
     v = 4 * r + 7
     rows = np.sort(rng.choice(v, size=r, replace=False)).astype(np.int32)
@@ -453,32 +456,56 @@ def _slab_state(r: int, w: int, count: int, device, seed: int):
     t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
     t[rng.random(v) < 0.1] = 0
     t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    if decided:
+        t[rows] = np.where(rng.random(r) < 0.5, 0, 0xFFFFFFFF)
     m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
     m[rng.random(v) < 0.2] = 0xFFFFFFFF
+    m[rng.random(v) < 0.05] = 0                    # IN: not active unmasked
     wl = np.full(r, r, dtype=np.int32)
     wl[:count] = rng.permutation(r)[:count]
     wl[:count][rng.random(count) < 0.1] = r
+    act = {"random": rng.random(v) < 0.9, "none": np.zeros(v, dtype=bool),
+           "all": np.ones(v, dtype=bool)}[active]
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return dict(t=to(t.view(np.int32)), m=to(m.view(np.int32)),
-                active=to(rng.random(v) < 0.9), slab_rows=to(rows),
+                active=to(act), slab_rows=to(rows),
                 nbrs_flat=to(nbrs.reshape(-1)), wl=to(wl),
                 count=torch.tensor([count], dtype=torch.int32, device=device),
                 it=torch.tensor([5], dtype=torch.int32, device=device),
                 b=id_bits(v))
 
 
-SLABS = {"8-wide": (5000, 8, 3000), "64-wide": (700, 64, 420),
-         "one-row": (1, 16, 1), "count-0": (300, 8, 0)}
+# rows, width, live slots (and _slab_state's options).  The kernel takes
+# G lanes a row from the width and the row count (G = 2, 8, 16, 32 at
+# Powerlaw_1M's widths 8 to 64; 4 to 32 on the small slabs here), one row
+# a group in a warp's batch of 32 / G rows: Powerlaw_1M-sized 8- and
+# 64-wide slabs (16 and 2 rows a batch) whose odd live counts leave the
+# last batch partly empty, and a width no power of two (a lane's last
+# chunk partly past the row).
+SLABS = {"8-wide": (5000, 8, 3000), "8-wide-full": (750_669, 8, 600_001),
+         "16-wide": (12000, 16, 9000), "32-wide": (4000, 32, 3100),
+         "64-wide": (700, 64, 420), "64-wide-ragged": (70_001, 64, 65_537),
+         "81-wide": (300, 81, 250), "one-row": (1, 16, 1),
+         "count-0": (300, 8, 0),
+         "all-decided": (800, 16, 700, dict(decided=True)),
+         "active-none": (900, 32, 800, dict(active="none")),
+         "active-all": (900, 32, 800, dict(active="all"))}
 
 
 @pytest.mark.parametrize("priority", ["xorshift_star", "xorshift", "fixed"])
 @pytest.mark.parametrize("slab", list(SLABS))
 def test_sliced_kernels_match_twins(cuda_device, slab, priority):
-    x = _slab_state(*SLABS[slab], cuda_device, seed=len(slab + priority))
+    """Each sliced pass against its twin, the decide both gated by
+    ``active`` and without it (``active=None``, as the hybrid loop calls
+    it without a mask)."""
+    r, w, count, *opts = SLABS[slab]
+    x = _slab_state(r, w, count, cuda_device, seed=len(slab + priority),
+                    **(opts[0] if opts else {}))
     b = x.pop("b")
     y = {k: v.clone() for k, v in x.items()}
     kw = dict(priority=priority, b=b)
     args = ("slab_rows", "nbrs_flat", "wl", "count", "it")
+    t0 = x["t"].clone()
     before = dict(ops.LAUNCHES)
     ops.sliced_refresh_columns(x["t"], x["m"], *(x[k] for k in args), **kw)
     ref.sliced_refresh_columns_ref(y["t"], y["m"], *(y[k] for k in args),
@@ -487,11 +514,16 @@ def test_sliced_kernels_match_twins(cuda_device, slab, priority):
                       **kw)
     ref.sliced_decide_ref(y["t"], y["m"], y["active"], *(y[k] for k in args),
                           **kw)
+    tu = ops.sliced_decide(t0.clone(), x["m"], None, *(x[k] for k in args),
+                           **kw)
+    tur = ref.sliced_decide_ref(t0.clone(), y["m"], None,
+                                *(y[k] for k in args), **kw)
     torch.cuda.synchronize()
     assert torch.equal(x["m"], y["m"]) and torch.equal(x["t"], y["t"])
+    assert torch.equal(tu, tur)
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
-        "sliced_refresh_columns": 1, "sliced_decide": 1,
+        "sliced_refresh_columns": 1, "sliced_decide": 2,
         "refresh_columns": 0, "decide": 0}
 
 
@@ -519,6 +551,29 @@ def test_hybrid_path_on_the_card(cuda_device, no_twins_on_cuda):
     c = rt.color(g, engine="luby_hybrid")
     assert (c.num_colors, c.rounds, c.digest) == PL900_COLOR
     assert "csr_to_ell" not in g.conversions
+
+
+@pytest.mark.parametrize("mask", [None, "random"])
+def test_hybrid_fixed_point_on_the_card_equals_twins(cuda_device, mask):
+    """The hybrid loop on the card (the sliced kernels once a slab a
+    round; the decide without the mask's gather when there is no mask)
+    against the same loop on the CPU twins."""
+    g = rt.Graph(gen.powerlaw_graph(20_000, 8.0, seed=7), device="cpu")
+    hyb = g.hybrid()
+    v = hyb.num_vertices
+    active = None if mask is None else torch.from_numpy(
+        np.random.default_rng(3).random(v) < 0.6)
+    kw = dict(priority="xorshift_star", max_iters=128, b=id_bits(v))
+    want = hybrid_fixed_point(hyb, active, **kw)
+    before = dict(ops.LAUNCHES)
+    got = hybrid_fixed_point(
+        hyb.to(cuda_device), None if active is None else
+        active.to(cuda_device), **kw)
+    assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]
+    assert torch.equal(got[3].cpu(), want[3])
+    slabs = hyb.num_slices
+    for k in ("sliced_refresh_columns", "sliced_decide"):
+        assert ops.LAUNCHES[k] - before[k] == slabs * got[1]
 
 
 # -- slice 4: the unfused kernels of the host-driven round -----------------

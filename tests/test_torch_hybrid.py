@@ -152,12 +152,19 @@ def _i32(a: np.ndarray) -> torch.Tensor:
 
 @pytest.mark.parametrize("priority", PRIORITIES)
 @pytest.mark.parametrize("which", ["sliced_refresh_columns", "sliced_decide",
+                                   "sliced_decide_unmasked",
                                    "spill_refresh_columns", "spill_decide"])
 def test_pass_twin_equals_reference_ops(which, priority):
+    """Each pass's twin against the reference's op; ``_unmasked``: the
+    slab decide on the word ``active ? M : IN`` with ``active=None``, equal
+    to the reference's gated decide wherever M holds no IN (the hybrid
+    loop's M never does)."""
     s = _pass_state(priority)
     kw = dict(priority=priority, b=s["b"])
     sl, ref_sl = s["hyb"].slices[1], s["ref_hyb"].slices[1]
     hyb, rh = s["hyb"], s["ref_hyb"]
+    if which == "sliced_decide_unmasked":
+        s["m"] = np.where(s["m"] == 0, np.uint32(1), s["m"])
     t, m = _i32(s["t"]), _i32(s["m"])
     active = torch.from_numpy(s["active"])
     it = torch.tensor([s["it"]], dtype=torch.int32)
@@ -179,7 +186,12 @@ def test_pass_twin_equals_reference_ops(which, priority):
             want = ref_ops.sliced_decide(
                 jt, jm, jnp.asarray(s["active"]), *ref_slab, d=sl.width,
                 interpret=True, **kw)
-            got = ops.sliced_decide(t, m, active, *slab, **kw)
+            if which.endswith("_unmasked"):
+                word = torch.where(active, m, IN).to(torch.int32)
+                got = ops.sliced_decide(t, word, None, *slab, **kw)
+                m = word
+            else:
+                got = ops.sliced_decide(t, m, active, *slab, **kw)
     elif which == "spill_refresh_columns":
         want = ref_ops.spill_refresh_columns(
             jt, jm, *ref_spill, jnp.asarray(s["live"]), jit, **kw)

@@ -1,37 +1,55 @@
 #!/usr/bin/env python3
-"""Variants of the fused MIS-2 kernels, side by side on one GPU.
+"""Variants of the MIS-2 round kernels, side by side on one GPU.
 
     python3 tools/bench_minprop.py [--baseline OLD.cu] \
-        [--variant NAME=kLaneSlots=8,kChunk=8 ...] \
-        [--probes] [--reps 30] [--solve-reps 10] [--sass]
+        [--variant NAME=kSlabFillLanes=135168,kSlabChunk=8 ...] \
+        [--probes [NAME ...]] [--reps 30] [--solve-reps 10] [--sass] \
+        [--graphs Laplace3D_100 Elasticity3D_60 Powerlaw_1M]
 
 Builds ``src/repro_torch/kernels/csrc/minprop_ell.cu`` as it stands
 (``default``); each ``--variant``, a copy of it with the named
-``constexpr`` constants rewritten (``NAME=kX=value,...``); ``--baseline``,
-another version of the same file with the same C entry points (the
-refresh's scratch argument may be missing, as before the kernels hashed
-each vertex once); and, with ``--probes``, the ``PROBES`` copies of the
-default source and, given ``--baseline``, the ``BASELINE_PROBES`` copies
-of the baseline.  All ``nvcc`` processes start together, into
-``build/bench_minprop/``.
+``constexpr`` constants rewritten (``NAME=kX=value,...``) or the named
+text edit ``EDITS[NAME]`` applied (``NAME`` alone: ``hash_once``);
+``--baseline``, another version of the same file with the same C entry
+points (the fused refresh's scratch argument may be missing); and, with
+``--probes``, the ``PROBES`` copies of the default
+source and, given ``--baseline``, the ``BASELINE_PROBES`` copies of the
+baseline (all of them, or the named ones).  All ``nvcc`` processes start
+together, into ``build/bench_minprop/``.
 
-Then, on Laplace3D_100 and Elasticity3D_60, every build but the probes is
-held bit for bit against the plain-torch twins and timed with
-``chip_smoke.py``'s timer (the median of ``--reps`` launches, each alone
-between CUDA events after a 256 MB L2 flush, the builds taken in turns and
-then again in reverse order):
+Every build but the probes is held bit for bit against the plain-torch
+twins and timed with ``chip_smoke.py``'s timer (the median of ``--reps``
+launches, each alone between CUDA events after a 256 MB L2 flush, the
+builds taken in turns and then again in reverse order):
 
-- at round 0 of the resident loop (every row live and undecided), the
-  state ``chip_smoke.py`` times;
-- over one whole resident solve: the per-round inputs of one ``mis2``
-  (worklists, counts, T and M), captured once from the twins, each round's
-  launch timed alone and the medians summed.
+- on Laplace3D_100 and Elasticity3D_60, the fused passes at round 0 of
+  the resident loop (every row live and undecided, the state
+  ``chip_smoke.py`` times) and over one whole resident solve: the
+  per-round inputs of one ``mis2`` (worklists, counts, T and M), captured
+  once from the twins, each round's launch timed alone and the medians
+  summed;
+- on Powerlaw_1M (``powerlaw_graph(1_000_000, 8.0, exponent=2.5,
+  seed=42)``, the hybrid layout), the sliced passes on each of its four
+  slabs, the same way, over the whole ``cuda_hybrid`` solve of ``mis2``
+  (``Powerlaw_1M mis2``: round 0 is the state ``chip_smoke.py`` times)
+  and over the phase-2 solve of ``coarsen(method="two_phase")``
+  (``Powerlaw_1M phase2``, the solve with a real ``active`` mask, its
+  mask recorded from a run of the port).  Each slab is timed in every form
+  a build offers: the refresh hashing inline (``inline``) or, in the
+  ``hash_once`` variant, reading one round's refreshed tuples (``hashed``,
+  its ``refreshed_tuples`` pass timed apart as ``pass``), the decide
+  gathering M and the mask (``gated``) or, where it takes a null mask, one
+  word (``ungated``: M, or on the masked solve the word ``active ? M :
+  IN``, whose plain-torch ``where`` is timed apart as ``mask``).  ``refresh_total`` sums a whole solve's refresh for each
+  width from which the slabs read the hashed tuples (``inline``: none).
 
 ``--sass`` prints the SASS of the default build's per-vertex hash pass
 (``refreshed_tuples_kernel``, xorshift64*) and of ``hash_pack_kernel``, with
-their instruction counts, from ``cuobjdump -sass``.  Prints one JSON line
-per build (``ptxas`` registers) and per graph, and the card's
-``nvidia-smi`` name and power limit.
+their instruction counts, from ``cuobjdump -sass``; given a baseline, it
+also says which of the baseline's kernels compiled to the same
+instructions in the default build (whatever their names).  Prints one
+JSON line per build (``ptxas`` registers) and per graph or solve, and the
+card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -48,8 +66,12 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 SRC = CSRC / "minprop_ell.cu"
 OUT = ROOT / "build" / "bench_minprop"
-GRAPHS = {"Laplace3D_100": ("laplace3d", 100),
-          "Elasticity3D_60": ("elasticity3d", 60)}
+GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
+          "Elasticity3D_60": ("elasticity3d", (60,), {}),
+          "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
+                          {"exponent": 2.5, "seed": 42})}
+ENTRIES = ("fused_refresh_columns", "fused_decide", "refreshed_tuples",
+           "sliced_refresh_columns", "sliced_decide")
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -59,8 +81,8 @@ from chip_smoke import _event_ms  # noqa: E402
 # not checked), to show what each costs
 PROBES = {
     "probe_no_hash_pass": [
-        ("pre<<<grid_for(pre, v), kThreads, 0, stream>>>(t, h, it, v, b);",
-         "")],
+        ("pre<<<grid_for(pre, v, kThreads), kThreads, 0, stream>>>(t, h, it, "
+         "v, b);", "")],
     "probe_no_gather": [("? src[nb[c]] : kOut;",
                          "? static_cast<uint32_t>(nb[c]) : kOut;")],
     "probe_no_active": [("av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;",
@@ -68,10 +90,49 @@ PROBES = {
     "probe_decide_no_gather": [
         ("av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;", "av[c] = nb[c] >= 0;"),
         ("mv[c] = nb[c] >= 0 ? m[nb[c]] : 0u;",
+         "mv[c] = static_cast<uint32_t>(nb[c]);"),
+        ("mv[c] = nb[c] >= 0 ? m[nb[c]] : kIn;",
          "mv[c] = static_cast<uint32_t>(nb[c]);")],
+    "probe_no_slab_rows": [("return row >= 0 ? slab_rows[row] : -1;",
+                            "return row;")],
 }
-# the same questions asked of the source before the redesign (one thread
-# per row, the hash inline per neighbour slot)
+# named variants: text edits of the default source.  hash_once: the sliced
+# refresh reads one round's refreshed tuples, each vertex hashed once by a
+# `refreshed_tuples` entry (the per-vertex pass of the fused refresh), when
+# it is given no round (`it` null): the form the timing calls `hashed`
+_SLICED_REFRESH = """    with_kind(kind, [&](auto k) {
+      launch_refresh<true, false, decltype(k)::value>(
+          slab_group_lanes(d, r), static_cast<const uint32_t*>(t),
+"""
+EDITS = {
+    "hash_once": [
+        (_SLICED_REFRESH, """    if (it == nullptr) {
+      launch_refresh<true, true, kXorshiftStar>(
+          slab_group_lanes(d, r), static_cast<const uint32_t*>(t),
+          static_cast<uint32_t*>(m), static_cast<const int32_t*>(nbrs),
+          static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
+          nullptr, r, w, d, b, static_cast<const int32_t*>(slab_rows),
+          static_cast<cudaStream_t>(stream));
+      return static_cast<int>(cudaGetLastError());
+    }
+""" + _SLICED_REFRESH),
+        ("// `active` null: a neighbour is active where its M is not IN",
+         """int refreshed_tuples(const void* t, void* h, const void* it, int64_t v,
+                     int b, int kind, void* stream) {
+  using namespace repro_torch;
+  with_kind(kind, [&](auto k) {
+    launch_refreshed_tuples<decltype(k)::value>(
+        static_cast<const uint32_t*>(t), static_cast<uint32_t*>(h),
+        static_cast<const uint32_t*>(it), v, b,
+        static_cast<cudaStream_t>(stream));
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `active` null: a neighbour is active where its M is not IN""")],
+}
+# the same questions asked of the source before the sliced passes were
+# redesigned (one thread per slab row, the hash inline per neighbour slot)
 BASELINE_PROBES = {
     "baseline_probe_no_hash": [
         ("refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b)", "t[nb]")],
@@ -79,6 +140,16 @@ BASELINE_PROBES = {
         ("refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b)",
          "refresh(1u, static_cast<uint32_t>(nb), kind, it, b)")],
     "baseline_probe_no_active": [("    if (!active[nb]) continue;\n", "")],
+    "baseline_probe_no_m": [("const uint32_t mv = m[nb];",
+                             "const uint32_t mv = static_cast<uint32_t>(nb);")],
+    "baseline_probe_no_early_return": [
+        ("    if (mv == kOut) {\n      t[row] = kOut;\n      return;\n    }\n"
+         "    all_eq = all_eq && mv == tv;",
+         "    all_eq = all_eq && mv == tv && mv != kOut;")],
+    "baseline_probe_no_slab_rows": [
+        ("m[slab_rows[local]] = refreshed_min(", "m[local] = refreshed_min("),
+        ("             slab_rows[local], d, kind, *it_ptr, b);",
+         "             local, d, kind, *it_ptr, b);")],
 }
 
 
@@ -95,8 +166,13 @@ def _edited(name: str, src: Path, subs: list[tuple[str, str]]) -> Path:
 
 
 def _variant(spec: str) -> tuple[str, Path]:
-    """``NAME=kX=value,...``: the default source with constants rewritten."""
+    """``NAME=kX=value,...``: the default source with constants rewritten;
+    ``NAME`` alone: the named text edit ``EDITS[NAME]``."""
     name, _, consts = spec.partition("=")
+    if not consts:
+        if name not in EDITS:
+            raise SystemExit(f"no edit named {name!r} (EDITS: {list(EDITS)})")
+        return name, _edited(name, SRC, EDITS[name])
     subs = []
     for item in consts.split(","):
         const, _, value = item.partition("=")
@@ -127,18 +203,20 @@ def _short(fn: str) -> str:
 
 
 def _registers(log: str) -> dict:
-    """``ptxas -v``: registers and spill stores of the fused passes."""
+    """``ptxas -v``: registers and spill stores of the round passes."""
     out, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
-        if m and fn and re.search("fused|refreshed_tuples", fn):
+        if m and fn and re.search("group|fused|sliced|refreshed_tuples",
+                                  fn):
             key = _short(fn)
             out[key] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
-        if m and fn and int(m.group(1)) and re.search("fused", fn):
+        if m and fn and int(m.group(1)) and re.search(
+                "group|fused|sliced", fn):
             out[f"{_short(fn)} spills"] = int(m.group(1))
     return out
 
@@ -160,8 +238,12 @@ def _build(sources: dict[str, Path]) -> dict:
         print(json.dumps({"variant": name, "source": str(sources[name]),
                           "ptxas": _registers(log)}), flush=True)
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        fns[name] = {}
-        for fn_name in ("fused_refresh_columns", "fused_decide"):
+        # the sliced decide takes no mask (a null `active`) where it says so
+        fns[name] = {"ungated": "active == nullptr" in
+                     sources[name].read_text()}
+        for fn_name in ENTRIES:
+            if not hasattr(lib, fn_name):
+                continue
             sig, scratch = _argtypes(sources[name], fn_name)
             fn = getattr(lib, fn_name)
             fn.argtypes = sig
@@ -203,12 +285,11 @@ def _sass(baseline: bool) -> None:
     if baseline:
         new = _functions(tool, OUT / "default.so")
         old = _functions(tool, OUT / "baseline.so")
-        others = sorted(k for k in old if "fused" not in k)
-        print(json.dumps({"sass_unchanged": [k for k in others
-                                             if new.get(k) == old[k]],
-                          "sass_changed": [k for k in others
-                                           if new.get(k) != old[k]]}),
-              flush=True)
+        bodies = {tuple(v) for v in new.values()}
+        same = sorted(k for k, v in old.items() if tuple(v) in bodies)
+        print(json.dumps({"sass_same_in_default": same,
+                          "sass_not_in_default": sorted(set(old) - set(same))
+                          }), flush=True)
 
 
 def _round0(torch, ell, id_bits):
@@ -285,6 +366,314 @@ def _calls(torch, fns, name, ell, st, b: int):
     return refresh, decide, m, t
 
 
+def _bench_ell(torch, rt, fns, names, probes, label: str, args) -> None:
+    """The fused passes on one paper graph: round 0 and a whole solve."""
+    from repro_torch.core.mis2 import compact_worklist
+    from repro_torch.core.tuples import id_bits, is_undecided
+    from repro_torch.kernels.minprop_ell import ref
+
+    kind, gen_args, kw = GRAPHS[label]
+    g = rt.Graph(getattr(rt.graphs, kind)(*gen_args, **kw), device="cuda")
+    ell = g.ell
+    v, d = ell.neighbors.shape
+    b = id_bits(v)
+    rounds = _capture_solve(torch, ell, ref, compact_worklist, is_undecided,
+                            b)
+    # round 0 as chip_smoke.py times it: every row live, M of the whole
+    # graph refreshed before the decide
+    r0 = _round0(torch, ell, None)
+    r0["m_out"] = rounds[0]["m_out"]
+    r0["t_out"] = None
+    rec = {"graph": label, "V": v, "D": d, "rounds": len(rounds),
+           "live": {"refresh": [int(r["n2"].item()) for r in rounds],
+                    "decide": [int(r["n1"].item()) for r in rounds]}}
+    names = [k for k in names if "fused_decide" in fns[k]]
+    res = {k: {"round0": {"refresh": [], "decide": []},
+               "solve": {"refresh": [], "decide": []}} for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            checked = k in probes
+            refresh, decide, m, t = _calls(torch, fns, k, ell, r0, b)
+            m_in, t_in = r0["m"], r0["t"]
+            for which, fn, restore in (
+                    ("refresh", refresh, lambda: m.copy_(m_in)),
+                    ("decide", decide, lambda: t.copy_(t_in))):
+                restore()
+                if fn() != 0:
+                    raise SystemExit(f"{k}: {which} launch failed")
+                _event_ms(torch, fn, 3, restore)
+                res[k]["round0"][which].append(
+                    _event_ms(torch, fn, args.reps, restore))
+            per_round = {"refresh": [], "decide": []}
+            for i, st in enumerate(rounds):
+                refresh, decide, m, t = _calls(torch, fns, k, ell, st, b)
+                refresh()
+                decide()
+                torch.cuda.synchronize()
+                if not checked and not (torch.equal(m, st["m_out"])
+                                        and torch.equal(t, st["t_out"])):
+                    raise SystemExit(f"{k}: not bitwise equal to the "
+                                     f"twins at {label} round {i}")
+                for which, fn, restore in (
+                        ("refresh", refresh,
+                         lambda st=st, m=m: m.copy_(st["m"])),
+                        ("decide", decide,
+                         lambda st=st, t=t: t.copy_(st["t"]))):
+                    per_round[which].append(_event_ms(
+                        torch, fn, args.solve_reps, restore))
+            for which, times in per_round.items():
+                res[k]["solve"][which].append(times)
+    rec["ms_round0"] = {k: dict(r["round0"]) for k, r in res.items()}
+    rec["ms_solve"] = {k: {w: [sum(ts) for ts in v]
+                           for w, v in r["solve"].items()}
+                       for k, r in res.items()}
+    rec["ms_solve_by_round"] = {k: {w: v[0] for w, v in r["solve"].items()}
+                                for k, r in res.items()}
+    rec["bitwise"] = [k for k in names if k not in probes]
+    print(json.dumps(rec), flush=True)
+
+
+def _capture_hybrid(torch, hyb, active, b: int,
+                    max_rounds: int = 128) -> list[dict]:
+    """Every round's inputs and outputs of one ``cuda_hybrid`` solve, from
+    the twins (the loop of ``core.mis2_hybrid.hybrid_fixed_point``): T and
+    M at the round's start, each slab's worklists and counts, M after the
+    refreshes and T after the decides.  ``active`` None: no mask."""
+    from repro_torch.core.mis2 import compact_worklist
+    from repro_torch.core.tuples import is_undecided
+    from repro_torch.kernels.minprop_ell import ops, ref
+
+    v = hyb.num_vertices
+    dev = hyb.spill_rows.device
+    act = torch.ones(v, dtype=torch.bool, device=dev) if active is None \
+        else active
+    kw = dict(priority="xorshift_star", b=b)
+    spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+    t = torch.where(act, 1, -1).to(torch.int32)
+    m = torch.full((v,), -1, dtype=torch.int32, device=dev)
+    und, live = act, torch.ones(v, dtype=torch.bool, device=dev)
+    it = torch.zeros(1, dtype=torch.int32, device=dev)
+    rounds = []
+    for _ in range(max_rounds):
+        if not bool(und.any()):
+            break
+        rec = dict(t=t.clone(), m=m.clone(), it=it.clone(), slabs=[])
+        for sl in hyb.slices:
+            wl2, n2 = compact_worklist(live[sl.rows])
+            wl1, n1 = compact_worklist(und[sl.rows])
+            rec["slabs"].append(dict(wl2=wl2, n2=n2, wl1=wl1, n1=n1))
+        for sl, x in zip(hyb.slices, rec["slabs"]):
+            ref.sliced_refresh_columns_ref(t, m, sl.rows,
+                                           sl.neighbors.reshape(-1),
+                                           x["wl2"], x["n2"], it, **kw)
+        if hyb.num_spill_rows:
+            ops.spill_refresh_columns(t, m, *spill, live, it, **kw)
+        rec["m_out"] = m.clone()
+        for sl, x in zip(hyb.slices, rec["slabs"]):
+            ref.sliced_decide_ref(t, m, act, sl.rows, sl.neighbors.reshape(-1),
+                                  x["wl1"], x["n1"], it, **kw)
+        if hyb.num_spill_rows:
+            ops.spill_decide(t, m, act, *spill, it, **kw)
+        rec["t_out"] = t.clone()
+        rec["h"] = _refreshed(torch, rec["t"], it, b)
+        rec["mw"] = torch.where(act, rec["m_out"], 0).to(torch.int32)
+        rounds.append(rec)
+        und, live = is_undecided(t), m != -1
+        it = it + 1
+    return rounds
+
+
+def _refreshed(torch, t, it, b: int):
+    """The round's refreshed tuple of every vertex (xorshift64*), as the
+    twins refresh T."""
+    from repro_torch.core.hashing import PRIORITY_FNS
+    from repro_torch.core.tuples import is_undecided, narrow, pack
+
+    vids = torch.arange(t.shape[0], device=t.device)
+    fresh = narrow(pack(PRIORITY_FNS["xorshift_star"](it, vids), vids, b))
+    return torch.where(is_undecided(t), fresh, t)
+
+
+def _phase2_mask(torch, rt, g):
+    """The ``active`` mask of the phase-2 MIS-2 of ``coarsen(method=
+    "two_phase")`` on ``g``, recorded from a run of the port."""
+    from repro_torch.core import aggregation
+
+    seen = []
+    run = aggregation.run_mis2
+
+    def record(gh, active, *a, **kw):
+        if active is not None:
+            seen.append(active.clone())
+        return run(gh, active, *a, **kw)
+
+    aggregation.run_mis2 = record
+    try:
+        rt.coarsen(g, method="two_phase")
+    finally:
+        aggregation.run_mis2 = run
+    return seen[0]
+
+
+def _slab_forms(fns, k: str) -> dict:
+    """Which forms of the sliced passes build ``k`` offers."""
+    hashed = "refreshed_tuples" in fns[k]
+    return {"refresh": ["inline"] + (["hashed"] if hashed else []),
+            "decide": ["gated"] + (["ungated"] if fns[k]["ungated"] else []),
+            "pass": hashed}
+
+
+def _slab_launch(torch, fns, k, sl, x, rec, which, form, active, b: int):
+    """A launcher of build ``k``'s sliced ``which`` pass in ``form`` on slab
+    ``sl`` at round ``rec`` (slab worklists ``x``), writing into a working
+    copy; returns it with the copy, its expected value and its restore."""
+    stream = torch.cuda.current_stream().cuda_stream
+    r, w = sl.num_rows, sl.width
+    nbrs = sl.neighbors.reshape(-1)
+    rows = sl.rows.to(torch.int64)
+    if which == "refresh":
+        fn = fns[k]["sliced_refresh_columns"][0]
+        src, it = (rec["t"], rec["it"]) if form == "inline" \
+            else (rec["h"], None)
+        out, start = rec["m"].clone(), rec["m"]
+        want = start.clone()
+        want[rows] = rec["m_out"][rows]
+        args = (src.data_ptr(), out.data_ptr(), sl.rows.data_ptr(),
+                nbrs.data_ptr(), x["wl2"].data_ptr(), x["n2"].data_ptr(),
+                None if it is None else it.data_ptr(), r, r, w, b, 0, stream)
+    else:
+        fn = fns[k]["sliced_decide"][0]
+        if form == "gated":
+            mm, act = rec["m_out"], active.data_ptr()
+        else:
+            mm, act = rec["mw"], None
+        out, start = rec["t"].clone(), rec["t"]
+        want = start.clone()
+        want[rows] = rec["t_out"][rows]
+        args = (out.data_ptr(), mm.data_ptr(), act, sl.rows.data_ptr(),
+                nbrs.data_ptr(), x["wl1"].data_ptr(), x["n1"].data_ptr(),
+                rec["it"].data_ptr(), r, r, w, b, 0, stream)
+    return (lambda: fn(*args)), out, want, (lambda: out.copy_(start))
+
+
+def _bench_hybrid(torch, rt, fns, names, probes, args) -> None:
+    """The sliced passes on every slab of Powerlaw_1M, over the ``mis2``
+    solve (round 0 as ``chip_smoke.py`` times it) and the phase-2 solve of
+    two-phase coarsening."""
+    from repro_torch.core.tuples import id_bits
+
+    kind, gen_args, kw = GRAPHS["Powerlaw_1M"]
+    g = rt.Graph(getattr(rt.graphs, kind)(*gen_args, **kw), device="cuda")
+    hyb = g.hybrid()
+    v = hyb.num_vertices
+    b = id_bits(v)
+    names = [k for k in names if "sliced_decide" in fns[k]]
+    for solve, active in (("mis2", None),
+                          ("phase2", _phase2_mask(torch, rt, g))):
+        rounds = _capture_hybrid(torch, hyb, active, b)
+        act = torch.ones(v, dtype=torch.bool, device="cuda") \
+            if active is None else active
+        rec = {"graph": "Powerlaw_1M", "solve": solve, "V": v,
+               "rounds": len(rounds), "widths": list(hyb.slice_widths),
+               "slab_rows": list(hyb.slice_num_rows),
+               "active": int(act.sum()),
+               "size": int((rounds[-1]["t_out"] == 0).sum()),
+               "live": {f"width {sl.width}": {
+                   "refresh": [int(r["slabs"][i]["n2"]) for r in rounds],
+                   "decide": [int(r["slabs"][i]["n1"]) for r in rounds]}
+                   for i, sl in enumerate(hyb.slices)}}
+        # res[k][form][width]: per order, per round ms; pass / mask per round
+        res = {k: {} for k in names}
+        r0 = {k: {} for k in names}
+        for order in (names, names[::-1]):
+            for k in order:
+                forms = _slab_forms(fns, k)
+                cases = [(wh, f) for wh in ("refresh", "decide")
+                         for f in forms[wh]]
+                for wh, f in cases:
+                    for i, sl in enumerate(hyb.slices):
+                        per_round = []
+                        for j, rd in enumerate(rounds):
+                            fn, out, want, restore = _slab_launch(
+                                torch, fns, k, sl, rd["slabs"][i], rd, wh, f,
+                                act, b)
+                            if fn() != 0:
+                                raise SystemExit(f"{k}: {wh} launch failed")
+                            torch.cuda.synchronize()
+                            if k not in probes and not torch.equal(out, want):
+                                raise SystemExit(
+                                    f"{k}: {wh} ({f}) not bitwise equal to "
+                                    f"the twins, {solve} round {j}, width "
+                                    f"{sl.width}")
+                            if j == 0 and solve == "mis2":
+                                _event_ms(torch, fn, 3, restore)
+                                r0[k].setdefault(f"{wh}_{f}", {}).setdefault(
+                                    f"width {sl.width}", []).append(
+                                    _event_ms(torch, fn, args.reps, restore))
+                            per_round.append(_event_ms(
+                                torch, fn, args.solve_reps, restore))
+                        res[k].setdefault(f"{wh}_{f}", {}).setdefault(
+                            f"width {sl.width}", []).append(per_round)
+                if forms["pass"]:
+                    fn = fns[k]["refreshed_tuples"][0]
+                    per_round = []
+                    for j, rd in enumerate(rounds):
+                        h = torch.empty_like(rd["t"])
+                        call = (lambda rd=rd, h=h: fn(
+                            rd["t"].data_ptr(), h.data_ptr(),
+                            rd["it"].data_ptr(), v, b, 0,
+                            torch.cuda.current_stream().cuda_stream))
+                        call()
+                        torch.cuda.synchronize()
+                        if k not in probes and not torch.equal(h, rd["h"]):
+                            raise SystemExit(f"{k}: refreshed_tuples not "
+                                             f"bitwise equal, round {j}")
+                        if j == 0 and solve == "mis2":
+                            r0[k].setdefault("pass", []).append(
+                                _event_ms(torch, call, args.reps))
+                        per_round.append(_event_ms(torch, call,
+                                                   args.solve_reps))
+                    res[k].setdefault("pass", []).append(per_round)
+        if active is not None:
+            rec["ms_mask_by_round"] = [_event_ms(
+                torch, lambda rd=rd: torch.where(act, rd["m_out"], 0),
+                args.solve_reps) for rd in rounds]
+        widths = list(hyb.slice_widths)
+        sums = {}
+        for k, forms in res.items():
+            sums[k] = {}
+            for form, by in forms.items():
+                if form == "pass":
+                    sums[k]["pass"] = [sum(x) for x in by]
+                    continue
+                sums[k][form] = {wd: [sum(x) for x in lists]
+                                 for wd, lists in by.items()}
+            total = {}
+            for form in ("refresh_inline", "refresh_hashed", "decide_gated",
+                         "decide_ungated"):
+                if form in sums[k]:
+                    total[form] = [sum(sums[k][form][f"width {wd}"][o]
+                                       for wd in widths) for o in (0, 1)]
+            if "refresh_hashed" in sums[k]:
+                for lo in widths:
+                    total[f"refresh_hashed_from_{lo}"] = [
+                        sum(sums[k]["refresh_inline" if wd < lo
+                                    else "refresh_hashed"][f"width {wd}"][o]
+                            for wd in widths) + sums[k]["pass"][o]
+                        for o in (0, 1)]
+            sums[k]["totals"] = total
+        rec["ms_solve"] = sums
+        if solve == "mis2":
+            rec["ms_round0"] = r0
+        rec["ms_solve_by_round"] = {k: {f: (by[0] if f == "pass" else
+                                            {wd: x[0] for wd, x in by.items()})
+                                        for f, by in forms.items()}
+                                    for k, forms in res.items()}
+        rec["bitwise"] = [k for k in names if k not in probes]
+        print(json.dumps(rec), flush=True)
+        del rounds
+
+
 def main() -> int:
     import torch
 
@@ -294,9 +683,11 @@ def main() -> int:
                     help="NAME=kX=value,...")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--solve-reps", type=int, default=10)
-    ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--probes", nargs="*", default=None,
+                    help="all probes, or the named ones")
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--graphs", nargs="+", default=list(GRAPHS))
+    ap.add_argument("--graphs", nargs="+", default=list(GRAPHS),
+                    choices=list(GRAPHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_minprop: no CUDA device", file=sys.stderr)
@@ -307,14 +698,14 @@ def main() -> int:
         sources["baseline"] = args.baseline.resolve()
     sources.update(_variant(spec) for spec in args.variant)
     probes = set()
-    if args.probes:
-        for k, subs in PROBES.items():
-            sources[k] = _edited(k, SRC, subs)
-            probes.add(k)
+    if args.probes is not None:
+        table = dict(PROBES)
         if args.baseline is not None:
-            for k, subs in BASELINE_PROBES.items():
-                sources[k] = _edited(k, sources["baseline"], subs)
-                probes.add(k)
+            table.update(BASELINE_PROBES)
+        for k in args.probes or table:
+            base = sources["baseline"] if k in BASELINE_PROBES else SRC
+            sources[k] = _edited(k, base, table[k])
+            probes.add(k)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -326,72 +717,13 @@ def main() -> int:
         _sass(args.baseline is not None)
 
     import repro_torch as rt
-    from repro_torch.core.mis2 import compact_worklist
-    from repro_torch.core.tuples import id_bits, is_undecided
-    from repro_torch.kernels.minprop_ell import ref
 
     names = list(fns)
     for label in args.graphs:
-        kind, n = GRAPHS[label]
-        g = rt.Graph(getattr(rt.graphs, kind)(n), device="cuda")
-        ell = g.ell
-        v, d = ell.neighbors.shape
-        b = id_bits(v)
-        rounds = _capture_solve(torch, ell, ref, compact_worklist,
-                                is_undecided, b)
-        # round 0 as chip_smoke.py times it: every row live, M of the
-        # whole graph refreshed before the decide
-        r0 = _round0(torch, ell, None)
-        r0["m_out"] = rounds[0]["m_out"]
-        r0["t_out"] = None
-        rec = {"graph": label, "V": v, "D": d, "rounds": len(rounds),
-               "live": {"refresh": [int(r["n2"].item()) for r in rounds],
-                        "decide": [int(r["n1"].item()) for r in rounds]}}
-        res = {k: {"round0": {"refresh": [], "decide": []},
-                   "solve": {"refresh": [], "decide": []}} for k in names}
-        for order in (names, names[::-1]):
-            for k in order:
-                checked = k in probes
-                refresh, decide, m, t = _calls(torch, fns, k, ell, r0, b)
-                m_in, t_in = r0["m"], r0["t"]
-                for which, fn, restore in (
-                        ("refresh", refresh, lambda: m.copy_(m_in)),
-                        ("decide", decide, lambda: t.copy_(t_in))):
-                    restore()
-                    if fn() != 0:
-                        raise SystemExit(f"{k}: {which} launch failed")
-                    _event_ms(torch, fn, 3, restore)
-                    res[k]["round0"][which].append(
-                        _event_ms(torch, fn, args.reps, restore))
-                per_round = {"refresh": [], "decide": []}
-                for i, st in enumerate(rounds):
-                    refresh, decide, m, t = _calls(torch, fns, k, ell, st, b)
-                    refresh()
-                    decide()
-                    torch.cuda.synchronize()
-                    if not checked and not (torch.equal(m, st["m_out"])
-                                            and torch.equal(t, st["t_out"])):
-                        raise SystemExit(f"{k}: not bitwise equal to the "
-                                         f"twins at {label} round {i}")
-                    for which, fn, restore in (
-                            ("refresh", refresh,
-                             lambda st=st, m=m: m.copy_(st["m"])),
-                            ("decide", decide,
-                             lambda st=st, t=t: t.copy_(st["t"]))):
-                        per_round[which].append(_event_ms(
-                            torch, fn, args.solve_reps, restore))
-                for which, times in per_round.items():
-                    res[k]["solve"][which].append(times)
-        rec["ms_round0"] = {k: {w: v for w, v in r["round0"].items()}
-                            for k, r in res.items()}
-        rec["ms_solve"] = {k: {w: [sum(ts) for ts in v]
-                               for w, v in r["solve"].items()}
-                           for k, r in res.items()}
-        rec["ms_solve_by_round"] = {k: {w: v[0] for w, v in r["solve"].items()}
-                                    for k, r in res.items()}
-        rec["bitwise"] = [k for k in names if k not in probes]
-        print(json.dumps(rec), flush=True)
-        del g, ell, rounds
+        if label == "Powerlaw_1M":
+            _bench_hybrid(torch, rt, fns, names, probes, args)
+        else:
+            _bench_ell(torch, rt, fns, names, probes, label, args)
     print(smi, flush=True)
     return 0
 
