@@ -962,7 +962,8 @@ def _time_unfused(torch, g, ops, ref, id_bits, reps: int = 50,
     """The unfused kernels and their twins at the host-driven round 0:
     every row live in a pow2 bucket (dead slots gathering row V-1), T
     after the row refresh, M after the column refresh; each launch writes
-    a new output, so nothing is restored."""
+    a new output, so nothing is restored.  ``ms_read_flush``: the kernel
+    after a 256 MB read flush, not the write flush of ``ms``."""
     from repro_torch.core.hashing import PRIORITY_FNS
     from repro_torch.core.tuples import narrow, pack
 
@@ -994,6 +995,7 @@ def _time_unfused(torch, g, ops, ref, id_bits, reps: int = 50,
     }
     return {k: {**_timed(torch, kernel, twin, None, nbytes, reps=reps,
                          plain_reps=plain_reps),
+                "ms_read_flush": _event_ms(torch, kernel, reps, clean=True),
                 "V": v, "D": d, "W": w, "count": v}
             for k, (kernel, twin, nbytes) in cases.items()}
 

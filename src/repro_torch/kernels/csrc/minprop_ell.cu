@@ -42,14 +42,15 @@
 // round, V * D = 52.5M at Elasticity3D_60 round 0, about 100 us of this
 // card's integer issue against a 65 us bytes bound.
 //
-// The fused and sliced passes share one body per pass
-// (refresh_group_kernel, decide_group_kernel) over a row map: a worklist
-// entry is a row of the adjacency, whose vertex keys T, M and the hash --
-// the row itself in the padded ELL, slab_rows[row] in a slab, loaded once
-// by the lane that owns the slot.  Their shapes were picked by timing
-// variants with tools/bench_minprop.py, round 0 and every round of a solve
-// (Laplace3D_100 and Elasticity3D_60 for the fused passes, the four slabs
-// of Powerlaw_1M for the sliced ones; PERF.md):
+// The three share one body per pass (refresh_group_kernel,
+// decide_group_kernel) over a row map: a worklist entry is a row of the
+// adjacency, whose vertex keys T, M and the hash -- the row itself in the
+// padded ELL (kPadded), slab_rows[row] in a slab (kSlab), loaded once by
+// the lane that owns the slot; the unfused passes' map (kCopy) is below.
+// Their shapes were picked by timing variants with tools/bench_minprop.py,
+// round 0 and every round of a solve (Laplace3D_100 and Elasticity3D_60
+// for the fused and unfused passes, the four slabs of Powerlaw_1M for the
+// sliced ones; PERF.md):
 // - A group of G lanes per worklist row.  A lane loads a chunk of C of its
 //   slots' ids, then all C words they point at, before it uses any (C a
 //   power of two up to kChunk, covering its turns where it can): no
@@ -93,11 +94,24 @@
 //   round with a short worklist costs a few hundred idle blocks, not one
 //   block per 256 slots of the whole capacity.
 //
-// The unfused passes put one thread on a slot, which loops over its row;
-// blocks wholly past *count exit before touching memory, standing in for
-// the TPU's pl.when block skipping.  They read the [W, D] row copy that was
-// written outside (one more movement of each live row than the fused
-// ones), and write every slot of their [W] output, dead ones included.
+// The unfused passes are a third row map of the same two bodies (kCopy):
+// slot i is row i of the [W, D] copy gathered outside (one more movement
+// of each live row than the fused passes), live below the host's count,
+// which the launch passes where the other maps pass their row count; the
+// result goes to slot i of a [W] output, and refresh reads T with no hash
+// (the §V-A row refresh has run before it), as the kOnce instance reads
+// its scratch.  So they get what the fused passes got from the shape: no
+// per-slot `continue` or early return between a row's loads (on an H100
+// the one thread a slot that looped over its row took 297.6 us for E60's
+// decide at round 0, 2.8x the group's).  A warp visits every slot up to W, not
+// only the live ones: the output's dead slots take OUT (refresh) or their
+// own tuple (decide) from the lane that owns them, and a batch wholly past
+// the count loads no row.  The fused and sliced instances compile to the
+// same instructions as before the third map (tools/bench_minprop.py
+// --sass).  At short rows (G = 1) a lane loads its own row directly: a
+// warp's 32 rows are one contiguous span of the copy, but staging it in
+// shared memory with 16-byte loads first (tools/bench_minprop.py
+// --variant staged) lost at every register cap tried.
 //
 // In place is safe: refresh writes only M and reads only T (or its
 // scratch); decide reads T only at its own row and writes that row.  The
@@ -118,60 +132,8 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// M of pre-gathered worklist row i: min of T over its D ids, IN -> OUT
-__global__ void refresh_columns_kernel(const uint32_t* __restrict__ t,
-                                       const int32_t* __restrict__ rows,
-                                       uint32_t* __restrict__ out, int64_t w,
-                                       int d, int64_t count) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= w) return;
-  if (i >= count) {  // dead slot
-    out[i] = kOut;
-    return;
-  }
-  const int32_t* r = rows + i * d;
-  uint32_t mn = kOut;
-  for (int j = 0; j < d; ++j) {
-    const uint32_t tv = t[r[j]];
-    mn = tv < mn ? tv : mn;
-  }
-  out[i] = mn == kIn ? kOut : mn;
-}
-
-// T of pre-gathered worklist row i: OUT if an active neighbour's M is OUT,
-// else IN if every active neighbour's M equals the row's tuple, else the
-// tuple; decided rows and dead slots keep theirs
-__global__ void decide_kernel(const uint32_t* __restrict__ t_rows,
-                              const uint32_t* __restrict__ m,
-                              const uint8_t* __restrict__ active,
-                              const int32_t* __restrict__ rows,
-                              uint32_t* __restrict__ out, int64_t w, int d,
-                              int64_t count) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= w) return;
-  const uint32_t tv = t_rows[i];
-  if (i >= count || !is_undecided(tv)) {
-    out[i] = tv;
-    return;
-  }
-  const int32_t* r = rows + i * d;
-  bool all_eq = true;
-  for (int j = 0; j < d; ++j) {
-    const int32_t nb = r[j];
-    if (!active[nb]) continue;
-    const uint32_t mv = m[nb];
-    if (mv == kOut) {
-      out[i] = kOut;
-      return;
-    }
-    all_eq = all_eq && mv == tv;
-  }
-  out[i] = all_eq ? kIn : tv;
-}
-
-
 // ---------------------------------------------------------------------------
-// the fused and sliced passes: a group of G lanes per worklist row
+// the round passes: a group of G lanes per worklist row
 // ---------------------------------------------------------------------------
 
 // Tuning constants (tools/bench_minprop.py builds variants of them).
@@ -192,6 +154,13 @@ constexpr int min_blocks() {
 }
 
 constexpr uint32_t kFull = 0xFFFFFFFFu;
+
+// The row maps of the two bodies: what the row of a worklist slot is, and
+// which vertex keys its T, M and hash
+constexpr int kPadded = 0;  // wl[slot], a row of the padded ELL: its vertex
+constexpr int kSlab = 1;    // wl[slot], a slab row: vertex slab_rows[row]
+constexpr int kCopy = 2;    // row `slot` of a pre-gathered copy; the result
+                            // goes to slot `slot` of a [W] output
 
 // G: the smallest power of two, at most 32, that leaves a lane at most
 // kLaneSlots of a row's d slots
@@ -224,6 +193,28 @@ __device__ __forceinline__ int64_t live_slots(const int32_t* count,
   return n < w ? n : w;
 }
 
+// the slots the warps visit: the live ones, or all W of a copy, whose dead
+// slots are written too
+template <int Map>
+__device__ __forceinline__ int64_t visited_slots(const int32_t* count,
+                                                 int64_t w) {
+  if constexpr (Map == kCopy) {
+    return w;
+  } else {
+    return live_slots(count, w);
+  }
+}
+
+// the round the priorities hash (none for a copy: it reads T as given)
+template <int Map>
+__device__ __forceinline__ uint32_t round_of(const uint32_t* it_ptr) {
+  if constexpr (Map == kCopy) {
+    return 0u;
+  } else {
+    return *it_ptr;
+  }
+}
+
 // the row of worklist slot `slot`, or -1 for a dead or sentinel slot
 __device__ __forceinline__ int32_t slot_row(const int32_t* __restrict__ wl,
                                             int64_t slot, int64_t n,
@@ -233,23 +224,29 @@ __device__ __forceinline__ int32_t slot_row(const int32_t* __restrict__ wl,
   return row >= 0 && row < rows ? row : -1;
 }
 
-// the row of a warp's batch slot `lane` (B slots a batch), or -1
-template <int B>
+// the row of a warp's batch slot `lane` (B slots a batch), or -1; in a
+// copy the slot itself, live below `rows` (there the host's count)
+template <int B, int Map>
 __device__ __forceinline__ int32_t batch_row(const int32_t* __restrict__ wl,
                                              int64_t base, int lane,
                                              int64_t n, int64_t rows) {
   if constexpr (B < 32) {
     if (lane >= B) return -1;
   }
-  return slot_row(wl, base + lane, n, rows);
+  if constexpr (Map == kCopy) {
+    const int64_t slot = base + lane;
+    return slot < n && slot < rows ? static_cast<int32_t>(slot) : -1;
+  } else {
+    return slot_row(wl, base + lane, n, rows);
+  }
 }
 
 // the vertex of adjacency row `row` (-1 for none): the row itself in the
-// padded ELL, slab_rows[row] in a slab
-template <bool kSlab>
+// padded ELL, slab_rows[row] in a slab (a copy's rows key no vertex)
+template <int Map>
 __device__ __forceinline__ int32_t vertex_of(
     int32_t row, const int32_t* __restrict__ slab_rows) {
-  if constexpr (kSlab) {
+  if constexpr (Map == kSlab) {
     return row >= 0 ? slab_rows[row] : -1;
   } else {
     return row;
@@ -324,8 +321,10 @@ __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
 // M at the vertex of every live worklist row: the min over the row's ids
 // of the refreshed tuples, IN -> OUT.  `src` holds them already (kOnce) or
 // is T, refreshed here per slot.  A warp takes B = S * 32 / G worklist
-// slots a batch: S = G (32 slots) in the padded ELL, S = 1 in a slab.
-template <int G, int S, int C, bool kOnce, int Kind, bool kSlab>
+// slots a batch: S = G (32 slots) in the padded ELL and a copy, S = 1 in a
+// slab.  `rows`: the adjacency's rows, or a copy's live count; a copy's
+// M goes to m[slot], OUT at a dead slot.
+template <int G, int S, int C, bool kOnce, int Kind, int Map>
 __global__ void __launch_bounds__(kThreads, min_blocks<C>())
 refresh_group_kernel(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
@@ -338,14 +337,20 @@ refresh_group_kernel(
   const int sub = lane & (G - 1);
   const int grp = lane / G;
   const int turns = (d + G - 1) / G;
-  const int64_t n = live_slots(count, w);
+  const int64_t n = visited_slots<Map>(count, w);
   const RoundPriority<Kind> prio(kOnce ? 0u : *it_ptr);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
   for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
-    const int32_t row = batch_row<kBatch>(wl, base, lane, n, rows);
-    const int32_t vid = vertex_of<kSlab>(row, slab_rows);
+    if constexpr (Map == kCopy) {
+      if (base >= rows) {          // a batch of dead slots: OUT, no loads
+        if (base + lane < w) m[base + lane] = kOut;
+        continue;
+      }
+    }
+    const int32_t row = batch_row<kBatch, Map>(wl, base, lane, n, rows);
+    const int32_t vid = vertex_of<Map>(row, slab_rows);
     uint32_t res = kOut;
     for (int s = 0; s < kBatch; s += 32 / G) {
       const int32_t r = __shfl_sync(kFull, row, s + grp);
@@ -368,7 +373,11 @@ refresh_group_kernel(
       }
       res = to_owner<G>(res, group_min<G>(mn), s, lane);
     }
-    if (row >= 0) m[vid] = res == kIn ? kOut : res;
+    if constexpr (Map == kCopy) {
+      if (base + lane < w) m[base + lane] = res == kIn ? kOut : res;
+    } else {
+      if (row >= 0) m[vid] = res == kIn ? kOut : res;
+    }
   }
 }
 
@@ -377,37 +386,51 @@ refresh_group_kernel(
 // row's refreshed tuple, else that tuple; decided rows are left as they
 // are.  Reads T only at its own vertex.  Without `active` (kGated false) a
 // neighbour is active where its M is not IN, one gather a slot.  Batches
-// as refresh_group_kernel.
-template <int G, int S, int C, bool kGated, bool kSlab>
+// as refresh_group_kernel.  A copy takes each row's tuple from t_rows[slot]
+// as it is, and writes the result to t[slot]: the tuple itself at a dead
+// slot or a decided row.
+template <int G, int S, int C, bool kGated, int Map>
 __global__ void __launch_bounds__(kThreads, min_blocks<C>())
 decide_group_kernel(
     uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
     const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
     const uint32_t* __restrict__ it_ptr, int64_t rows, int64_t w, int d,
-    int b, int kind, const int32_t* __restrict__ slab_rows) {
+    int b, int kind, const int32_t* __restrict__ slab_rows,
+    const uint32_t* __restrict__ t_rows) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
   const int grp = lane / G;
   const int turns = (d + G - 1) / G;
   const uint32_t gbits = group_bits<G>(grp);
-  const int64_t n = live_slots(count, w);
-  const uint32_t it = *it_ptr;
+  const int64_t n = visited_slots<Map>(count, w);
+  const uint32_t it = round_of<Map>(it_ptr);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
   for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
-    int32_t row = batch_row<kBatch>(wl, base, lane, n, rows);
-    const int32_t vid = vertex_of<kSlab>(row, slab_rows);
+    if constexpr (Map == kCopy) {
+      if (base >= rows) {          // a batch of dead slots keeps its tuples
+        if (base + lane < w) t[base + lane] = t_rows[base + lane];
+        continue;
+      }
+    }
+    int32_t row = batch_row<kBatch, Map>(wl, base, lane, n, rows);
+    const int32_t vid = vertex_of<Map>(row, slab_rows);
     uint32_t tv = 0;
-    // in the padded ELL a row is its vertex: `row` alone keys T there
-    if (row >= 0) {
-      if (is_undecided(t[kSlab ? vid : row])) {
-        tv = fresh_tuple(kind, it, static_cast<uint32_t>(kSlab ? vid : row),
-                         b);
-      } else {
-        row = -1;
+    if constexpr (Map == kCopy) {
+      tv = base + lane < w ? t_rows[base + lane] : 0u;
+      if (!is_undecided(tv)) row = -1;
+    } else {
+      // in the padded ELL a row is its vertex: `row` alone keys T there
+      if (row >= 0) {
+        if (is_undecided(t[Map == kSlab ? vid : row])) {
+          tv = fresh_tuple(kind, it,
+                           static_cast<uint32_t>(Map == kSlab ? vid : row), b);
+        } else {
+          row = -1;
+        }
       }
     }
     uint32_t res = 0;
@@ -444,7 +467,11 @@ decide_group_kernel(
       const bool all_eq = (__ballot_sync(kFull, neq) & gbits) == 0;
       res = to_owner<G>(res, any_out ? kOut : all_eq ? kIn : tr, s, lane);
     }
-    if (row >= 0) t[kSlab ? vid : row] = res;
+    if constexpr (Map == kCopy) {
+      if (base + lane < w) t[base + lane] = row >= 0 ? res : tv;
+    } else {
+      if (row >= 0) t[Map == kSlab ? vid : row] = res;
+    }
   }
 }
 
@@ -520,8 +547,8 @@ void with_kind(int kind, F&& f) {
 }
 
 // One refresh pass over `rows` adjacency rows in G lanes a row: the
-// padded ELL's (kSlab false, S = G) or a slab's (S = 1)
-template <bool kSlab, bool kOnce, int Kind>
+// padded ELL's or a copy's (S = G), or a slab's (S = 1)
+template <int Map, bool kOnce, int Kind>
 void launch_refresh(int g, const uint32_t* src, uint32_t* m,
                     const int32_t* nbrs, const int32_t* wl,
                     const int32_t* count, const uint32_t* it, int64_t rows,
@@ -529,26 +556,28 @@ void launch_refresh(int g, const uint32_t* src, uint32_t* m,
                     cudaStream_t stream) {
   with_group_shape(g, d, [&](auto gg, auto cc) {
     constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
-    constexpr int kS = kSlab ? 1 : kG;
-    auto k = refresh_group_kernel<kG, kS, kC, kOnce, Kind, kSlab>;
+    constexpr int kS = Map == kSlab ? 1 : kG;
+    auto k = refresh_group_kernel<kG, kS, kC, kOnce, Kind, Map>;
     k<<<grid_for(k, w, kS * kThreads / kG), kThreads, 0, stream>>>(
         src, m, nbrs, wl, count, it, rows, w, d, b, slab_rows);
   });
 }
 
 // One decide pass, shaped as launch_refresh
-template <bool kSlab, bool kGated>
+template <int Map, bool kGated>
 void launch_decide(int g, uint32_t* t, const uint32_t* m,
                    const uint8_t* active, const int32_t* nbrs,
                    const int32_t* wl, const int32_t* count,
                    const uint32_t* it, int64_t rows, int64_t w, int d, int b,
-                   int kind, const int32_t* slab_rows, cudaStream_t stream) {
+                   int kind, const int32_t* slab_rows, const uint32_t* t_rows,
+                   cudaStream_t stream) {
   with_group_shape(g, d, [&](auto gg, auto cc) {
     constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
-    constexpr int kS = kSlab ? 1 : kG;
-    auto k = decide_group_kernel<kG, kS, kC, kGated, kSlab>;
+    constexpr int kS = Map == kSlab ? 1 : kG;
+    auto k = decide_group_kernel<kG, kS, kC, kGated, Map>;
     k<<<grid_for(k, w, kS * kThreads / kG), kThreads, 0, stream>>>(
-        t, m, active, nbrs, wl, count, it, rows, w, d, b, kind, slab_rows);
+        t, m, active, nbrs, wl, count, it, rows, w, d, b, kind, slab_rows,
+        t_rows);
   });
 }
 
@@ -568,16 +597,13 @@ void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
   const int g = group_lanes(d);
   if (d >= kHashOnceMinD) {
     launch_refreshed_tuples<Kind>(t, h, it, v, b, stream);
-    launch_refresh<false, true, kXorshiftStar>(g, h, m, nbrs, wl, count, it,
-                                               v, w, d, b, nullptr, stream);
+    launch_refresh<kPadded, true, kXorshiftStar>(g, h, m, nbrs, wl, count,
+                                                 it, v, w, d, b, nullptr,
+                                                 stream);
   } else {
-    launch_refresh<false, false, Kind>(g, t, m, nbrs, wl, count, it, v, w, d,
-                                       b, nullptr, stream);
+    launch_refresh<kPadded, false, Kind>(g, t, m, nbrs, wl, count, it, v, w,
+                                         d, b, nullptr, stream);
   }
-}
-
-int blocks_for(int64_t w) {
-  return static_cast<int>((w + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -608,12 +634,13 @@ int fused_decide(void* t, const void* m, const void* active, const void* nbrs,
                  int64_t w, int d, int b, int kind, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    launch_decide<false, true>(
+    launch_decide<kPadded, true>(
         group_lanes(d), static_cast<uint32_t*>(t),
         static_cast<const uint32_t*>(m), static_cast<const uint8_t*>(active),
         static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(wl),
         static_cast<const int32_t*>(count), static_cast<const uint32_t*>(it),
-        v, w, d, b, kind, nullptr, static_cast<cudaStream_t>(stream));
+        v, w, d, b, kind, nullptr, nullptr,
+        static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -625,7 +652,7 @@ int sliced_refresh_columns(const void* t, void* m, const void* slab_rows,
   using namespace repro_torch;
   if (w > 0) {
     with_kind(kind, [&](auto k) {
-      launch_refresh<true, false, decltype(k)::value>(
+      launch_refresh<kSlab, false, decltype(k)::value>(
           slab_group_lanes(d, r), static_cast<const uint32_t*>(t),
           static_cast<uint32_t*>(m), static_cast<const int32_t*>(nbrs),
           static_cast<const int32_t*>(wl), static_cast<const int32_t*>(count),
@@ -655,24 +682,27 @@ int sliced_decide(void* t, const void* m, const void* active,
     const auto* ii = static_cast<const uint32_t*>(it);
     const auto s = static_cast<cudaStream_t>(stream);
     if (active == nullptr) {
-      launch_decide<true, false>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
-                                 kind, sr, s);
+      launch_decide<kSlab, false>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
+                                  kind, sr, nullptr, s);
     } else {
-      launch_decide<true, true>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
-                                kind, sr, s);
+      launch_decide<kSlab, true>(g, tt, mm, aa, nb, ww, cc, ii, r, w, d, b,
+                                 kind, sr, nullptr, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The unfused passes: `rows` the [W, D] copy, `count` its live rows (a
+// host value, passed where the other maps pass their row count)
 int refresh_columns(const void* t, const void* rows, void* out, int64_t w,
                     int d, int64_t count, void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    refresh_columns_kernel<<<blocks_for(w), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(t), static_cast<const int32_t*>(rows),
-        static_cast<uint32_t*>(out), w, d, count);
+    launch_refresh<kCopy, true, kXorshiftStar>(
+        group_lanes(d), static_cast<const uint32_t*>(t),
+        static_cast<uint32_t*>(out), static_cast<const int32_t*>(rows),
+        nullptr, nullptr, nullptr, count, w, d, 0, nullptr,
+        static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -682,11 +712,12 @@ int decide(const void* t_rows, const void* m, const void* active,
            void* stream) {
   using namespace repro_torch;
   if (w > 0) {
-    decide_kernel<<<blocks_for(w), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(t_rows), static_cast<const uint32_t*>(m),
-        static_cast<const uint8_t*>(active), static_cast<const int32_t*>(rows),
-        static_cast<uint32_t*>(out), w, d, count);
+    launch_decide<kCopy, true>(
+        group_lanes(d), static_cast<uint32_t*>(out),
+        static_cast<const uint32_t*>(m), static_cast<const uint8_t*>(active),
+        static_cast<const int32_t*>(rows), nullptr, nullptr, nullptr, count,
+        w, d, 0, 0, nullptr, static_cast<const uint32_t*>(t_rows),
+        static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

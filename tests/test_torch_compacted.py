@@ -59,7 +59,9 @@ def _u32(x: torch.Tensor) -> np.ndarray:
 
 def _rows_inputs(v: int, deg: float, seed: int, count_frac: float):
     """Pre-gathered rows of a pow2-padded worklist (sentinel slots gather
-    row V-1, as the drivers' clamp does), random T / M / active."""
+    row V-1, as the drivers' clamp does), random T / M / active.  The
+    worklist holds ``max(1, min(V, V * count_frac))`` rows; the count
+    passed is ``V * count_frac``: 0, or past the worklist's end at 2.0."""
     ell = ref_csr.csr_to_ell_graph(ref_gen.random_uniform_graph(v, deg,
                                                                 seed=seed))
     nbrs = np.array(ell.neighbors)
@@ -70,16 +72,19 @@ def _rows_inputs(v: int, deg: float, seed: int, count_frac: float):
     m = rng.integers(0, 2**32, size=v, dtype=np.uint32)
     m[rng.random(v) < 0.2] = OUT
     active = rng.random(v) < 0.9
-    count = max(1, int(v * count_frac))
-    w = 1 << (count - 1).bit_length()
+    count = int(v * count_frac)
+    live = max(1, min(v, count))
+    w = 1 << (live - 1).bit_length()
     wl = np.full(w, v, dtype=np.int32)
-    wl[:count] = rng.permutation(v)[:count]
+    wl[:live] = rng.permutation(v)[:live]
     rows = np.clip(wl, 0, v - 1)
     return nbrs[rows], t, m, active, rows, count
 
 
 @pytest.mark.parametrize("v,deg,seed,count_frac", [(257, 4.0, 0, 0.1),
-                                                   (1024, 8.0, 1, 1.0)])
+                                                   (1024, 8.0, 1, 1.0),
+                                                   (300, 6.0, 3, 0.0),
+                                                   (300, 6.0, 3, 2.0)])
 def test_refresh_columns_twin_matches_reference_oracle(v, deg, seed,
                                                        count_frac):
     wl_nbrs, t, _, _, _, count = _rows_inputs(v, deg, seed, count_frac)
@@ -90,7 +95,9 @@ def test_refresh_columns_twin_matches_reference_oracle(v, deg, seed,
 
 
 @pytest.mark.parametrize("v,deg,seed,count_frac", [(333, 12.0, 2, 0.5),
-                                                   (1024, 8.0, 1, 1.0)])
+                                                   (1024, 8.0, 1, 1.0),
+                                                   (300, 6.0, 3, 0.0),
+                                                   (300, 6.0, 3, 2.0)])
 def test_decide_twin_matches_reference_oracle(v, deg, seed, count_frac):
     wl_nbrs, t, m, active, rows, count = _rows_inputs(v, deg, seed,
                                                       count_frac)

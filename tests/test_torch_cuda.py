@@ -10,7 +10,8 @@ hybrid slabs and drive the hybrid path (``cuda_hybrid``, hybrid
 coarsening, ``luby_hybrid``) on ``powerlaw_graph(900, 8.0, seed=4)``
 against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.  The
 slice-4 cases hold the unfused ``refresh_columns`` / ``decide`` kernels
-against their twins on pre-gathered rows and drive the host-driven
+against their twins on pre-gathered rows (at every group shape of the
+fused kernels and at the worklist's edges) and drive the host-driven
 ``cuda_compacted`` engine against the plain ``compacted`` one.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
@@ -606,9 +607,56 @@ def _rows_state(name: str, device, seed: int):
                 count=count)
 
 
-@pytest.mark.parametrize("name", list(ROWS))
+# the unfused kernels at every group shape of the fused ones (G = 1 with
+# the rows staged in shared memory, up to 32 lanes, several chunks a lane
+# at D = 600), over W = FUSED_V slots (not a multiple of a warp's 32 or a
+# block's 256); and at the edges, at D = 7 (staged) and 81 (8 lanes):
+# (slots W, live count, active share, every M OUT)
+UNFUSED_EDGES = {"count-0": (FUSED_V, 0, 0.9, False),
+                 "count-w": (FUSED_V, FUSED_V, 0.9, False),
+                 "count-past-w": (700, FUSED_V, 0.9, False),
+                 "w-300": (300, 77, 0.9, False),
+                 "inactive": (FUSED_V, 800, 0.0, False),
+                 "m-out": (FUSED_V, 800, 0.9, True)}
+UNFUSED_CASES = (list(ROWS) + [f"width-{d}" for d in FUSED_WIDTHS]
+                 + [f"{e}@{d}" for e in UNFUSED_EDGES for d in (7, 81)])
+
+
+def _unfused_case(name: str, device, seed: int):
+    """A case of ``UNFUSED_CASES`` on a random circulant graph of FUSED_V
+    vertices: T with IN, OUT and undecided words; M the twin's refresh of
+    every row with a twentieth made OUT, so that decide makes rows IN and
+    OUT and leaves tuples; rows of a random worklist, the first ``count``
+    live."""
+    if name.startswith("width-"):
+        d, edge = int(name[6:]), (FUSED_V, int(FUSED_V * 0.6), 0.9, False)
+    else:
+        case, d = name.split("@")
+        d, edge = int(d), UNFUSED_EDGES[case]
+    w, count, act, m_out = edge
+    v = FUSED_V
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, 2**32 - 1, size=v, dtype=np.uint32)
+    t[rng.random(v) < 0.03] = 0
+    t[rng.random(v) < 0.1] = 0xFFFFFFFF
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    nbrs = to(_sym_ell(v, d, rng))
+    tt = to(t.view(np.int32))
+    m = ref.refresh_columns_ref(torch.where(tt == 0, -1, tt), nbrs, v)
+    m[to(rng.random(v) < 0.05)] = -1
+    if m_out:
+        m.fill_(-1)
+    rows = to(rng.integers(0, v, size=w))
+    return dict(t=tt, m=m, active=to(rng.random(v) < act),
+                wl_nbrs=nbrs[rows].contiguous(), rows=rows, count=count)
+
+
+@pytest.mark.parametrize("name", UNFUSED_CASES)
 def test_unfused_kernels_match_twins(cuda_device, name):
-    x = _rows_state(name, cuda_device, seed=len(name))
+    if name in ROWS:
+        x = _rows_state(name, cuda_device, seed=len(name))
+    else:
+        x = _unfused_case(name, cuda_device, seed=len(name))
     before = dict(ops.LAUNCHES)
     mk = ops.refresh_columns_rows(x["t"], x["wl_nbrs"], x["count"])
     t_rows = x["t"][x["rows"]].contiguous()
@@ -623,6 +671,18 @@ def test_unfused_kernels_match_twins(cuda_device, name):
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
         "refresh_columns": 1, "decide": 1}
+    live = min(x["count"], t_rows.shape[0])
+    und = (t_rows[:live] != 0) & (t_rows[:live] != -1)
+    if live == 0:
+        assert (mk == -1).all() and torch.equal(tk, t_rows)
+    elif name.startswith("inactive"):
+        assert (tk[:live][und] == 0).all()              # all IN
+    elif name.startswith("m-out"):
+        assert (tk[:live][und] == -1).all()             # all OUT
+    elif name not in ROWS:
+        assert ((tk == -1) & (t_rows != -1)).any()      # new OUT
+        if x["wl_nbrs"].shape[1] <= 17:                 # wider: too few
+            assert ((tk == 0) & (t_rows != 0)).any()    # new IN
 
 
 @pytest.mark.parametrize("worklists", [True, False])

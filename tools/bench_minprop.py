@@ -41,15 +41,27 @@ builds taken in turns and then again in reverse order):
   gathering M and the mask (``gated``) or, where it takes a null mask, one
   word (``ungated``: M, or on the masked solve the word ``active ? M :
   IN``, whose plain-torch ``where`` is timed apart as ``mask``).  ``refresh_total`` sums a whole solve's refresh for each
-  width from which the slabs read the hashed tuples (``inline``: none).
+  width from which the slabs read the hashed tuples (``inline``: none);
+- on Laplace3D_100 and Elasticity3D_60, also the unfused passes of the
+  host-driven round (``refresh_columns`` / ``decide``, one JSON line a
+  graph with ``"unfused": true``): at round 0 as ``chip_smoke.py`` times
+  it (every row live in a pow2 bucket), under the 256 MB write flush and
+  under a 256 MB read flush (``*_read_flush``), and over every round of a
+  ``cuda_compacted`` ``mis2`` and of the ``coarsen(method="two_phase",
+  mis2_engine="cuda_compacted")`` MIS-2 solves, each launch's inputs
+  recorded from a run of the port and each build held bit for bit against
+  the twins on them.
 
 ``--sass`` prints the SASS of the default build's per-vertex hash pass
 (``refreshed_tuples_kernel``, xorshift64*) and of ``hash_pack_kernel``, with
 their instruction counts, from ``cuobjdump -sass``; given a baseline, it
 also says which of the baseline's kernels compiled to the same
-instructions in the default build (whatever their names).  Prints one
-JSON line per build (``ptxas`` registers) and per graph or solve, and the
-card's ``nvidia-smi`` name and power limit.
+instructions in the default build (whatever their names), and whether
+every fused and sliced instance (``*group_kernel*``) did.  ``--variant
+staged`` builds the unfused passes with a warp's rows staged in shared
+memory at one lane a row (``EDITS["staged"]``; the source loads them
+directly).  Prints one JSON line per build (``ptxas`` registers) and per
+graph or solve, and the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -71,7 +83,8 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
 ENTRIES = ("fused_refresh_columns", "fused_decide", "refreshed_tuples",
-           "sliced_refresh_columns", "sliced_decide")
+           "sliced_refresh_columns", "sliced_decide", "refresh_columns",
+           "decide")
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -131,25 +144,120 @@ EDITS = {
 
 // `active` null: a neighbour is active where its M is not IN""")],
 }
-# the same questions asked of the source before the sliced passes were
-# redesigned (one thread per slab row, the hash inline per neighbour slot)
+# staged: the unfused passes at one lane a row (G = 1) stage a warp's 32
+# consecutive rows of the copy in shared memory (16-byte loads where
+# aligned, an odd row stride) before each lane gathers its row's words, at
+# kMinBlocksStaged blocks an SM (at 8 the staged instances spill)
+_STAGE_HELPERS = """
+// whether a pass stages its warp's rows in shared memory: a copy at G = 1
+template <int Map, int G>
+constexpr bool kStaged = Map == kCopy && G == 1;
+
+// A warp's region of the shared stage: 32 rows of at most C + 1 words
+template <int C>
+__device__ __forceinline__ int32_t* warp_stage() {
+  __shared__ __align__(16) int32_t stage[kThreads / 32][32 * (C + 1)];
+  return stage[threadIdx.x >> 5];
+}
+
+// Rows base .. base + 31 of a copy, those below `live`, into the warp's
+// region at the odd row stride d | 1: 16-byte loads of the span where it
+// is aligned (it starts at a multiple of 32 rows), stored as they came at
+// an odd d; 4-byte ones for the rest.  Returns the region once every
+// lane's words are in.
+template <int C>
+__device__ __forceinline__ const int32_t* stage_rows(
+    const int32_t* __restrict__ nbrs, int64_t base, int64_t live, int d,
+    int lane) {
+  int32_t* st = warp_stage<C>();
+  const int64_t end = base + 32 < live ? base + 32 : live;
+  const int words = end > base ? static_cast<int>(end - base) * d : 0;
+  const int32_t* src = nbrs + base * d;
+  const bool pad = (d & 1) == 0;
+  __syncwarp();                    // the last batch's rows are read
+  int k = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4* src4 = reinterpret_cast<const int4*>(src);
+    const int quads = words >> 2;
+    if (pad) {
+      for (int q = lane; q < quads; q += 32) {
+        const int4 x = src4[q];
+        const int32_t v4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * q + e;
+          st[j + j / d] = v4[e];
+        }
+      }
+    } else {
+      int4* st4 = reinterpret_cast<int4*>(st);
+      for (int q = lane; q < quads; q += 32) st4[q] = src4[q];
+    }
+    k = quads * 4;
+  }
+  for (int j = k + lane; j < words; j += 32) {
+    st[j + (pad ? j / d : 0)] = src[j];
+  }
+  __syncwarp();
+  return st;
+}
+
+// load_ids of a lane's own staged row (G = 1): slots k0 .. k0 + C - 1
+template <int C>
+__device__ __forceinline__ void load_staged_ids(int32_t (&nb)[C],
+                                                const int32_t* st, int32_t r,
+                                                int k0, int lane, int d) {
+  const int at = lane * (d | 1);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = k0 + c;
+    nb[c] = r >= 0 && j < d ? st[at + j] : -1;
+  }
+}
+
+"""
+_LOAD = "        load_ids<G, C>(nb, nbrs, r, k0, sub, d);\n"
+_STAGED_LOAD = """        if constexpr (kStaged<Map, G>) {
+          load_staged_ids<C>(nb, st, r, k0, lane, d);
+        } else {
+          load_ids<G, C>(nb, nbrs, r, k0, sub, d);
+        }
+"""
+_STAGE = """    const int32_t* st = nullptr;
+    if constexpr (kStaged<Map, G>) {
+      st = stage_rows<C>(nbrs, base, rows < n ? rows : n, d, lane);
+    }
+"""
+EDITS["staged"] = [
+    ("    nb[c] = r >= 0 && j < d ? nbrs[static_cast<int64_t>(r) * d + j] : -1;"
+     "\n  }\n}\n",
+     "    nb[c] = r >= 0 && j < d ? nbrs[static_cast<int64_t>(r) * d + j] : -1;"
+     "\n  }\n}\n" + _STAGE_HELPERS),
+    ("constexpr int kMinBlocksWide = 4;\n\ntemplate <int C>\n"
+     "constexpr int min_blocks() {\n  return C > 8 ? kMinBlocksWide : "
+     "kMinBlocks;\n}",
+     "constexpr int kMinBlocksWide = 4;\nconstexpr int kMinBlocksStaged = 4;"
+     "\n\ntemplate <int C, bool kStage = false>\nconstexpr int min_blocks() {"
+     "\n  return kStage ? kMinBlocksStaged : C > 8 ? kMinBlocksWide : "
+     "kMinBlocks;\n}"),
+    ("min_blocks<C>()", "min_blocks<C, kStaged<Map, G>>()"),
+    ("    uint32_t res = kOut;\n    for (int s = 0;",
+     _STAGE + "    uint32_t res = kOut;\n    for (int s = 0;"),
+    ("    uint32_t res = 0;\n    for (int s = 0;",
+     _STAGE + "    uint32_t res = 0;\n    for (int s = 0;"),
+    (_LOAD, _STAGED_LOAD)]
+# the same questions asked of the source before the unfused passes were
+# redesigned (one thread a slot looping over its row of the copy)
 BASELINE_PROBES = {
-    "baseline_probe_no_hash": [
-        ("refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b)", "t[nb]")],
-    "baseline_probe_no_gather": [
-        ("refresh(t[nb], static_cast<uint32_t>(nb), kind, it, b)",
-         "refresh(1u, static_cast<uint32_t>(nb), kind, it, b)")],
+    "baseline_probe_no_t_gather": [("const uint32_t tv = t[r[j]];",
+                                    "const uint32_t tv = r[j];")],
     "baseline_probe_no_active": [("    if (!active[nb]) continue;\n", "")],
     "baseline_probe_no_m": [("const uint32_t mv = m[nb];",
                              "const uint32_t mv = static_cast<uint32_t>(nb);")],
     "baseline_probe_no_early_return": [
-        ("    if (mv == kOut) {\n      t[row] = kOut;\n      return;\n    }\n"
+        ("    if (mv == kOut) {\n      out[i] = kOut;\n      return;\n    }\n"
          "    all_eq = all_eq && mv == tv;",
          "    all_eq = all_eq && mv == tv && mv != kOut;")],
-    "baseline_probe_no_slab_rows": [
-        ("m[slab_rows[local]] = refreshed_min(", "m[local] = refreshed_min("),
-        ("             slab_rows[local], d, kind, *it_ptr, b);",
-         "             local, d, kind, *it_ptr, b);")],
 }
 
 
@@ -210,8 +318,8 @@ def _registers(log: str) -> dict:
         if m:
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
-        if m and fn and re.search("group|fused|sliced|refreshed_tuples",
-                                  fn):
+        if m and fn and re.search("group|fused|sliced|refreshed_tuples|"
+                                  "columns_kernel|decide_kernel", fn):
             key = _short(fn)
             out[key] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -287,9 +395,12 @@ def _sass(baseline: bool) -> None:
         old = _functions(tool, OUT / "baseline.so")
         bodies = {tuple(v) for v in new.values()}
         same = sorted(k for k, v in old.items() if tuple(v) in bodies)
+        group = [k for k in old if "group_kernel" in k]
         print(json.dumps({"sass_same_in_default": same,
-                          "sass_not_in_default": sorted(set(old) - set(same))
-                          }), flush=True)
+                          "sass_not_in_default": sorted(set(old) - set(same)),
+                          "group_instances_unchanged": all(
+                              k in same for k in group),
+                          "group_instances": len(group)}), flush=True)
 
 
 def _round0(torch, ell, id_bits):
@@ -674,6 +785,155 @@ def _bench_hybrid(torch, rt, fns, names, probes, args) -> None:
         del rounds
 
 
+def _unfused_round0(torch, ell, b: int) -> dict:
+    """The host-driven round 0 as ``chip_smoke.py`` times it: every row
+    live in a pow2 bucket (dead slots gathering row V-1), T after the row
+    refresh, M after the column refresh, every vertex active."""
+    from repro_torch.core.hashing import PRIORITY_FNS
+    from repro_torch.core.tuples import narrow, pack
+    from repro_torch.kernels.minprop_ell import ref
+
+    v, _ = ell.neighbors.shape
+    dev = ell.neighbors.device
+    w = 1 << (v - 1).bit_length()
+    rows = torch.arange(w, device=dev).clamp(max=v - 1)
+    wl_nbrs = ell.neighbors[rows].contiguous()
+    vids = torch.arange(v, device=dev)
+    t = narrow(pack(PRIORITY_FNS["xorshift_star"](0, vids), vids, b))
+    m = ref.refresh_columns_ref(t, wl_nbrs, v)[:v].contiguous()
+    return dict(t=t, r_rows=wl_nbrs, r_count=v, t_rows=t[rows].contiguous(),
+                m=m, active=torch.ones(v, dtype=torch.bool, device=dev),
+                d_rows=wl_nbrs, d_count=v)
+
+
+def _capture_unfused(torch, run) -> list[dict]:
+    """The inputs of every unfused launch of ``run()`` (host-driven solves
+    on the card), one record a round, with the twins' outputs on them."""
+    from repro_torch.kernels.minprop_ell import ops, ref
+
+    rounds = []
+    refresh, decide = ops.refresh_columns_rows, ops.decide_rows
+
+    def rec_refresh(t, wl_neighbors, count):
+        rounds.append(dict(t=t.clone(), r_rows=wl_neighbors, r_count=count))
+        return refresh(t, wl_neighbors, count)
+
+    def rec_decide(t_rows, m, active, wl_neighbors, count):
+        rounds[-1].update(t_rows=t_rows.clone(), m=m.clone(),
+                          active=active.clone(), d_rows=wl_neighbors,
+                          d_count=count)
+        return decide(t_rows, m, active, wl_neighbors, count)
+
+    ops.refresh_columns_rows, ops.decide_rows = rec_refresh, rec_decide
+    try:
+        run()
+    finally:
+        ops.refresh_columns_rows, ops.decide_rows = refresh, decide
+    for r in rounds:
+        _unfused_want(ref, r)
+    return rounds
+
+
+def _unfused_want(ref, r: dict) -> None:
+    r["m_want"] = ref.refresh_columns_ref(r["t"], r["r_rows"], r["r_count"])
+    r["t_want"] = ref.decide_ref(r["t_rows"], r["m"], r["active"],
+                                 r["d_rows"], r["d_count"])
+
+
+def _unfused_calls(torch, fns, k: str, r: dict):
+    """(refresh, decide) launches of build ``k`` on round ``r``, each
+    writing a fresh output; returns them with the outputs."""
+    stream = torch.cuda.current_stream().cuda_stream
+    fr, fd = fns[k]["refresh_columns"][0], fns[k]["decide"][0]
+    (wr, dr), (wd, dd) = r["r_rows"].shape, r["d_rows"].shape
+    m_out = torch.empty(wr, dtype=torch.int32, device="cuda")
+    t_out = torch.empty(wd, dtype=torch.int32, device="cuda")
+
+    def refresh():
+        return fr(r["t"].data_ptr(), r["r_rows"].data_ptr(),
+                  m_out.data_ptr(), wr, dr, r["r_count"], stream)
+
+    def decide():
+        return fd(r["t_rows"].data_ptr(), r["m"].data_ptr(),
+                  r["active"].data_ptr(), r["d_rows"].data_ptr(),
+                  t_out.data_ptr(), wd, dd, r["d_count"], stream)
+    return refresh, decide, m_out, t_out
+
+
+def _held(torch, fns, k: str, r: dict, where: str, checked: bool):
+    """Build ``k``'s launches on round ``r``, run once and held bit for bit
+    against the twins (unless ``checked`` is false: a probe)."""
+    refresh, decide, m_out, t_out = _unfused_calls(torch, fns, k, r)
+    if refresh() != 0 or decide() != 0:
+        raise SystemExit(f"{k}: unfused launch failed at {where}")
+    torch.cuda.synchronize()
+    if checked and not (torch.equal(m_out, r["m_want"])
+                        and torch.equal(t_out, r["t_want"])):
+        raise SystemExit(f"{k}: unfused passes not bitwise equal to the "
+                         f"twins at {where}")
+    return refresh, decide
+
+
+def _bench_unfused(torch, rt, fns, names, probes, label: str, args) -> None:
+    """The unfused passes on one paper graph: round 0 under both flushes,
+    and every round of the host-driven ``mis2`` and coarsening solves."""
+    from repro_torch.core.tuples import id_bits
+    from repro_torch.kernels.minprop_ell import ref
+
+    kind, gen_args, kw = GRAPHS[label]
+    g = rt.Graph(getattr(rt.graphs, kind)(*gen_args, **kw), device="cuda")
+    ell = g.ell
+    v, d = ell.neighbors.shape
+    r0 = _unfused_round0(torch, ell, id_bits(v))
+    _unfused_want(ref, r0)
+    solves = {
+        "mis2": _capture_unfused(
+            torch, lambda: rt.mis2(g, engine="cuda_compacted")),
+        "coarsen": _capture_unfused(
+            torch, lambda: rt.coarsen(g, method="two_phase",
+                                      mis2_engine="cuda_compacted"))}
+    rec = {"graph": label, "unfused": True, "V": v, "D": d,
+           "W_round0": r0["r_rows"].shape[0],
+           "rounds": {s: len(rs) for s, rs in solves.items()},
+           "live": {s: {"refresh": [[r["r_rows"].shape[0], r["r_count"]]
+                                    for r in rs],
+                        "decide": [[r["d_rows"].shape[0], r["d_count"]]
+                                   for r in rs]}
+                    for s, rs in solves.items()}}
+    names = [k for k in names if "decide" in fns[k]]
+    res = {k: {"round0": {}, **{s: {"refresh": [], "decide": []}
+                                for s in solves}} for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            checked = k not in probes
+            refresh, decide = _held(torch, fns, k, r0, "round 0", checked)
+            for which, fn in (("refresh", refresh), ("decide", decide)):
+                _event_ms(torch, fn, 3)
+                for suffix, clean in (("", False), ("_read_flush", True)):
+                    res[k]["round0"].setdefault(which + suffix, []).append(
+                        _event_ms(torch, fn, args.reps, clean=clean))
+            for s, rs in solves.items():
+                per = {"refresh": [], "decide": []}
+                for i, r in enumerate(rs):
+                    refresh, decide = _held(torch, fns, k, r,
+                                            f"{s} round {i}", checked)
+                    per["refresh"].append(_event_ms(torch, refresh,
+                                                    args.solve_reps))
+                    per["decide"].append(_event_ms(torch, decide,
+                                                   args.solve_reps))
+                for which, times in per.items():
+                    res[k][s][which].append(times)
+    rec["ms_round0"] = {k: x["round0"] for k, x in res.items()}
+    rec["ms_solve"] = {s: {k: {w: [sum(ts) for ts in x[s][w]]
+                               for w in ("refresh", "decide")}
+                           for k, x in res.items()} for s in solves}
+    rec["ms_solve_by_round"] = {s: {k: {w: x[s][w][0]
+                                        for w in ("refresh", "decide")}
+                                    for k, x in res.items()} for s in solves}
+    rec["bitwise"] = [k for k in names if k not in probes]
+    print(json.dumps(rec), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -724,6 +984,7 @@ def main() -> int:
             _bench_hybrid(torch, rt, fns, names, probes, args)
         else:
             _bench_ell(torch, rt, fns, names, probes, label, args)
+            _bench_unfused(torch, rt, fns, names, probes, label, args)
     print(smi, flush=True)
     return 0
 
