@@ -15,8 +15,9 @@ Phases (any failure raises, and the script exits non-zero):
    a mask, as the hybrid loop calls it for ``mis2``); the
    unfused passes over pre-gathered rows of a pow2-padded worklist at the
    two paper graphs' shapes (dead slots past ``count``); the ELL SpMV on
-   the three graphs' matrices and the hash-pack at V = 1M for three
-   rounds, two launches each, all bitwise;
+   the three graphs' matrices and the hash-pack at V = 1M in the TPU
+   kernel's form and in the coloring's (ids 0..V-1, int64 words) for
+   three rounds, two launches each, all bitwise;
 4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
    Elasticity3D_60 against the reference's digests, one launch of each
@@ -55,7 +56,9 @@ Phases (any failure raises, and the script exits non-zero):
 9. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside its bound (bytes, float32 flops or the integer
-   instructions of the §V-A hashes, whichever takes longest); the
+   instructions of the §V-A hashes, whichever takes longest; the
+   hash-pack's two forms also after a read flush, beside the event pair's
+   floor under each flush); the
    end-to-end wall times of ``mis2`` (``engine=None`` and the host-driven
    engines) / ``coarsen``
    (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
@@ -82,8 +85,9 @@ FP32_FLOP_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
 # SASS instructions of one §V-A tuple, the round's f(it + 1) hoisted: the
 # hashed branch of minprop_ell.cu's per-vertex pass, from id + 1 to the
-# packing (tools/bench_minprop.py --sass; hash_pack's, which also computes
-# f(it + 1), is 47)
+# packing (tools/bench_minprop.py --sass; hash_pack's step of 4 tuples,
+# f(it + 1) hoisted there too, takes 36 a tuple with its loads, stores and
+# index math, and round_priorities' 40)
 INSTR_PER_HASH = 33
 
 # the reference's anchors (the JAX package, compacted_resident engine)
@@ -343,16 +347,25 @@ def main() -> int:
             torch, ops, ref, f"Powerlaw_1M width {sl.width}", state, args,
             id_bits(pl.num_vertices), rng, errs)
     vids = torch.arange(1_000_000, dtype=torch.int32, device=dev)
+    hb = id_bits(1_000_000)
     for rnd in range(3):
         itd = torch.tensor([rnd], dtype=torch.int32, device=dev)
-        h1 = hash_ops.hash_pack(vids, itd, id_bits(1_000_000))
-        h2 = hash_ops.hash_pack(vids, itd, id_bits(1_000_000))
-        hr = hash_ref.hash_pack_ref(vids, itd, id_bits(1_000_000))
-        torch.cuda.synchronize()
-        check(torch.equal(h1, h2) and torch.equal(h1, hr),
-              f"hash_pack != twin or not run-to-run equal (round {rnd})")
-        errs["hash_pack"] = max(errs["hash_pack"], _max_abs_err_u32(h1, hr))
-        checks += 1
+        # the TPU kernel's form (ids read, uint32 words) and the coloring's
+        # (ids 0..V-1, nothing read, words widened to int64)
+        for form, kernel, twin in (
+                ("hash_pack", lambda: hash_ops.hash_pack(vids, itd, hb),
+                 lambda: hash_ref.hash_pack_ref(vids, itd, hb)),
+                ("round_priorities",
+                 lambda: hash_ops.round_priorities(1_000_000, itd, hb),
+                 lambda: hash_ref.round_priorities_ref(1_000_000, itd, hb))):
+            h1, h2, hr = kernel(), kernel(), twin()
+            torch.cuda.synchronize()
+            check(torch.equal(h1, h2) and torch.equal(h1, hr),
+                  f"hash_pack ({form}) != twin or not run-to-run equal "
+                  f"(round {rnd})")
+            errs["hash_pack"] = max(errs["hash_pack"],
+                                    _max_abs_err_u32(h1, hr))
+            checks += 1
     emit({"phase": "kernels_vs_twins", "checks": checks, "max_abs_err": errs})
 
     # -- 4. the MIS-2 path -----------------------------------------------------
@@ -620,7 +633,8 @@ def main() -> int:
                          timing["Elasticity3D_60"]["fused_decide"]),
         "spmv": ("Laplace3D_100 A [1M, 7]", timing["Laplace3D_100"]["spmv"]),
         "spmv_t": ("Laplace3D_100 level-0 P", spmv_t_time),
-        "hash_pack": ("V = 1M", hash_time),
+        "hash_pack": ("V = 1M, the TPU kernel's form (ids read, uint32 "
+                      "words)", hash_time),
         **{k: ("Powerlaw_1M 8-wide slab round 0", sliced_time[8][k])
            for k in SLICED},
         **{k: ("Laplace3D_100 round 0", timing["Laplace3D_100"][k])
@@ -639,6 +653,10 @@ def main() -> int:
         }
         if k in ("fused_refresh_columns", "fused_decide", "spmv", *UNFUSED):
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
+        if k == "hash_pack":
+            entry.update(by_form=hash_time["by_form"],
+                         ms_read_flush=hash_time["ms_read_flush"],
+                         floor_ms=hash_time["floor_ms"])
         if k in SLICED:
             entry["by_slab"] = {f"width {w}": sliced_time[w][k]
                                 for w in TIMED_SLABS}
@@ -894,15 +912,37 @@ def _time_spmv_t(torch, lvl, r_ell, spmv_ops, spmv_ref, rng) -> dict:
         "nnz": nnz}
 
 
-def _time_hash_pack(torch, vids, hash_ops, hash_ref, id_bits) -> dict:
-    """One round's priorities of V ids: ids read, words written, V
-    hashes."""
+def _time_hash_pack(torch, vids, hash_ops, hash_ref, id_bits,
+                    reps: int = 50) -> dict:
+    """One round's priorities of V ids, V hashes, in two forms (under
+    ``by_form``): the TPU kernel's (``hash_pack``: ids read, uint32 words
+    written; the form ``replaces`` names, so the top-level numbers) and the
+    coloring's (``round_priorities``: nothing read, int64 words written),
+    each after the write flush (``ms``) and after the read flush
+    (``ms_read_flush``).  ``floor_ms``: one launch of a 1-element torch
+    ``add_`` timed the same way, the event pair's floor under each flush."""
     n = vids.shape[0]
     it = torch.ones(1, dtype=torch.int32, device=vids.device)
     b = id_bits(n)
-    return {**_timed(torch, lambda: hash_ops.hash_pack(vids, it, b),
-                     lambda: hash_ref.hash_pack_ref(vids, it, b), None,
-                     nbytes=8 * n + 4, hashes=n), "n": n}
+    forms = {
+        "hash_pack": (lambda: hash_ops.hash_pack(vids, it, b),
+                      lambda: hash_ref.hash_pack_ref(vids, it, b), 8 * n + 4),
+        "round_priorities": (lambda: hash_ops.round_priorities(n, it, b),
+                             lambda: hash_ref.round_priorities_ref(n, it, b),
+                             8 * n + 4),
+    }
+    by_form = {k: {**_timed(torch, kernel, twin, None, nbytes=nbytes,
+                            hashes=n, reps=reps),
+                   "ms_read_flush": _event_ms(torch, kernel, reps,
+                                              clean=True)}
+               for k, (kernel, twin, nbytes) in forms.items()}
+    one = torch.zeros(1, dtype=torch.int32, device=vids.device)
+    _event_ms(torch, lambda: one.add_(1), 3)                 # warm-up
+    floor = {"write_flush": _event_ms(torch, lambda: one.add_(1), reps),
+             "read_flush": _event_ms(torch, lambda: one.add_(1), reps,
+                                     clean=True)}
+    return {**by_form["hash_pack"], "n": n, "by_form": by_form,
+            "floor_ms": floor}
 
 
 def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,

@@ -7,7 +7,8 @@ same xorshift* packed priorities as MIS-2: in each round, every uncolored
 vertex whose priority is below that of every uncolored real neighbor picks
 its smallest color not taken by a colored neighbor (64-color forbidden
 mask).  The round's priorities come from the hash-pack kernel
-(``kernels.hash_priority``) with the round number on the device; the
+(``kernels.hash_priority.ops.round_priorities``: the ids 0..V-1 hashed,
+packed and widened in one launch) with the round number on the device; the
 rowwise round is plain torch over the ELL adjacency.  The loop reads one
 flag per round on the host to decide whether to go on (``host_syncs``).
 ``luby_hybrid`` runs the same rounds over the degree-aware hybrid layout
@@ -23,7 +24,7 @@ import torch
 from ..graphs.handle import as_graph
 from ..kernels.hash_priority import ops as hash_ops
 from ..kernels.minprop_ell.ops import segment_reduce
-from .tuples import U32_MASK, id_bits, widen
+from .tuples import U32_MASK, id_bits
 
 MAX_COLORS = 64
 MAX_ROUNDS_DEFAULT = 256
@@ -55,10 +56,10 @@ def _smallest_free_color(forb_lo: torch.Tensor,
     return torch.where(free_lo != 0, low_idx, high_idx).to(torch.int32)
 
 
-def _round_priorities(vids: torch.Tensor, rnd: torch.Tensor,
-                      b: int) -> torch.Tensor:
-    """Round ``rnd``'s packed priority of every vertex, widened."""
-    return widen(hash_ops.hash_pack(vids, rnd, b))
+def _round_priorities(v: int, rnd: torch.Tensor, b: int) -> torch.Tensor:
+    """Round ``rnd``'s packed priority of each of the ``v`` vertices,
+    widened: one launch of the hash-pack kernel, no ids read."""
+    return hash_ops.round_priorities(v, rnd, b)
 
 
 def _color_round_rows(neighbors, mask, row_ids, colors, prio):
@@ -90,7 +91,6 @@ def _luby_loop(v: int, dev, max_rounds: int, round_fn):
     one round); ``round_fn(colors, prio)`` is one round over every row.
     Returns ``(colors int32 [V], rounds, host_syncs)``."""
     b = id_bits(v)
-    vids = torch.arange(v, dtype=torch.int32, device=dev)
     colors = torch.full((v,), -1, dtype=torch.int32, device=dev)
     rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
     rnd = syncs = 0
@@ -101,7 +101,7 @@ def _luby_loop(v: int, dev, max_rounds: int, round_fn):
             syncs += 1
             if not bool((colors < 0).any()):    # the one host read a round
                 break
-        colors = round_fn(colors, _round_priorities(vids, rnd_dev, b))
+        colors = round_fn(colors, _round_priorities(v, rnd_dev, b))
         rnd_dev += 1
         rnd += 1
     return colors, rnd, syncs

@@ -36,11 +36,10 @@
 // L2 sector reads).  The §V-A refresh is integer work on top: a tuple is
 // two xorshift64* (64-bit shifts and xors of two 32-bit instructions
 // each, a 64-bit multiply) and the packing once the round's f(it + 1) is
-// hoisted, 33 SASS instructions (hash_pack, which also computes f(it + 1),
-// takes 47; tools/bench_minprop.py --sass).  The TPU kernels inline it per
-// neighbour slot, to keep a refreshed T out of HBM: D hashes per vertex a
-// round, V * D = 52.5M at Elasticity3D_60 round 0, about 100 us of this
-// card's integer issue against a 65 us bytes bound.
+// hoisted, 33 SASS instructions (tools/bench_minprop.py --sass).  The TPU
+// kernels inline it per neighbour slot, to keep a refreshed T out of HBM:
+// D hashes per vertex a round, V * D = 52.5M at Elasticity3D_60 round 0,
+// about 100 us of this card's integer issue against a 65 us bytes bound.
 //
 // The three share one body per pass (refresh_group_kernel,
 // decide_group_kernel) over a row map: a worklist entry is a row of the
@@ -119,18 +118,15 @@
 // round is enqueued before the first decide on the same stream.
 
 #include <cstdint>
-#include <mutex>
 #include <type_traits>
-#include <unordered_map>
 
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
 #include "hash.cuh"
 
 namespace repro_torch {
 namespace {
-
-constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
 // the round passes: a group of G lanes per worklist row
@@ -473,34 +469,6 @@ decide_group_kernel(
       if (row >= 0) t[Map == kSlab ? vid : row] = res;
     }
   }
-}
-
-// the blocks of `kernel` that fit on the current card at once, asked once
-template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-  static std::mutex mu;
-  static std::unordered_map<const void*, int> cache;
-  const void* key = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) return hit->second;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const int blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  cache.emplace(key, blocks);
-  return blocks;
-}
-
-// blocks for `slots` worklist slots or vertices, `per_block` of them a
-// block, at most the blocks that fit on the card (the rest are strided
-// over)
-template <typename Kernel>
-int grid_for(Kernel kernel, int64_t slots, int64_t per_block) {
-  const int64_t need = (slots + per_block - 1) / per_block;
-  const int fit = resident_blocks(kernel);
-  return need < fit ? static_cast<int>(need) : fit;
 }
 
 template <int N>

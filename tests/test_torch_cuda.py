@@ -389,6 +389,49 @@ def test_hash_pack_kernel_matches_twin_bitwise(cuda_device, it):
         assert torch.equal(got.cpu(), cpu)
 
 
+def _hash_forms(n: int, itd: torch.Tensor, b: int, offset: int):
+    """Each form of the hash-pack kernel -> (kernel call, its twin on the
+    same device): ``hash_pack`` with ids read from ``offset`` into a longer
+    tensor (off a 16-byte boundary unless ``offset`` is a multiple of 4),
+    and at ``offset`` 0 the coloring's ``round_priorities``."""
+    dev = itd.device
+    rng = np.random.default_rng(n + offset)
+    base = torch.from_numpy(rng.integers(0, 2**32, size=n + offset,
+                                         dtype=np.uint64).astype(
+        np.uint32).view(np.int32)).to(dev)
+    ids = base[offset:]
+    forms = {"hash_pack": (lambda: hash_ops.hash_pack(ids, itd, b),
+                           lambda: hash_ref.hash_pack_ref(ids, itd, b))}
+    if offset == 0:
+        forms["round_priorities"] = (
+            lambda: hash_ops.round_priorities(n, itd, b),
+            lambda: hash_ref.round_priorities_ref(n, itd, b))
+    return forms
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 100_003, 1_000_000])
+def test_hash_pack_forms_match_twins_bitwise(cuda_device, n, offset):
+    """Both forms, bitwise equal to their twins and run-to-run equal, at
+    the vector path's edges (steps and the scalar rest) and with ids one to
+    three elements off their tensor's start (every id scalar)."""
+    for it in (0, 7, 2**31 - 1):
+        itd = torch.tensor([it], dtype=torch.int32, device=cuda_device)
+        for b in (1, 17, 31):
+            for form, (kernel, twin) in _hash_forms(n, itd, b,
+                                                    offset).items():
+                before = hash_ops.LAUNCHES["hash_pack"]
+                got, again, want = kernel(), kernel(), twin()
+                torch.cuda.synchronize()
+                assert hash_ops.LAUNCHES["hash_pack"] - before == (
+                    2 if n else 0), form
+                assert got.device == itd.device and got.shape == (n,), form
+                assert got.dtype == (torch.int64 if form == "round_priorities"
+                                     else torch.int32), form
+                assert torch.equal(got, want) and torch.equal(got, again), (
+                    form, it, b)
+
+
 @pytest.fixture
 def no_twins_on_cuda(monkeypatch):
     """Make every twin raise on a CUDA tensor for the test's duration."""
@@ -399,7 +442,7 @@ def no_twins_on_cuda(monkeypatch):
             return fn(*args, **kw)
         return wrapped
     for mod, names in ((spmv_ref, ("spmv_ref", "spmv_t_ref")),
-                       (hash_ref, ("hash_pack_ref",)),
+                       (hash_ref, ("hash_pack_ref", "round_priorities_ref")),
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
                               "sliced_decide_ref", "refresh_columns_ref",

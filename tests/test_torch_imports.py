@@ -16,7 +16,9 @@ import repro_torch as rt
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
-    ROOT / "tools" / "bench_spmv.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "tools" / "bench_spmv.py", ROOT / "tools" / "bench_minprop.py",
+    ROOT / "tools" / "bench_hash_pack.py",
+    ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 

@@ -53,15 +53,18 @@ builds taken in turns and then again in reverse order):
   the twins on them.
 
 ``--sass`` prints the SASS of the default build's per-vertex hash pass
-(``refreshed_tuples_kernel``, xorshift64*) and of ``hash_pack_kernel``, with
-their instruction counts, from ``cuobjdump -sass``; given a baseline, it
+(``refreshed_tuples_kernel``, xorshift64*) and of each form of
+``hash_pack_kernel``, with their instruction counts, from ``cuobjdump
+-sass``; given a baseline, it
 also says which of the baseline's kernels compiled to the same
 instructions in the default build (whatever their names), and whether
 every fused and sliced instance (``*group_kernel*``) did.  ``--variant
 staged`` builds the unfused passes with a warp's rows staged in shared
 memory at one lane a row (``EDITS["staged"]``; the source loads them
-directly).  Prints one JSON line per build (``ptxas`` registers) and per
-graph or solve, and the card's ``nvidia-smi`` name and power limit.
+directly).  ``--graphs`` with no name times nothing (with ``--sass``:
+the SASS check alone).  Prints one JSON line per build (``ptxas``
+registers) and per graph or solve, and the card's ``nvidia-smi`` name and
+power limit.
 """
 from __future__ import annotations
 
@@ -400,7 +403,9 @@ def _sass(baseline: bool) -> None:
                           "sass_not_in_default": sorted(set(old) - set(same)),
                           "group_instances_unchanged": all(
                               k in same for k in group),
-                          "group_instances": len(group)}), flush=True)
+                          "group_instances": len(group),
+                          "every_instance_unchanged": len(same) == len(old),
+                          "instances": len(old)}), flush=True)
 
 
 def _round0(torch, ell, id_bits):
@@ -946,7 +951,7 @@ def main() -> int:
     ap.add_argument("--probes", nargs="*", default=None,
                     help="all probes, or the named ones")
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--graphs", nargs="+", default=list(GRAPHS),
+    ap.add_argument("--graphs", nargs="*", default=list(GRAPHS),
                     choices=list(GRAPHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -22,7 +22,11 @@ port's ``csrc/``), the summed device time,
 the unprofiled wall time and the device's idle share of it.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``coarsen_basic``, ``color``),
-and skips the setups of the others.
+and skips the setups of the others.  The coloring's per-round priorities
+(``repro_torch.core.coloring._round_priorities``) run inside a profiler
+range, ``hash_step``: a traced call that colors reports its rounds and the
+device time and kernel launches of that step a round (the hash-pack
+kernel's apart too).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Elasticity3D_60": ("elasticity3d", (60,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
+HASH_STEP = "hash_step"
+HASH_KERNEL = "hash_pack_kernel"
 
 
 def _wall_ms(torch, call, reps: int = 5) -> list[float]:
@@ -63,6 +69,49 @@ def _device_us(e) -> float:
                  or getattr(e, "self_cuda_time_total", 0.0))
 
 
+def _range_hash_step(torch) -> None:
+    """Run the coloring's per-round priorities inside a ``HASH_STEP``
+    profiler range."""
+    from repro_torch.core import coloring
+
+    step = coloring._round_priorities
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(HASH_STEP):
+            return step(*args, **kw)
+
+    coloring._round_priorities = ranged
+
+
+def _hash_step(prof) -> dict | None:
+    """The traced call's ``HASH_STEP`` ranges: rounds, and the device time
+    and kernels of the step a round.  The profiler links the kernels that
+    torch operators launch to the range, but not the hash-pack kernel,
+    which ctypes launches: those are counted by name over the whole trace
+    (only the step launches them), and left out of the range's sum where
+    the profiler did link one."""
+    from torch.autograd import DeviceType
+
+    def kernels(e) -> list:
+        return e.kernels + [k for c in e.cpu_children for k in kernels(c)]
+
+    steps = [e for e in prof.events()
+             if e.name == HASH_STEP and e.device_type == DeviceType.CPU]
+    if not steps:
+        return None
+    torch_ops = [k for e in steps for k in kernels(e)
+                 if HASH_KERNEL not in k.name]
+    hashes = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and HASH_KERNEL in e.name]
+    n = len(steps)
+    return {"rounds": n,
+            "device_us_a_round": (sum(k.duration for k in torch_ops)
+                                  + sum(hashes)) / n,
+            "launches_a_round": (len(torch_ops) + len(hashes)) / n,
+            "hash_pack_us_a_round": sum(hashes) / n,
+            "hash_pack_launches_a_round": len(hashes) / n}
+
+
 def profile_call(torch, call, top: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -72,11 +121,13 @@ def profile_call(torch, call, top: int = 10) -> dict:
         call()
         torch.cuda.synchronize()
     rows = sorted(((e.key, _device_us(e), e.count)
-                   for e in prof.key_averages() if _device_us(e) > 0),
+                   for e in prof.key_averages()
+                   if _device_us(e) > 0 and e.key != HASH_STEP),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) / 1e3
     wall_ms = walls[len(walls) // 2]
     return {"wall_ms": walls, "device_ms": device_ms,
+            "hash_step": _hash_step(prof),
             "device_events": sum(r[2] for r in rows),
             "idle_share": 1.0 - device_ms / wall_ms if rows else None,
             "kernels": [{"name": k[:96], "device_ms": us / 1e3, "count": n}
@@ -113,6 +164,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
+
+    _range_hash_step(torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
