@@ -15,26 +15,38 @@ Phases (any failure raises, and the script exits non-zero):
    a mask, as the hybrid loop calls it for ``mis2``); the
    unfused passes over pre-gathered rows of a pow2-padded worklist at the
    two paper graphs' shapes (dead slots past ``count``); the ELL SpMV on
-   the three graphs' matrices and the hash-pack at V = 1M in the TPU
+   the three graphs' matrices, the hash-pack at V = 1M in the TPU
    kernel's form and in the coloring's (ids 0..V-1, int64 words) for
-   three rounds, two launches each, all bitwise;
+   three rounds, two launches each, and the run-sum kernel on the
+   Laplace3D_100 level-0 Galerkin stage-2 stream and on a stream of long
+   runs, two launches each, all bitwise;
 4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
    Elasticity3D_60 against the reference's digests, one launch of each
    fused kernel per MIS-2 round, the ``dense`` engine's equal digest;
-5. the AMG path on Laplace3D_100: ``amg_setup`` (host engine, two-phase
-   aggregation) with explicit R and matrix-free, level sizes and digests
-   against the reference's, AMG-preconditioned CG (tol 1e-6, float32
-   coarse LU on the card) within one iteration of the reference, and the
-   SpMV / transposed-SpMV launches one V-cycle issues times the cycles; the
-   transposed SpMV on level 0's P then against its twin and against the
-   SpMV of the explicit R, bitwise;
-6. the cluster-GS path: ``cluster_gs_setup`` on Elasticity3D_60 and
-   Laplace3D_100 (labels and coarse-coloring digests against the
-   reference's), GS-preconditioned CG on both (tol 1e-6, ``b =
-   default_rng(0).standard_normal(V)``, one SpMV launch per iteration plus
-   one) within one iteration of the reference's, ``color(laplace3d(8))``,
-   and one hash-pack launch per Luby round;
+5. the AMG path on Laplace3D_100: ``amg_setup`` with ``engine=None``
+   (the ``resident`` engine: the per-level setup on the card, two-phase
+   aggregation) with explicit R and matrix-free, and the ``host`` engine
+   with explicit R as the same-call baseline: level sizes and digests
+   against the reference's, the two engines' P, R and diagonals equal,
+   three run-sum launches a resident level (the prolongator's A P0 and
+   the Galerkin product's two stages), AMG-preconditioned CG (tol 1e-6,
+   float32 coarse LU on the card) within one iteration of the reference,
+   and the SpMV / transposed-SpMV launches one V-cycle issues times the
+   cycles; the device-to-host copies inside a traced resident setup's
+   prolongator, Galerkin and pack phases (``torch.profiler``), each a
+   shape scalar; the transposed SpMV on level 0's P then against its twin
+   and against the SpMV of the explicit R, bitwise;
+6. the cluster-GS path: ``cluster_gs_setup`` with ``engine=None`` (the
+   ``resident`` engine: coarse graph and packing on the card) on
+   Elasticity3D_60 and Laplace3D_100 (labels and coarse-coloring digests
+   against the reference's, the packed rows equal to the ``host``
+   engine's, set up in the same call), GS-preconditioned CG on both (tol
+   1e-6, ``b = default_rng(0).standard_normal(V)``, one SpMV launch per
+   iteration plus one) within one iteration of the reference's, the
+   device-to-host copies of a traced resident setup's coarse-graph and
+   pack phases, ``color(laplace3d(8))``, and one hash-pack launch per
+   Luby round;
 7. the hybrid path on Powerlaw_1M (``powerlaw_graph(1_000_000, 8.0,
    exponent=2.5, seed=42)``, whose padded ELL would take 120 GB): the
    graph digest and the layout, ``Graph.ell`` raising
@@ -62,8 +74,9 @@ Phases (any failure raises, and the script exits non-zero):
    end-to-end wall times of ``mis2`` (``engine=None`` and the host-driven
    engines) / ``coarsen``
    (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
-   of the setup phases, of one V-cycle, one GS apply on each paper graph
-   and each CG solve.
+   of the setup phases of both multilevel engines (and of the
+   Elasticity3D_60 cluster-GS setup's coarse graph, on each), of one
+   V-cycle, one GS apply on each paper graph and each CG solve.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -179,9 +192,17 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
                         "src/repro_torch/kernels/csrc/minprop_ell.cu"),
     "decide": ("src/repro/kernels/minprop_ell/kernel.py:445",
                "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    # no TPU kernel: the reference sums these runs with XLA's segment_sum
+    "run_sums": ("none (XLA segment_sum, src/repro/multilevel/galerkin.py:68)",
+                 "src/repro_torch/kernels/csrc/run_sums.cu"),
 }
 SLICED = ("sliced_refresh_columns", "sliced_decide")
 UNFUSED = ("refresh_columns", "decide")
+# run-sum launches a resident AMG level: A P0 and the two Galerkin stages
+RUN_SUMS_PER_LEVEL = 3
+# the largest device-to-host copy a resident setup phase may make: shape
+# scalars and per-color geometry, never a matrix
+SCALAR_COPY_BYTES = 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -229,10 +250,12 @@ def main() -> int:
     from repro_torch.kernels.hash_priority import ops as hash_ops
     from repro_torch.kernels.hash_priority import ref as hash_ref
     from repro_torch.kernels.minprop_ell import ops, ref
+    from repro_torch.kernels.run_sums import ops as run_ops
+    from repro_torch.kernels.run_sums import ref as run_ref
     from repro_torch.kernels.spmv_ell import ops as spmv_ops
     from repro_torch.kernels.spmv_ell import ref as spmv_ref
 
-    launches = Launches(ops, spmv_ops, hash_ops)
+    launches = Launches(ops, spmv_ops, hash_ops, run_ops)
     path_launches = {k: 0 for k in KERNELS}
 
     def add_path(counts: dict) -> None:
@@ -366,7 +389,27 @@ def main() -> int:
             errs["hash_pack"] = max(errs["hash_pack"],
                                     _max_abs_err_u32(h1, hr))
             checks += 1
-    emit({"phase": "kernels_vs_twins", "checks": checks, "max_abs_err": errs})
+    # the run-sum kernel on the stream of the L100 level-0 Galerkin product's
+    # stage 2 and on one of long runs: two launches each, twin, bitwise
+    stage2 = _stage2_stream(torch, rt, graphs["Laplace3D_100"])
+    streams = {"Laplace3D_100 level-0 stage 2": stage2,
+               "long runs": _long_run_stream(torch, np, dev)}
+    for what, stream in streams.items():
+        s1, s2 = run_ops.run_sums(*stream), run_ops.run_sums(*stream)
+        sr = run_ref.run_sums_ref(*stream)
+        torch.cuda.synchronize()
+        check(all(_same_bits(x, y) for x, y in zip(s1, s2)),
+              f"run_sums not run-to-run equal ({what})")
+        check(all(_same_bits(x, y) for x, y in zip(s1, sr)),
+              f"run_sums != twin ({what})")
+        check(bool(s1[2].any()), f"run_sums kept no run ({what})")
+        errs["run_sums"] = max(errs["run_sums"], _max_abs_err(s1[1], sr[1]))
+        checks += 1
+    emit({"phase": "kernels_vs_twins", "checks": checks, "max_abs_err": errs,
+          "run_sums_streams": {k: {"n": int(v[0].numel()),
+                                   "runs": int(v[2].numel())}
+                               for k, v in streams.items()}})
+    del streams
 
     # -- 4. the MIS-2 path -----------------------------------------------------
     launches.reset()
@@ -428,10 +471,19 @@ def main() -> int:
 
     launches.reset()
     amg = {}
-    for explicit in (True, False):
+    n_coarse = len(AMG_L100["levels"]) - 1
+    # engine=None takes resident on the card; host with R is the same-call
+    # baseline, held to the same anchors
+    for key, engine, explicit in (("R", None, True),
+                                  ("matrix_free", None, False),
+                                  ("host_R", "host", True)):
         before = launches.read()
-        s = rt.amg_setup(l100, aggregation="two_phase",
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        s = rt.amg_setup(l100, aggregation="two_phase", engine=engine,
                          explicit_restriction=explicit)
+        peak = torch.cuda.max_memory_allocated() - held
         mid = launches.read()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -439,20 +491,27 @@ def main() -> int:
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         after = launches.read()
-        key = "R" if explicit else "matrix_free"
-        check(s.engine == "host" and s.hierarchy.coarse_dtype == "float32"
+        want_engine = engine or "resident"
+        check(s.engine == want_engine
+              and s.hierarchy.coarse_dtype == "float32"
               and s.hierarchy.coarse_kind == "lu",
               f"AMG {key}: {s.engine} {s.hierarchy.coarse_dtype}")
         check(s.level_sizes == AMG_L100["levels"],
               f"AMG {key}: levels {s.level_sizes}")
         check(s.level_digests == AMG_L100["digests"],
               f"AMG {key}: digests {s.level_digests}")
+        resident = want_engine == "resident"
+        check(s.dispatches == (7 * n_coarse if resident else 0),
+              f"AMG {key}: {s.dispatches} stage calls")
+        got_runs = mid["run_sums"] - before["run_sums"]
+        check(got_runs == (RUN_SUMS_PER_LEVEL * n_coarse if resident else 0),
+              f"AMG {key}: run_sums launched {got_runs} times over "
+              f"{n_coarse} levels")
         check(res.converged, f"AMG {key}: CG did not converge")
         check(abs(res.iterations - AMG_L100["cg_iterations"]) <= 1,
               f"AMG {key}: CG {res.iterations} iterations, reference "
               f"{AMG_L100['cg_iterations']}")
         check(bool(np.isfinite(res.x).all()), f"AMG {key}: x not finite")
-        n_coarse = len(AMG_L100["levels"]) - 1
         cycles = res.iterations + 1
         want_spmv = cycles * (1 + n_coarse * (7 if explicit else 6))
         want_spmv_t = 0 if explicit else cycles * n_coarse
@@ -464,14 +523,34 @@ def main() -> int:
               f"{(want_spmv, want_spmv_t)}")
         check(mid["fused_decide"] - before["fused_decide"] > 0,
               f"AMG {key}: aggregation launched no MIS-2 kernel")
-        amg[key] = {"levels": s.level_sizes, "digests": s.level_digests,
-                    "setup_s": s.wall_time_s, "timings": s.timings,
-                    "cg_iterations": res.iterations,
+        amg[key] = {"engine": s.engine, "levels": s.level_sizes,
+                    "digests": s.level_digests, "dispatches": s.dispatches,
+                    "run_sums": got_runs, "setup_s": s.wall_time_s,
+                    "setup_peak_memory_bytes": peak,
+                    "timings": s.timings, "cg_iterations": res.iterations,
                     "residual": res.residual_norm, "solve_s": solve_s,
                     "spmv": got_spmv, "spmv_t": got_spmv_t, "setup": s}
     counts = launches.read()
     add_path(counts)
-    emit({"phase": "amg_path", "launches": counts,
+    check(counts["run_sums"] > 0, "run_sums never launched on the AMG path")
+    # the two engines' hierarchies, array for array
+    for lr, lh in zip(amg["R"]["setup"].hierarchy.levels,
+                      amg["host_R"]["setup"].hierarchy.levels):
+        pairs = [(lr.diag, lh.diag)] + [
+            (x, y) for m, n in ((lr.a_ell, lh.a_ell), (lr.p_ell, lh.p_ell),
+                                (lr.r_ell, lh.r_ell)) if m is not None
+            for x, y in zip(m, n)]
+        check(all(_same_bits(x, y) for x, y in pairs),
+              f"AMG level {lr.n}: resident and host arrays differ")
+    # device-to-host copies inside a traced resident setup's phases
+    traced, copies = _dtoh_in_phases(torch, lambda: rt.amg_setup(
+        l100, aggregation="two_phase"))
+    check(traced.level_digests == AMG_L100["digests"],
+          "AMG traced setup: digests")
+    _check_scalar_copies(copies, {"multilevel.prolongator",
+                                  "multilevel.galerkin", "multilevel.pack"},
+                         "AMG")
+    emit({"phase": "amg_path", "launches": counts, "dtoh": copies,
           **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
              for k, v in amg.items()}})
     # level 0's P: the transposed SpMV against its twin and the explicit R
@@ -495,22 +574,40 @@ def main() -> int:
 
     # -- 6. the cluster-GS path -------------------------------------------------
     launches.reset()
-    gs = {}
+    gs, gs_host = {}, {}
     for label, want in CLUSTER_GS.items():
-        before = launches.read()
-        c = rt.cluster_gs_setup(graphs[label], aggregation="two_phase")
-        after = launches.read()
-        got = dict(clusters=c.num_clusters, digest=c.digest,
-                   colors=c.num_colors, colors_digest=c.colors_digest)
-        check(all(got[k] == want[k] for k in got),
-              f"{label}: cluster GS {got} != {want}")
-        check(after["hash_pack"] - before["hash_pack"] == c.color_rounds,
-              f"{label}: hash_pack launched "
-              f"{after['hash_pack'] - before['hash_pack']} times in "
-              f"{c.color_rounds} Luby rounds")
-        gs[label] = {**got, "color_rounds": c.color_rounds,
-                     "setup_s": c.wall_time_s, "timings": c.timings,
-                     "steps": c.preconditioner.num_steps, "setup": c}
+        # engine=None takes resident on the card; host is the same-call
+        # baseline, held to the same anchors and giving the same rows
+        for engine, out in ((None, gs), ("host", gs_host)):
+            before = launches.read()
+            c = rt.cluster_gs_setup(graphs[label], aggregation="two_phase",
+                                    engine=engine)
+            after = launches.read()
+            got = dict(clusters=c.num_clusters, digest=c.digest,
+                       colors=c.num_colors, colors_digest=c.colors_digest)
+            check(c.engine == (engine or "resident"),
+                  f"{label}: cluster GS engine {c.engine}")
+            check(all(got[k] == want[k] for k in got),
+                  f"{label}: cluster GS ({c.engine}) {got} != {want}")
+            check(after["hash_pack"] - before["hash_pack"] == c.color_rounds,
+                  f"{label}: hash_pack launched "
+                  f"{after['hash_pack'] - before['hash_pack']} times in "
+                  f"{c.color_rounds} Luby rounds")
+            out[label] = {**got, "engine": c.engine,
+                          "color_rounds": c.color_rounds,
+                          "setup_s": c.wall_time_s, "timings": c.timings,
+                          "steps": c.preconditioner.num_steps, "setup": c}
+        rows = [x.preconditioner.color_rows
+                for x in (gs[label]["setup"], gs_host[label]["setup"])]
+        check(len(rows[0]) == len(rows[1]) and all(
+            torch.equal(x, y) for x, y in zip(*rows)),
+            f"{label}: resident packed rows != host's")
+    traced, gs_copies = _dtoh_in_phases(torch, lambda: rt.cluster_gs_setup(
+        graphs["Elasticity3D_60"], aggregation="two_phase"))
+    check(traced.colors_digest == CLUSTER_GS["Elasticity3D_60"][
+        "colors_digest"], "cluster GS traced setup: colors digest")
+    _check_scalar_copies(gs_copies, {"multilevel.coarse_graph",
+                                     "multilevel.pack"}, "cluster GS")
     gs_rhs = {label: _rhs(torch, np, graphs[label]) for label in CLUSTER_GS}
     gs_cg = {}
     for label, want in CLUSTER_GS.items():
@@ -544,10 +641,13 @@ def main() -> int:
     add_path(counts)
     check(counts["hash_pack"] > 0, "hash_pack never launched")
     emit({"phase": "cluster_gs_path", "launches": counts, "cg": gs_cg,
+          "dtoh_Elasticity3D_60": gs_copies,
           "color_laplace3d(8)": {"colors": c8.num_colors,
                                  "digest": c8.digest, "rounds": c8.rounds},
           **{k: {kk: vv for kk, vv in v.items() if kk != "setup"}
-             for k, v in gs.items()}})
+             for k, v in gs.items()},
+          "host": {k: {kk: vv for kk, vv in v.items() if kk != "setup"}
+                   for k, v in gs_host.items()}})
     # -- 7. the hybrid path on Powerlaw_1M ----------------------------------------
     launches.reset()
     hybrid = _hybrid_path(torch, rt, pl, graphs, launches)
@@ -611,9 +711,18 @@ def main() -> int:
         "amg_setup_phases_s": {k: amg[k]["timings"] for k in amg},
         "cluster_gs_setup_s": {k: gs[k]["setup_s"] for k in gs},
         "cluster_gs_setup_phases_s": {k: gs[k]["timings"] for k in gs},
+        "cluster_gs_host_setup_s": {k: gs_host[k]["setup_s"]
+                                    for k in gs_host},
+        "cluster_gs_host_setup_phases_s": {k: gs_host[k]["timings"]
+                                           for k in gs_host},
+        "coarse_graph_Elasticity3D_60": _time_coarse_graph(
+            torch, rt, graphs["Elasticity3D_60"],
+            gs["Elasticity3D_60"]["setup"]),
     }
+    run_time = _time_run_sums(torch, stage2, run_ops, run_ref)
+    del stage2
     emit({"phase": "timing_solve", "spmv_t": spmv_t_time,
-          "hash_pack": hash_time, **solve})
+          "hash_pack": hash_time, "run_sums": run_time, **solve})
     sliced_time = _time_sliced(torch, hyb, ops, ref, id_bits)
     pl_e2e = {what: _wall_ms(torch, call) for what, call in (
         *((f"cuda_hybrid_{label}", lambda g=graphs[label]: rt.mis2(
@@ -639,6 +748,7 @@ def main() -> int:
            for k in SLICED},
         **{k: ("Laplace3D_100 round 0", timing["Laplace3D_100"][k])
            for k in UNFUSED},
+        "run_sums": ("Laplace3D_100 level-0 Galerkin stage 2", run_time),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -666,6 +776,151 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _stage2_stream(torch, rt, g):
+    """The sorted stream of the Laplace3D_100 level-0 Galerkin product's
+    stage 2, ``(keys, vals, starts)``: the run-sum kernel's input on the
+    AMG path, from the level's aggregation, prolongator and stage 1."""
+    from repro_torch.multilevel import galerkin as gal
+    from repro_torch.multilevel.prolongator import _prolongator_device
+
+    a = g.ell_matrix
+    v = a.num_rows
+    agg = rt.coarsen(g, method="two_phase")
+    p = _prolongator_device(a, agg.labels, agg.num_aggregates,
+                            2.0 / 3.0)[:3]
+    q = gal._coo_rows_repack_device(
+        *gal._spgemm_stage1_device(*a, *p, v), v, v)
+    return gal._sorted_runs(*gal._stage2_candidates(*p, *q, v))
+
+
+def _long_run_stream(torch, np, dev):
+    """A sorted stream of 2,000 runs of 1 to 20,000 entries (standard
+    normal values, a tenth of them ±0.0)."""
+    rng = np.random.default_rng(7)
+    lens = rng.integers(1, 20_001, 2_000)
+    keys = np.repeat(np.arange(2_000, dtype=np.int64) * 3, lens)
+    vals = rng.standard_normal(len(keys))
+    vals[rng.random(len(keys)) < 0.1] = -0.0
+    starts = np.r_[0, np.cumsum(lens)[:-1]].astype(np.int64)
+    return tuple(torch.from_numpy(x).to(dev) for x in (keys, vals, starts))
+
+
+def _same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (float64 compared as int64 words)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _dtoh_in_phases(torch, call):
+    """``call()`` traced by ``torch.profiler`` (CPU + CUDA); returns its
+    result and the device-to-host copies whose launch lies inside a
+    ``multilevel.*`` profiler range (the resident setup's phases): count,
+    largest and total bytes, count by range.  The copies are matched to
+    their launches through the trace's correlation ids."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = ROOT / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+               e["name"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith("multilevel.")]
+    copies = {e["args"].get("correlation"): e["args"].get("bytes")
+              for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in str(e.get("name", ""))}
+    sizes, by_range = [], {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") != "cuda_runtime" or corr not in copies:
+            continue
+        ts = float(e["ts"])
+        for lo, hi, name in ranges:
+            if lo <= ts <= hi:
+                sizes.append(copies[corr])
+                by_range[name] = by_range.get(name, 0) + 1
+                break
+    return out, {"range_names": sorted({r[2] for r in ranges}),
+                 "dtoh_in_trace": len(copies),
+                 "count": len(sizes), "by_range": by_range,
+                 "max_bytes": max((x for x in sizes if x is not None),
+                                  default=None),
+                 "total_bytes": sum(x for x in sizes if x is not None),
+                 "sizes_missing": sum(x is None for x in sizes)}
+
+
+def _check_scalar_copies(copies: dict, want_ranges: set, what: str) -> None:
+    """Every device-to-host copy inside the setup phases is a shape scalar
+    (at most SCALAR_COPY_BYTES), and the trace saw the phases and copies."""
+    check(want_ranges <= set(copies["range_names"]),
+          f"{what}: the trace's phase ranges are {copies['range_names']}")
+    check(copies["count"] > 0 and copies["sizes_missing"] == 0,
+          f"{what}: no sized device-to-host copy in the phases: {copies}")
+    check((copies["max_bytes"] or 0) <= SCALAR_COPY_BYTES,
+          f"{what}: a {copies['max_bytes']}-byte device-to-host copy inside "
+          f"the setup phases: {copies}")
+
+
+def _time_run_sums(torch, stream, run_ops, run_ref, reps: int = 20) -> dict:
+    """The run-sum kernel on a sorted stream beside its twin and the
+    ``index_add_`` yardstick (the same sums, added in no fixed order): the
+    stream's values read once (8 B each), per run its start and head key
+    read and its key, sum and keep flag written (33 B)."""
+    keys, vals, starts = stream
+    n, runs = int(keys.numel()), int(starts.numel())
+    lens = torch.diff(starts, append=torch.tensor([n], device=starts.device))
+    max_len = int(lens.max())
+    run_id = torch.repeat_interleave(torch.arange(runs, device=keys.device),
+                                     lens)
+    out = _timed(torch, lambda: run_ops.run_sums(keys, vals, starts),
+                 lambda: run_ref.run_sums_ref(keys, vals, starts, max_len),
+                 lambda: torch.zeros(runs, dtype=torch.float64,
+                                     device=keys.device).index_add_(
+                     0, run_id, vals),
+                 nbytes=8 * n + 33 * runs, reps=reps, plain_reps=3)
+    return {**out, "n": n, "runs": runs, "max_run": max_len}
+
+
+def _time_coarse_graph(torch, rt, g, setup) -> dict:
+    """The coarse graph of a cluster-GS setup (its labels) built on the
+    card (resident) and on the host (host), and its Luby coloring: wall
+    ms, each ending in a synchronize."""
+    import numpy as np
+
+    from repro_torch.core.coloring import _color_graph_impl
+    from repro_torch.graphs.ops import coarse_graph_from_labels
+    from repro_torch.multilevel import galerkin as gal
+
+    labels, nagg = setup.labels, setup.num_clusters
+    v = g.num_vertices
+    lab = torch.from_numpy(labels.astype(np.int64)).to(g.device)
+
+    def device():
+        keys = gal._coarse_graph_keys_device(*g.ell, lab, v)
+        return rt.Graph(gal._coarse_graph_ell_device(keys, v, nagg))
+
+    coarse = device()
+    return {"resident_ms": _wall_ms(torch, device),
+            "host_ms": _wall_ms(torch, lambda: rt.Graph(
+                coarse_graph_from_labels(g.csr, labels, nagg),
+                device=g.device).ell, reps=1),
+            "color_ms": _wall_ms(torch, lambda: _color_graph_impl(coarse)),
+            "coarse_entries": coarse.num_entries}
 
 
 def _random_state(torch, rng, v: int, dev):

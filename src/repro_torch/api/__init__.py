@@ -1,7 +1,7 @@
 """``repro_torch.api`` — the public surface of the port."""
 from ..core.mis2 import ABLATION_CHAIN, Mis2Options
 from . import engines as _engines  # noqa: F401  (registers built-in engines)
-from .backend import DEFAULT_MIS2_ENGINE, DEFAULT_MULTILEVEL_ENGINE, Backend
+from .backend import DEFAULT_MIS2_ENGINE, Backend, default_multilevel_engine
 from .facade import amg, amg_setup, cluster_gs_setup, coarsen, color, mis2
 from .registry import get_engine, list_engines, register_engine
 from .result import (
@@ -16,7 +16,7 @@ from .result import (
 
 __all__ = [
     "mis2", "coarsen", "color", "amg_setup", "amg", "cluster_gs_setup",
-    "Backend", "DEFAULT_MIS2_ENGINE", "DEFAULT_MULTILEVEL_ENGINE",
+    "Backend", "DEFAULT_MIS2_ENGINE", "default_multilevel_engine",
     "get_engine", "list_engines", "register_engine", "AggregationResult",
     "AmgSetup", "ClusterGsSetup", "ColoringResult", "Mis2Result", "Result",
     "determinism_digest", "Mis2Options", "ABLATION_CHAIN",

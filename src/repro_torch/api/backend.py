@@ -63,7 +63,9 @@ def default_mis2_engine(graph, options=None) -> str:
     return "cuda_compacted" if kernel_layout else "compacted"
 
 
-#: ``engine=None`` of ``amg_setup`` / ``cluster_gs_setup``: the host setup
-#: (the reference picks its device-resident engine on accelerators; that
-#: engine is not ported yet)
-DEFAULT_MULTILEVEL_ENGINE = "host"
+def default_multilevel_engine(graph) -> str:
+    """The ``engine=None`` rule of ``amg_setup`` / ``cluster_gs_setup``:
+    ``resident`` (the whole per-level setup on the device) for a graph on
+    CUDA, ``host`` (numpy/scipy) on the CPU, as the reference picks its
+    device engine on accelerators and its host engine on CPU hosts."""
+    return "resident" if graph.device.type == "cuda" else "host"

@@ -60,7 +60,14 @@ register_engine("coloring", "luby")(_color_graph_impl)
 register_engine("coloring", "luby_hybrid")(_color_hybrid_impl)
 
 
-@register_engine("multilevel", "host")
-def _multilevel_host(kind, graph, **kwargs):
-    fn = _build_hierarchy_impl if kind == "amg" else _cluster_gs_setup_impl
-    return fn(graph, **kwargs)
+def _multilevel(engine: str):
+    def run(kind, graph, **kwargs):
+        fn = _build_hierarchy_impl if kind == "amg" \
+            else _cluster_gs_setup_impl
+        return fn(graph, engine=engine, **kwargs)
+
+    return run
+
+
+register_engine("multilevel", "host")(_multilevel("host"))
+register_engine("multilevel", "resident")(_multilevel("resident"))

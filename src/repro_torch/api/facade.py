@@ -8,8 +8,8 @@ the :class:`~repro_torch.api.result.Result` form.
     r = rt.mis2(a)                           # cuda_resident on the card
                                              # (cuda_hybrid past 256 MiB)
     agg = rt.coarsen(a, method="two_phase")
-    amg = rt.amg_setup(a)                    # SA-AMG hierarchy
-    gs = rt.cluster_gs_setup(a)              # cluster multicolor GS
+    amg = rt.amg_setup(a)                    # SA-AMG hierarchy, set up on
+    gs = rt.cluster_gs_setup(a)              # the card (engine resident)
     # then rt.solvers.cg(matvec, b, precond=amg.as_precond(), tol=1e-6)
 """
 from __future__ import annotations
@@ -22,9 +22,9 @@ from ..core.coloring import MAX_ROUNDS_DEFAULT
 from ..core.mis2 import Mis2Options
 from ..graphs.handle import Graph, as_graph
 from .backend import (
-    DEFAULT_MULTILEVEL_ENGINE,
     Backend,
     default_mis2_engine,
+    default_multilevel_engine,
     resolve_backend,
 )
 from .registry import get_engine
@@ -120,9 +120,12 @@ def amg_setup(matrix, *, aggregation: str = "two_phase",
               explicit_restriction: bool = True,
               backend: Backend | None = None) -> AmgSetup:
     """Smoothed-aggregation AMG setup (paper Table V) through the
-    ``multilevel`` registry; ``engine=None`` selects ``host``.  The level
-    matrices are bit-identical to the JAX package's ``host`` engine (equal
-    ``level_digests``) and live on the device with the whole solve phase.
+    ``multilevel`` registry: ``host`` (prolongator and Galerkin product on
+    the host) or ``resident`` (the whole per-level setup on the device);
+    ``engine=None`` selects ``resident`` for a graph on CUDA and ``host``
+    on the CPU.  Either engine's level matrices are bit-identical to the
+    JAX package's ``host`` engine (equal ``level_digests``) and live on the
+    device with the whole solve phase.
 
     ``coarse_dtype`` picks the dense coarsest-level factorization (default:
     float32, on the card; float64 on the CPU, with scipy);
@@ -132,7 +135,7 @@ def amg_setup(matrix, *, aggregation: str = "two_phase",
     V-cycle then restricts through the transposed SpMV kernel on P."""
     be = resolve_backend(backend)
     gh = _prepare(matrix, be)
-    engine = DEFAULT_MULTILEVEL_ENGINE if engine is None else engine
+    engine = default_multilevel_engine(gh) if engine is None else engine
     fn = get_engine("multilevel", engine)
     t0 = time.perf_counter()
     h = fn("amg", gh, aggregation=aggregation, max_levels=max_levels,
@@ -146,7 +149,7 @@ def amg_setup(matrix, *, aggregation: str = "two_phase",
     return AmgSetup(sizes, len(h.levels), True, dt, hierarchy=h,
                     aggregation=aggregation, setup_seconds=h.setup_seconds,
                     aggregation_seconds=h.aggregation_seconds, engine=engine,
-                    timings=dict(h.timings))
+                    timings=dict(h.timings), dispatches=h.dispatches)
 
 
 def amg(matrix, *, aggregation: str = "two_phase", max_levels: int = 10,
@@ -172,13 +175,15 @@ def cluster_gs_setup(matrix, *, aggregation: str = "two_phase",
     """Cluster multicolor Gauss-Seidel setup (paper Alg. 4 / Table VI):
     aggregate with MIS-2, color the coarse graph, pack cluster rows per
     color.  Labels and colors equal the JAX package's (equal ``digest``
-    and ``colors_digest``); ``engine=None`` selects ``host``."""
+    and ``colors_digest``); the coarse graph and the packing run on the
+    host (``host``) or the device (``resident``), and ``engine=None``
+    selects ``resident`` for a graph on CUDA and ``host`` on the CPU."""
     from ..graphs.ops import extract_diagonal
     from ..solvers.multicolor_gs import MulticolorGSPreconditioner
 
     be = resolve_backend(backend)
     gh = _prepare(matrix, be)
-    engine = DEFAULT_MULTILEVEL_ENGINE if engine is None else engine
+    engine = default_multilevel_engine(gh) if engine is None else engine
     fn = get_engine("multilevel", engine)
     t0 = time.perf_counter()
     color_rows, num_colors, nagg, labels, colors, timings, rounds = fn(

@@ -112,9 +112,13 @@ class ColoringResult(Result):
 class AmgSetup(Result):
     """AMG hierarchy setup: ``payload`` is the ``[levels, 2]`` (n, nnz)
     table; the usable hierarchy hangs off ``.hierarchy`` /
-    ``.as_precond()``.  ``timings`` is the setup-phase split (``aggregate``
-    / ``prolongator`` / ``galerkin`` / ``pack`` seconds); ``level_digests``
-    are the per-level ``A_l`` ELL digests, equal to the reference's."""
+    ``.as_precond()``.  ``engine`` names the multilevel engine that built
+    it (``host`` | ``resident``); ``timings`` is the setup-phase split
+    (``aggregate`` / ``prolongator`` / ``galerkin`` / ``pack`` seconds);
+    ``dispatches`` counts the resident engine's stage calls, 7 a level as
+    the reference counts its jitted dispatches (0 on the host engine);
+    ``level_digests`` are the per-level ``A_l`` ELL digests, equal to the
+    reference's."""
 
     hierarchy: object | None = None
     aggregation: str = ""
@@ -122,6 +126,7 @@ class AmgSetup(Result):
     aggregation_seconds: float = 0.0
     engine: str = ""
     timings: dict = field(default_factory=dict)
+    dispatches: int = 0
 
     @property
     def level_sizes(self) -> list:

@@ -9,6 +9,7 @@ from .csr import (
     csr_from_coo,
     csr_to_ell_graph,
     csr_to_ell_matrix,
+    ell_to_csr_graph,
     ensure_self_loops,
     pad_ell_graph,
 )
@@ -38,7 +39,8 @@ from .hybrid import (
 
 __all__ = [
     "ops", "CSRGraph", "CSRMatrix", "ELLGraph", "ELLMatrix", "csr_from_coo",
-    "csr_to_ell_graph", "csr_to_ell_matrix", "ensure_self_loops",
+    "csr_to_ell_graph", "csr_to_ell_matrix", "ell_to_csr_graph",
+    "ensure_self_loops",
     "pad_ell_graph", "elasticity3d", "laplace3d", "paper_suite", "path_graph",
     "powerlaw_graph", "random_skewed_graph", "random_uniform_graph",
     "ELL_BYTE_LIMIT", "ELL_BYTES_PER_SLOT", "Graph", "LayoutOverflowError",

@@ -201,6 +201,14 @@ def pad_ell_graph(g: ELLGraph, num_rows: int, width: int) -> ELLGraph:
     return ELLGraph(neighbors, mask)
 
 
+def ell_to_csr_graph(g: ELLGraph) -> CSRGraph:
+    """Device ELL -> host CSR (the real slots, sorted and deduplicated)."""
+    neighbors = g.neighbors.cpu().numpy()
+    mask = g.mask.cpu().numpy()
+    rows = np.repeat(np.arange(neighbors.shape[0]), mask.sum(axis=1))
+    return csr_from_coo(rows, neighbors[mask], neighbors.shape[0])
+
+
 def ensure_self_loops(g: CSRGraph) -> CSRGraph:
     """Add any missing diagonal entries (closed-neighborhood semantics)."""
     v = g.num_vertices

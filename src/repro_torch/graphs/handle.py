@@ -3,7 +3,11 @@
 
 The CSR form stays on the host as numpy; the ELL forms and the hybrid
 layout are built from it lazily, once, on the handle's device
-(``Graph.place``) and cached.
+(``Graph.place``) and cached.  A handle may also start from a device
+``ELLGraph`` / ``ELLMatrix`` (each coarse level of the ``resident``
+multilevel setup is one): its sizes then come from the ELL's shape and
+mask on the device, and the host CSR is built only when asked for
+(``ell_to_csr``).
 ``graph.conversions`` counts the times each conversion's work actually ran,
 so a second ``.ell`` access is visibly a cache hit.
 
@@ -26,6 +30,7 @@ from .csr import (
     ELLMatrix,
     csr_to_ell_graph,
     csr_to_ell_matrix,
+    ell_to_csr_graph,
 )
 from .hybrid import ELL_BYTES_PER_SLOT, HybridEllGraph, csr_to_hybrid_ell
 
@@ -58,26 +63,39 @@ def ell_bytes_estimate(num_rows: int, width: int) -> int:
 class Graph:
     """Cached-format handle around one immutable graph (or square matrix).
 
-    ``Graph(csr_graph_or_matrix, device=...)``; the device defaults to
-    ``cuda``.  ``g.csr`` / ``g.csr_matrix`` are host numpy, ``g.ell`` /
+    ``Graph(structure, device=...)`` with a host ``CSRGraph`` /
+    ``CSRMatrix`` (the device defaults to ``cuda``) or a device
+    ``ELLGraph`` / ``ELLMatrix`` (the device defaults to its tensors').
+    ``g.csr`` / ``g.csr_matrix`` are host numpy, ``g.ell`` /
     ``g.ell_matrix`` are tensors on ``g.device``.
     """
 
-    def __init__(self, structure, device: torch.device | str = "cuda"):
+    def __init__(self, structure, device: torch.device | str | None = None):
         if isinstance(structure, Graph):
             raise TypeError("Graph(Graph) — use the handle itself, or "
                             "as_graph()")
-        if not isinstance(structure, (CSRGraph, CSRMatrix)):
-            raise TypeError(f"Graph() expects CSRGraph/CSRMatrix, got "
-                            f"{type(structure).__name__}")
-        self._device = torch.device(device)
+        if not isinstance(structure, (CSRGraph, CSRMatrix, ELLGraph,
+                                      ELLMatrix)):
+            raise TypeError(f"Graph() expects CSRGraph/CSRMatrix/ELLGraph/"
+                            f"ELLMatrix, got {type(structure).__name__}")
         self._cache: dict[str, Any] = {}
         self._counts: dict[str, int] = {}
         if isinstance(structure, CSRMatrix):
             self._cache["csr_matrix"] = structure
             self._cache["csr"] = structure.graph
-        else:
+        elif isinstance(structure, CSRGraph):
             self._cache["csr"] = structure
+        elif isinstance(structure, ELLMatrix):
+            self._cache["ell_matrix"] = structure
+            self._cache["ell"] = structure.graph
+        else:
+            self._cache["ell"] = structure
+        if "ell" in self._cache:
+            self._device = self._cache["ell"].neighbors.device
+            if device is not None:
+                self.place(device)
+        else:
+            self._device = torch.device("cuda" if device is None else device)
 
     # -- constructors -------------------------------------------------------
 
@@ -131,15 +149,21 @@ class Graph:
 
     @property
     def has_values(self) -> bool:
-        return "csr_matrix" in self._cache
+        return "csr_matrix" in self._cache or "ell_matrix" in self._cache
 
     @property
     def csr(self) -> CSRGraph:
+        if "csr" not in self._cache:       # ELL-seeded: one host copy
+            self._cache["csr"] = ell_to_csr_graph(self._cache["ell"])
+            self._count("ell_to_csr")
         return self._cache["csr"]
 
     @property
     def csr_matrix(self) -> CSRMatrix:
         if "csr_matrix" not in self._cache:
+            if "ell_matrix" in self._cache:
+                raise ValueError("this Graph holds its values as a device "
+                                 "ELLMatrix, not as host CSR")
             raise ValueError("this Graph carries structure only (no values)")
         return self._cache["csr_matrix"]
 
@@ -222,23 +246,45 @@ class Graph:
 
     # -- stats --------------------------------------------------------------
 
+    def _ell_seeded(self) -> bool:
+        return "csr" not in self._cache
+
+    def _ell_scalar(self, key: str, fn) -> int:
+        """A size of an ELL-seeded handle, reduced on the device: only the
+        scalar comes to the host, once."""
+        if key not in self._cache:
+            self._cache[key] = int(fn(self._cache["ell"].mask))
+        return self._cache[key]
+
     @property
     def num_vertices(self) -> int:
+        if self._ell_seeded():
+            return self._cache["ell"].num_vertices
         return self.csr.num_vertices
 
     @property
     def num_entries(self) -> int:
+        if self._ell_seeded():
+            return self._ell_scalar("num_entries", torch.count_nonzero)
         return self.csr.num_entries
 
     @property
     def degrees(self) -> np.ndarray:
         if "degrees" not in self._cache:
-            self._cache["degrees"] = np.diff(self.csr.indptr)
+            if self._ell_seeded():
+                deg = self._cache["ell"].mask.sum(dim=1).cpu().numpy()
+            else:
+                deg = np.diff(self.csr.indptr)
+            self._cache["degrees"] = deg
             self._count("degrees")
         return self._cache["degrees"]
 
     @property
     def max_degree(self) -> int:
+        if self._ell_seeded():
+            return self._ell_scalar(
+                "max_degree", lambda m: m.sum(dim=1).max() if m.numel()
+                else 0)
         d = self.degrees
         return int(d.max()) if len(d) else 0
 
@@ -248,6 +294,6 @@ class Graph:
                 f"device={self._device}, cached=[{fmts}])")
 
 
-def as_graph(obj, device: torch.device | str = "cuda") -> Graph:
-    """Coerce a CSR container (or handle) to a Graph handle."""
+def as_graph(obj, device: torch.device | str | None = None) -> Graph:
+    """Coerce a CSR or ELL container (or handle) to a Graph handle."""
     return obj if isinstance(obj, Graph) else Graph(obj, device)

@@ -4,6 +4,7 @@
 * :func:`spmv_ell` — ``y = A x`` over a device ELL matrix, through the
   hand-written SpMV kernel (``kernels.spmv_ell``);
 * :func:`extract_diagonal` — the diagonal of a CSR matrix, on a device;
+  :func:`ell_diagonal` — that of a device ELL matrix;
 * :func:`matrix_to_scipy`, :func:`coarse_graph_from_labels`,
   :func:`galerkin_coarse_matrix` — host-side setup work on numpy/scipy,
   returning host containers, as in the reference (the scipy Galerkin
@@ -74,3 +75,12 @@ def extract_diagonal(a: CSRMatrix,
     on_diag = rows == a.indices
     d[rows[on_diag]] = a.values[on_diag]
     return torch.from_numpy(d).to(device)
+
+
+def ell_diagonal(a: ELLMatrix) -> torch.Tensor:
+    """The diagonal of a device ELL matrix (0 where a row has none), on its
+    device: each row's one diagonal slot, so the sum is exact."""
+    rid = torch.arange(a.num_rows, device=a.cols.device)
+    return torch.where((a.cols == rid[:, None]) & a.mask, a.vals,
+                       torch.zeros((), dtype=a.vals.dtype,
+                                   device=a.vals.device)).sum(dim=1)

@@ -1,12 +1,23 @@
-"""Multilevel setup: SA-AMG hierarchies and cluster-GS packing, the ``host``
-engine of ``repro.multilevel.hierarchy``.
+"""Multilevel setup: SA-AMG hierarchies and cluster-GS packing, the two
+engines of ``repro.multilevel.hierarchy``, giving equal hierarchies (per-level
+``A_l`` digests, P, R, diagonals, cluster labels, colors and packed rows).
 
-The setup's prolongator and Galerkin product are numpy/scipy on the host,
-as in the reference's ``host`` engine, so every level matrix is
-bit-identical to it (equal :meth:`AMGHierarchy.level_digests`).  The
-aggregation inside (MIS-2 coarsening on the fused kernels), the coloring,
-every level matrix and the whole solve phase live on the graph's device;
-the ``float32`` coarsest-level LU factors and solves there too.
+* ``host``: the prolongator and Galerkin product are numpy/scipy on the
+  host, as in the reference's ``host`` engine; each level's matrices are
+  then copied to the device.
+* ``resident``: the whole per-level setup on the graph's device, in
+  float64 — the prolongator from the aggregation labels, the two-stage
+  sorted-COO Galerkin product on the run-sum kernel, the coarse ELL, the
+  coarse graph of cluster GS and the cluster packing.  After aggregation
+  no matrix-sized array leaves the device; only shape scalars (row
+  widths, entry counts, per-color geometry) come back.  The reference's
+  7 stage calls a level (2 prolongator, 4 Galerkin, 1 pack) are counted in
+  :attr:`AMGHierarchy.dispatches`.
+
+The aggregation inside (MIS-2 coarsening on the fused kernels), the
+coloring, every level matrix and the whole solve phase live on the
+graph's device; the ``float32`` coarsest-level LU factors and solves there
+too.
 
 ``hierarchy_from_arrays`` builds a hierarchy from given per-level arrays
 (for instance the reference's), so the solve phase can be held against
@@ -33,13 +44,34 @@ from ..graphs.csr import (
 from ..graphs.handle import Graph, as_graph
 from ..graphs.ops import (
     coarse_graph_from_labels,
+    ell_diagonal,
     extract_diagonal,
     matrix_to_scipy,
 )
 from ..kernels.spmv_ell import ops as spmv_ops
-from .galerkin import _pad_p_rows, galerkin_coo_host
-from .packing import pack_clusters_host
-from .prolongator import rect_ell, smoothed_prolongator_host
+from .galerkin import (
+    _coarse_graph_ell_device,
+    _coarse_graph_keys_device,
+    _coo_rows_repack_device,
+    _coo_to_ell_device,
+    _pad_p_rows,
+    _spgemm_stage1_device,
+    _spgemm_stage2_device,
+    galerkin_coo_host,
+)
+from .packing import pack_clusters_device, pack_clusters_host
+from .prolongator import (
+    _prolongator_device,
+    _prolongator_pack_device,
+    rect_ell,
+    smoothed_prolongator_host,
+)
+
+ENGINES = ("host", "resident")
+#: the resident engine's stage calls a level, as the reference counts its
+#: jitted dispatches: prolongator 2, Galerkin 4 (stage 1, repack, stage 2,
+#: coarse ELL), pack 1
+STAGES_PER_LEVEL = 7
 
 
 @dataclass
@@ -68,6 +100,7 @@ class AMGHierarchy:
     coarse_dtype: str = "float32"
     coarse_kind: str = "lu"        # 'lu' | 'jacobi' (above dense_coarse_cap)
     timings: dict = field(default_factory=dict)
+    dispatches: int = 0            # resident stage calls this build
     _digests: list | None = None
 
     def as_precond(self) -> Callable:
@@ -110,15 +143,19 @@ def resolve_coarse_dtype(coarse_dtype: Optional[str],
     return "float32" if device.type == "cuda" else "float64"
 
 
-def _coarse_solver(dense: np.ndarray, coarse_dtype: str,
+def _coarse_solver(dense, coarse_dtype: str,
                    device: torch.device) -> Callable:
-    """Cached dense factorization of the (host) coarsest matrix.
+    """Cached dense factorization of the coarsest matrix (host numpy or a
+    device tensor).
 
     ``float32`` factors on the device and solves there, with no host copy
-    per V-cycle; ``float64`` factors and solves on the host with scipy."""
+    per V-cycle (a device ``dense`` never leaves it); ``float64`` factors
+    and solves on the host with scipy."""
     if coarse_dtype == "float64":
         import scipy.linalg as sla
 
+        if isinstance(dense, torch.Tensor):
+            dense = dense.cpu().numpy()
         lu_piv = sla.lu_factor(np.asarray(dense, dtype=np.float64))
 
         def coarse_solve(b):
@@ -127,7 +164,7 @@ def _coarse_solver(dense: np.ndarray, coarse_dtype: str,
 
         return coarse_solve
     lu, piv = torch.linalg.lu_factor(
-        torch.from_numpy(np.asarray(dense, dtype=np.float32)).to(device))
+        torch.as_tensor(dense).to(device=device, dtype=torch.float32))
 
     def coarse_solve(b):
         return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
@@ -151,6 +188,16 @@ def _jacobi_coarse_solver(a_ell: ELLMatrix, diag: torch.Tensor,
     return coarse_solve
 
 
+def _ell_to_dense_device(a: ELLMatrix) -> torch.Tensor:
+    """The coarsest ELL matrix densified on its device (float32: each entry
+    is one ELL value)."""
+    n = a.num_rows
+    rows = torch.arange(n, device=a.cols.device)[:, None].expand_as(a.cols)
+    dense = torch.zeros((n, n), dtype=torch.float32, device=a.cols.device)
+    dense[rows[a.mask], a.cols[a.mask].to(torch.int64)] = a.vals[a.mask]
+    return dense
+
+
 def _ell_dense(cols: np.ndarray, vals: np.ndarray,
                mask: np.ndarray) -> np.ndarray:
     n = cols.shape[0]
@@ -165,8 +212,9 @@ def _finish(levels: List[AMGLevel], dense, coarse_dtype: str,
             smoother_sweeps: int, explicit_restriction: bool,
             device: torch.device):
     """Coarse solver and, without explicit R, each level's P^T plan.
-    ``dense`` is a callable giving the coarsest matrix densified on the
-    host (called only under the cap).  Returns ``(coarse_solve, kind)``."""
+    ``dense`` is a callable giving the coarsest matrix densified, on the
+    host or the device (called only under the cap).  Returns
+    ``(coarse_solve, kind)``."""
     coarsest = levels[-1]
     if coarsest.n <= dense_coarse_cap:
         coarse_solve = _coarse_solver(dense(), coarse_dtype, device)
@@ -223,6 +271,48 @@ def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
     return level, a_next
 
 
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work, so that a phase's time is its
+    own and not the next phase's."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _phase(name: str):
+    """A named range of a resident setup phase, for ``torch.profiler``."""
+    return torch.profiler.record_function(f"multilevel.{name}")
+
+
+def _resident_level(a_ell: ELLMatrix, nnz: int, labels: np.ndarray,
+                    nagg: int, omega: float, timings: dict):
+    """One resident-engine level on ``a_ell``'s device: prolongator (2
+    stages), Galerkin product (4), P and R (1).  Returns ``(level, a_next,
+    nnz_next)``; only shape scalars come to the host."""
+    dev = a_ell.cols.device
+    v = a_ell.num_rows
+    t0 = time.perf_counter()
+    with _phase("prolongator"):
+        p_cols, p_vals, p_mask, diag = _prolongator_device(
+            a_ell, labels, nagg, omega)
+        _sync(dev)
+    _add_time(timings, "prolongator", t0)
+    t0 = time.perf_counter()
+    with _phase("galerkin"):
+        q = _coo_rows_repack_device(
+            *_spgemm_stage1_device(*a_ell, p_cols, p_vals, p_mask, v), v, v)
+        keys, sums = _spgemm_stage2_device(p_cols, p_vals, p_mask, *q, v)
+        a_next = _coo_to_ell_device(keys, sums, v, nagg)
+        nnz_next = int(keys.shape[0])
+        _sync(dev)
+    _add_time(timings, "galerkin", t0)
+    t0 = time.perf_counter()
+    with _phase("pack"):
+        p_ell, r_ell = _prolongator_pack_device(p_cols, p_vals, p_mask, nagg)
+        _sync(dev)
+    _add_time(timings, "pack", t0)
+    return AMGLevel(a_ell, diag, p_ell, r_ell, v, nnz), a_next, nnz_next
+
+
 def _aggregation(aggregation: str, options, mis2_engine: Optional[str]):
     """``graph -> AggregationResult`` for the named coarsening method."""
     from ..api.backend import default_mis2_engine
@@ -242,9 +332,11 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
                           mis2_engine: Optional[str] = None,
                           coarse_dtype: Optional[str] = None,
                           dense_coarse_cap: Optional[int] = None,
-                          explicit_restriction: bool = True) -> AMGHierarchy:
+                          explicit_restriction: bool = True,
+                          engine: str = "host") -> AMGHierarchy:
     """Build the SA-AMG hierarchy of matrix ``a`` (a ``Graph`` handle with
-    values, or a ``CSRMatrix``) on its device.
+    values, or a ``CSRMatrix``) on its device with the multilevel
+    ``engine`` (``host`` | ``resident``).
 
     ``dense_coarse_cap`` (default: ``coarse_size``) bounds the dense
     coarsest-level factorization; a coarsest level above it gets
@@ -252,6 +344,9 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
     the stored ``R = P^T`` after the build; the V-cycle then restricts
     through the transposed SpMV kernel on P.
     """
+    if engine not in ENGINES:
+        raise ValueError(f"unknown multilevel engine {engine!r} "
+                         f"({' | '.join(ENGINES)})")
     gh = as_graph(a)
     dev = gh.device
     coarse_dtype = resolve_coarse_dtype(coarse_dtype, dev)
@@ -264,36 +359,56 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
 
     levels: List[AMGLevel] = []
     sizes = []
-    cur, cur_graph, a_ell = gh.csr_matrix, gh, gh.ell_matrix
-    while len(levels) < max_levels - 1 and cur.num_rows > coarse_size:
+    cur_graph, a_ell = gh, gh.ell_matrix
+    cur = gh.csr_matrix if engine == "host" else None
+    n, nnz = gh.num_vertices, gh.num_entries
+    while len(levels) < max_levels - 1 and n > coarse_size:
         t0 = time.perf_counter()
         agg = aggregate(cur_graph)
         dt = time.perf_counter() - t0
         t_agg += dt
         timings["aggregate"] = timings.get("aggregate", 0.0) + dt
-        if agg.num_aggregates >= cur.num_rows:
+        if agg.num_aggregates >= n:
             break
-        level, cur = _host_level(cur, a_ell, agg.labels, agg.num_aggregates,
-                                 omega, timings, dev)
+        if engine == "host":
+            level, cur = _host_level(cur, a_ell, agg.labels,
+                                     agg.num_aggregates, omega, timings, dev)
+            cur_graph, a_ell = Graph(cur.graph, device=dev), None
+            n, nnz = cur.num_rows, cur.num_entries
+        else:
+            level, a_ell, nnz = _resident_level(
+                a_ell, nnz, agg.labels, agg.num_aggregates, omega, timings)
+            cur_graph, n = Graph(a_ell), agg.num_aggregates
         levels.append(level)
         sizes.append((level.n, level.nnz))
-        cur_graph, a_ell = Graph(cur.graph, device=dev), None
 
-    levels.append(AMGLevel(
-        a_ell if a_ell is not None else csr_to_ell_matrix(cur, device=dev),
-        extract_diagonal(cur, dev), None, None, cur.num_rows,
-        cur.num_entries))
-    sizes.append((cur.num_rows, cur.num_entries))
+    if engine == "host":
+        levels.append(AMGLevel(
+            a_ell if a_ell is not None else csr_to_ell_matrix(cur,
+                                                              device=dev),
+            extract_diagonal(cur, dev), None, None, n, nnz))
+
+        def dense():
+            return np.asarray(matrix_to_scipy(cur).todense())
+    else:
+        levels.append(AMGLevel(a_ell, ell_diagonal(a_ell), None, None, n,
+                               nnz))
+
+        def dense():
+            return _ell_to_dense_device(a_ell)
+    sizes.append((n, nnz))
     t0 = time.perf_counter()
     coarse_solve, coarse_kind = _finish(
-        levels, lambda: np.asarray(matrix_to_scipy(cur).todense()),
-        coarse_dtype, dense_coarse_cap, jacobi_weight, smoother_sweeps,
-        explicit_restriction, dev)
+        levels, dense, coarse_dtype, dense_coarse_cap, jacobi_weight,
+        smoother_sweeps, explicit_restriction, dev)
     _add_time(timings, "pack", t0)
     return AMGHierarchy(
         levels, coarse_solve, time.perf_counter() - t_setup, t_agg,
         aggregation, omega, jacobi_weight, smoother_sweeps, sizes,
-        coarse_dtype=coarse_dtype, coarse_kind=coarse_kind, timings=timings)
+        engine=engine, coarse_dtype=coarse_dtype, coarse_kind=coarse_kind,
+        timings=timings,
+        dispatches=0 if engine == "host"
+        else STAGES_PER_LEVEL * (len(levels) - 1))
 
 
 def hierarchy_from_arrays(levels: list, *, jacobi_weight: float = 2.0 / 3.0,
@@ -338,8 +453,11 @@ def hierarchy_from_arrays(levels: list, *, jacobi_weight: float = 2.0 / 3.0,
 
 def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
                            coarsen_levels: int = 1,
-                           mis2_engine: Optional[str] = None):
-    """Aggregate -> color the coarse graph -> pack cluster rows.
+                           mis2_engine: Optional[str] = None,
+                           engine: str = "host"):
+    """Aggregate -> color the coarse graph -> pack cluster rows, with the
+    coarse graph and the packing on the host (``host``) or the graph's
+    device (``resident``).
 
     Returns ``(color_rows, num_colors, num_clusters, labels, colors,
     timings, color_rounds)`` with ``timings`` the setup-phase split
@@ -347,6 +465,9 @@ def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
     """
     from ..core.coloring import _color_graph_impl
 
+    if engine not in ENGINES:
+        raise ValueError(f"unknown multilevel engine {engine!r} "
+                         f"({' | '.join(ENGINES)})")
     gh = as_graph(a)
     dev = gh.device
     v = gh.num_vertices
@@ -354,8 +475,16 @@ def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
     aggregate = _aggregation(aggregation, options, mis2_engine)
 
     def coarse_structure(labels, nagg):
-        return Graph(coarse_graph_from_labels(gh.csr, labels, nagg),
-                     device=dev)
+        if engine == "host":
+            return Graph(coarse_graph_from_labels(gh.csr, labels, nagg),
+                         device=dev)
+        with _phase("coarse_graph"):
+            ell = gh.ell
+            keys = _coarse_graph_keys_device(
+                ell.neighbors, ell.mask,
+                torch.from_numpy(np.asarray(labels, dtype=np.int64)).to(dev),
+                v)
+            return Graph(_coarse_graph_ell_device(keys, v, nagg))
 
     t0 = time.perf_counter()
     agg = aggregate(gh)
@@ -375,8 +504,14 @@ def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
         raise RuntimeError("coarse-graph coloring did not converge")
 
     t0 = time.perf_counter()
-    color_rows = pack_clusters_host(labels, coloring.colors,
-                                    coloring.num_colors, v, dev)
+    if engine == "host":
+        color_rows = pack_clusters_host(labels, coloring.colors,
+                                        coloring.num_colors, v, dev)
+    else:
+        with _phase("pack"):
+            color_rows = pack_clusters_device(labels, coloring.colors,
+                                              coloring.num_colors, v, dev)
+            _sync(dev)
     timings["pack"] += time.perf_counter() - t0
     return color_rows, coloring.num_colors, nagg, labels, \
         coloring.colors, timings, coloring.rounds

@@ -5,7 +5,10 @@ below, from ``repro.mis2`` / ``repro.coarsen`` with the
 ``repro.cluster_gs_setup`` with the ``host`` engine).  Every test skips
 without a card.
 
-The slice-3 cases hold the sliced kernels against their twins on random
+The slice-10 cases drive the ``resident`` multilevel engine (the
+per-level setup on the card, ``engine=None`` there) against the ``host``
+one, array for array; ``tests/test_torch_run_sums.py`` holds the run-sum
+kernel against its twin.  The slice-3 cases hold the sliced kernels against their twins on random
 hybrid slabs and drive the hybrid path (``cuda_hybrid``, hybrid
 coarsening, ``luby_hybrid``) on ``powerlaw_graph(900, 8.0, seed=4)``
 against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.  The
@@ -36,6 +39,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hash_priority import ops as hash_ops
 from repro_torch.kernels.hash_priority import ref as hash_ref
 from repro_torch.kernels.minprop_ell import ops, ref
+from repro_torch.kernels.run_sums import ops as run_ops
+from repro_torch.kernels.run_sums import ref as run_ref
 from repro_torch.kernels.spmv_ell import ops as spmv_ops
 from repro_torch.kernels.spmv_ell import ref as spmv_ref
 from repro_torch.multilevel.prolongator import rect_ell
@@ -442,6 +447,7 @@ def no_twins_on_cuda(monkeypatch):
             return fn(*args, **kw)
         return wrapped
     for mod, names in ((spmv_ref, ("spmv_ref", "spmv_t_ref")),
+                       (run_ref, ("run_sums_ref",)),
                        (hash_ref, ("hash_pack_ref", "round_priorities_ref")),
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
@@ -468,6 +474,37 @@ def test_amg_path_on_the_card(cuda_device, no_twins_on_cuda, explicit):
     assert launches == {
         "spmv": (r.iterations + 1) * (1 + per_cycle),
         "spmv_t": 0 if explicit else (r.iterations + 1) * coarse_levels}
+
+
+@pytest.mark.parametrize("name,coarse_size", [("laplace3d(12)", 200),
+                                              ("elasticity3d(4)", 20)])
+def test_resident_setup_equals_host_on_the_card(cuda_device,
+                                                no_twins_on_cuda, name,
+                                                coarse_size):
+    """engine=None takes the resident setup on the card: its hierarchy is
+    the host engine's array for array, three run-sum launches a level."""
+    a = rt.Graph(GRAPHS[name]())
+    before = run_ops.LAUNCHES["run_sums"]
+    s = rt.amg_setup(a, coarse_size=coarse_size)
+    runs = run_ops.LAUNCHES["run_sums"] - before
+    h = rt.amg_setup(a, engine="host", coarse_size=coarse_size)
+    assert s.engine == "resident" and h.engine == "host"
+    assert s.num_levels > 1 and s.level_digests == h.level_digests
+    assert runs == 3 * (s.num_levels - 1) and s.dispatches == 7 * (
+        s.num_levels - 1)
+    for x, y in zip(s.hierarchy.levels, h.hierarchy.levels):
+        mats = [(x.diag, y.diag)] + [
+            (p, q) for m, n in ((x.a_ell, y.a_ell), (x.p_ell, y.p_ell),
+                                (x.r_ell, y.r_ell)) if m is not None
+            for p, q in zip(m, n)]
+        assert all(p.is_cuda and torch.equal(p, q) for p, q in mats)
+    c = rt.cluster_gs_setup(a, coarsen_levels=2)
+    ch = rt.cluster_gs_setup(a, coarsen_levels=2, engine="host")
+    assert c.engine == "resident"
+    assert (c.digest, c.colors_digest) == (ch.digest, ch.colors_digest)
+    rows = (c.preconditioner.color_rows, ch.preconditioner.color_rows)
+    assert len(rows[0]) == len(rows[1])
+    assert all(p.is_cuda and torch.equal(p, q) for p, q in zip(*rows))
 
 
 def test_coloring_and_cluster_gs_on_the_card(cuda_device, no_twins_on_cuda):

@@ -96,8 +96,11 @@ def test_setup_timings_and_default_engine(port_amg):
     cpu64 = rt.amg_setup(port_graph("laplace3d(8)"), backend=CPU)
     assert cpu64.hierarchy.coarse_dtype == "float64"   # the CPU default
     with pytest.raises(ValueError, match="multilevel"):
-        rt.amg_setup(port_graph("laplace3d(8)"), engine="resident",
+        rt.amg_setup(port_graph("laplace3d(8)"), engine="device",
                      backend=CPU)
+    resident = rt.amg_setup(port_graph("laplace3d(8)"), engine="resident",
+                            backend=CPU)
+    assert resident.level_digests == cpu64.level_digests
 
 
 def _random_case(seed: int, v: int, nagg: int, density: float):

@@ -16,12 +16,18 @@ cluster-GS-preconditioned CG solve (``cluster_gs_setup`` once, untimed;
 the same tol and b); on Powerlaw_1M
 (``powerlaw_graph(1_000_000, 8.0, exponent=2.5, seed=42)``, where
 ``engine=None`` takes the hybrid layout) for ``coarsen(method="basic")``
-and ``color(engine="luby_hybrid")`` too.  Prints one JSON line per call
+and ``color(engine="luby_hybrid")`` too; the setups themselves, with
+``engine=None`` (the ``resident`` multilevel engine on the card), as
+``amg_setup`` on both paper graphs and ``gs_setup`` (``cluster_gs_setup``)
+on Elasticity3D_60.  Prints one JSON line per call
 with the device time by kernel name (top entries, and every kernel of the
-port's ``csrc/``), the summed device time,
-the unprofiled wall time and the device's idle share of it.  ``--calls``
+port's ``csrc/``), the summed device time, the device span of each setup
+phase (``setup_range_device_ms``),
+the unprofiled wall time, the device's idle share of it and the traced
+call's peak device memory.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
-``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``coarsen_basic``, ``color``),
+``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
+``coarsen_basic``, ``color``),
 and skips the setups of the others.  The coloring's per-round priorities
 (``repro_torch.core.coloring._round_priorities``) run inside a profiler
 range, ``hash_step``: a traced call that colors reports its rounds and the
@@ -44,6 +50,10 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
                           {"exponent": 2.5, "seed": 42})}
 HASH_STEP = "hash_step"
 HASH_KERNEL = "hash_pack_kernel"
+# the resident multilevel setup's profiler ranges (multilevel.prolongator,
+# .galerkin, .pack, .coarse_graph): the trace times each on the device too,
+# as a span over its kernels, so it is reported apart, not summed with them
+SETUP_RANGE = "multilevel."
 
 
 def _wall_ms(torch, call, reps: int = 5) -> list[float]:
@@ -116,20 +126,27 @@ def profile_call(torch, call, top: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     walls = sorted(_wall_ms(torch, call))
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, _device_us(e), e.count)
-                   for e in prof.key_averages()
-                   if _device_us(e) > 0 and e.key != HASH_STEP),
+    peak = torch.cuda.max_memory_allocated()
+    averages = [e for e in prof.key_averages() if _device_us(e) > 0]
+    rows = sorted(((e.key, _device_us(e), e.count) for e in averages
+                   if e.key != HASH_STEP
+                   and not e.key.startswith(SETUP_RANGE)),
                   key=lambda r: -r[1])
+    ranges = {e.key: _device_us(e) / 1e3 for e in averages
+              if e.key.startswith(SETUP_RANGE)}
     device_ms = sum(r[1] for r in rows) / 1e3
     wall_ms = walls[len(walls) // 2]
     return {"wall_ms": walls, "device_ms": device_ms,
             "hash_step": _hash_step(prof),
+            "setup_range_device_ms": ranges or None,
             "device_events": sum(r[2] for r in rows),
             "idle_share": 1.0 - device_ms / wall_ms if rows else None,
+            "peak_memory_bytes": peak,
             "kernels": [{"name": k[:96], "device_ms": us / 1e3, "count": n}
                         for k, us, n in rows[:top]],
             "port_kernels": [{"name": k[:96], "device_ms": us / 1e3,
@@ -187,6 +204,9 @@ def main() -> int:
             calls["amg_cg"] = lambda: _cg(torch, rt, g, rt.amg_setup)
         if label == "Elasticity3D_60":
             calls["gs_cg"] = lambda: _cg(torch, rt, g, rt.cluster_gs_setup)
+            calls["gs_setup"] = lambda: rt.cluster_gs_setup(g)
+        if label != "Powerlaw_1M":
+            calls["amg_setup"] = lambda: rt.amg_setup(g)
         if label == "Powerlaw_1M":
             calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
             calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
