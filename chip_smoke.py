@@ -65,7 +65,13 @@ Phases (any failure raises, and the script exits non-zero):
    Laplace3D_100, and every ``ABLATION_CHAIN`` entry through
    ``engine=None`` on the two paper graphs (engine chosen, anchors, warm
    wall times, speed-up over ``baseline_bell``);
-9. time each kernel (CUDA events, L2 flushed before each launch), its twin
+9. distance-k MIS and the multilevel partition on Laplace3D_100:
+   ``misk`` with k = 1, 2, 3 on both engines (``dense``, ``resident``;
+   equal digests, ``engine=None`` taking ``dense``) and ``partition(·, 8)``
+   (parts digest, edge cut, levels and per-level history) against the
+   reference's (``tools/reference_misk_partition.py``), the partition's
+   coarsening launching the fused kernels;
+10. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside its bound (bytes, float32 flops or the integer
    instructions of the §V-A hashes, whichever takes longest; the
@@ -76,7 +82,8 @@ Phases (any failure raises, and the script exits non-zero):
    (and on Powerlaw_1M of the hybrid ``mis2`` / ``coarsen`` / ``color``),
    of the setup phases of both multilevel engines (and of the
    Elasticity3D_60 cluster-GS setup's coarse graph, on each), of one
-   V-cycle, one GS apply on each paper graph and each CG solve.
+   V-cycle, one GS apply on each paper graph and each CG solve, and three
+   warm calls of each ``misk`` and of the partition of phase 9.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -141,6 +148,17 @@ CLUSTER_GS = {
                           cg_iterations=115),
 }
 COLOR_L8 = (5, "3f45a9cfe50afa1e")
+# the reference's misk (its dense and resident engines agree) and
+# partition(·, 8) on Laplace3D_100 (JAX on the CPU,
+# tools/reference_misk_partition.py): k -> (size, rounds, digest)
+MISK_L100 = {1: (303_652, 5, "becd69374ff06b3d"),
+             2: (90_270, 6, "5529f8a677cf037c"),
+             3: (43_462, 7, "595623d529e0495d")}
+PARTITION_L100 = dict(
+    parts=8, edge_cut=68_545, levels=5, digest="bd7cffe49f41a935",
+    history=[(147_865, 1_798_969), (14_048, 217_086), (1_066, 16_306),
+             (82, 1_010)])
+FUSED = ("fused_refresh_columns", "fused_decide")
 CG_TOL = 1e-6
 
 # the reference's pallas_hybrid path on powerlaw_graph(1_000_000, 8.0,
@@ -665,10 +683,19 @@ def main() -> int:
     for k in UNFUSED:
         check(counts[k] > 0, f"{k} was never launched on the host-driven path")
     emit({"phase": "compacted_path", "launches": counts, **compacted})
+
+    # -- 9. distance-k MIS and the multilevel partition -------------------------
+    launches.reset()
+    misk_part = _misk_partition_path(rt, np, l100, launches)
+    counts = launches.read()
+    add_path(counts)
+    for k in FUSED:
+        check(counts[k] > 0, f"{k} was never launched by the partition")
+    emit({"phase": "misk_partition_path", "launches": counts, **misk_part})
     for k in KERNELS:
         check(path_launches[k] > 0, f"{k} was never launched on a path")
 
-    # -- 9. timing ------------------------------------------------------------------
+    # -- 10. timing -----------------------------------------------------------------
     timing = {}
     for label in PAPER_GRAPHS:
         timing[label] = _time_kernels(torch, graphs[label], ops, ref, id_bits)
@@ -733,6 +760,13 @@ def main() -> int:
         ("color", lambda: rt.color(pl, engine="luby_hybrid")))}
     emit({"phase": "timing_hybrid", "graph": "Powerlaw_1M",
           "slabs": sliced_time, "end_to_end_wall_ms": pl_e2e})
+    emit({"phase": "timing_misk_partition", "graph": "Laplace3D_100",
+          "wall_ms": {
+              **{f"misk k={k} {e}": _wall_ms(
+                  torch, lambda k=k, e=e: rt.misk(l100, k=k, engine=e))
+                 for k in MISK_L100 for e in ("dense", "resident")},
+              "partition": _wall_ms(
+                  torch, lambda: rt.partition(l100, PARTITION_L100["parts"]))}})
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -776,6 +810,45 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _misk_partition_path(rt, np, g, launches) -> dict:
+    """``misk`` (k = 1, 2, 3, both engines and ``engine=None``) and
+    ``partition(g, 8)`` against the reference's Laplace3D_100 anchors; the
+    partition's coarsening must launch the fused kernels."""
+    out = {"numpy": np.__version__, "misk": {}}
+    for k, want in MISK_L100.items():
+        for engine in ("dense", "resident", None):
+            r = rt.misk(g, k=k, engine=engine)
+            name = engine or "dense"
+            got = (r.size, r.iterations, r.digest)
+            check(got == want, f"misk k={k} {engine}: {got} != {want}")
+            check(r.converged and r.engine == f"misk{k}_{name}",
+                  f"misk k={k} {engine}: converged {r.converged}, engine "
+                  f"{r.engine}")
+            check(r.host_syncs == r.iterations + 1,
+                  f"misk k={k} {engine}: {r.host_syncs} host syncs in "
+                  f"{r.iterations} rounds")
+            if engine is not None:
+                out["misk"][f"k={k} {engine}"] = dict(
+                    size=r.size, iterations=r.iterations, digest=r.digest,
+                    host_syncs=r.host_syncs, first_call_s=r.wall_time_s)
+    want = PARTITION_L100
+    before = launches.read()
+    p = rt.partition(g, want["parts"])
+    after = launches.read()
+    got = dict(parts=p.num_parts, edge_cut=p.edge_cut, levels=p.levels,
+               digest=p.digest, history=[tuple(h) for h in p.history])
+    check(got == want, f"partition: {got} != {want}")
+    check(p.converged and p.parts.shape == (g.num_vertices,),
+          f"partition: converged {p.converged}, parts {p.parts.shape}")
+    check(int(p.parts.min()) >= 0 and int(p.parts.max()) < want["parts"],
+          "partition: a part id out of range")
+    loads = np.bincount(p.parts, minlength=want["parts"])
+    out["partition"] = dict(got, first_call_s=p.wall_time_s,
+                            loads=loads.tolist(),
+                            launches={k: after[k] - before[k] for k in FUSED})
+    return out
 
 
 def _stage2_stream(torch, rt, g):

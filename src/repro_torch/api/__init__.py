@@ -1,8 +1,22 @@
 """``repro_torch.api`` — the public surface of the port."""
 from ..core.mis2 import ABLATION_CHAIN, Mis2Options
 from . import engines as _engines  # noqa: F401  (registers built-in engines)
-from .backend import DEFAULT_MIS2_ENGINE, Backend, default_multilevel_engine
-from .facade import amg, amg_setup, cluster_gs_setup, coarsen, color, mis2
+from .backend import (
+    DEFAULT_MIS2_ENGINE,
+    Backend,
+    default_misk_engine,
+    default_multilevel_engine,
+)
+from .facade import (
+    amg,
+    amg_setup,
+    cluster_gs_setup,
+    coarsen,
+    color,
+    mis2,
+    misk,
+    partition,
+)
 from .registry import get_engine, list_engines, register_engine
 from .result import (
     AggregationResult,
@@ -10,14 +24,16 @@ from .result import (
     ClusterGsSetup,
     ColoringResult,
     Mis2Result,
+    PartitionResult,
     Result,
     determinism_digest,
 )
 
 __all__ = [
-    "mis2", "coarsen", "color", "amg_setup", "amg", "cluster_gs_setup",
-    "Backend", "DEFAULT_MIS2_ENGINE", "default_multilevel_engine",
-    "get_engine", "list_engines", "register_engine", "AggregationResult",
-    "AmgSetup", "ClusterGsSetup", "ColoringResult", "Mis2Result", "Result",
-    "determinism_digest", "Mis2Options", "ABLATION_CHAIN",
+    "mis2", "misk", "coarsen", "color", "partition", "amg_setup", "amg",
+    "cluster_gs_setup", "Backend", "DEFAULT_MIS2_ENGINE",
+    "default_misk_engine", "default_multilevel_engine", "get_engine",
+    "list_engines", "register_engine", "AggregationResult", "AmgSetup",
+    "ClusterGsSetup", "ColoringResult", "Mis2Result", "PartitionResult",
+    "Result", "determinism_digest", "Mis2Options", "ABLATION_CHAIN",
 ]

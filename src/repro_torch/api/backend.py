@@ -63,6 +63,13 @@ def default_mis2_engine(graph, options=None) -> str:
     return "cuda_compacted" if kernel_layout else "compacted"
 
 
+def default_misk_engine() -> str:
+    """The ``engine=None`` rule of ``misk``: always ``dense``, as in the
+    reference (``resident``, the worklist refresh, gives the same sets and
+    is kept for the ablation)."""
+    return "dense"
+
+
 def default_multilevel_engine(graph) -> str:
     """The ``engine=None`` rule of ``amg_setup`` / ``cluster_gs_setup``:
     ``resident`` (the whole per-level setup on the device) for a graph on

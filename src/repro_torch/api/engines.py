@@ -6,6 +6,9 @@
 * ``coloring``:    fn(graph, max_rounds) -> core ColoringResult
 * ``multilevel``:  fn(kind, graph, **kwargs) with kind 'amg' | 'cluster_gs'
                    -> AMGHierarchy | cluster-GS setup tuple
+* ``misk``:        fn(graph, k, priority, max_iters) -> core Mis2Result
+* ``partition``:   fn(graph, num_parts, coarse_target, options)
+                   -> core PartitionResult
 """
 from __future__ import annotations
 
@@ -22,10 +25,13 @@ from ..core.mis2 import (
     _mis2_resident_plain_impl,
 )
 from ..core.mis2_hybrid import _mis2_hybrid_impl
+from ..core.misk import _mis_k_impl, _misk_resident_impl
+from ..core.partition import _partition_impl
 from ..multilevel.hierarchy import (
     _build_hierarchy_impl,
     _cluster_gs_setup_impl,
 )
+from .backend import default_mis2_engine
 from .registry import register_engine
 
 register_engine("mis2", "dense")(_mis2_dense_impl)
@@ -71,3 +77,13 @@ def _multilevel(engine: str):
 
 register_engine("multilevel", "host")(_multilevel("host"))
 register_engine("multilevel", "resident")(_multilevel("resident"))
+
+register_engine("misk", "dense")(_mis_k_impl)
+register_engine("misk", "resident")(_misk_resident_impl)
+
+
+@register_engine("partition", "multilevel")
+def _partition_multilevel(graph, num_parts, coarse_target, options):
+    return _partition_impl(
+        graph, num_parts, coarse_target, options,
+        lambda level: default_mis2_engine(level, options))

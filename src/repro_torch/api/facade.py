@@ -1,4 +1,4 @@
-"""The public facade: ``mis2`` and ``coarsen`` with the JAX package's
+"""The public facade: one call per pipeline with the JAX package's
 signatures (``repro.api.facade``), engines dispatched by name, results in
 the :class:`~repro_torch.api.result.Result` form.
 
@@ -7,7 +7,9 @@ the :class:`~repro_torch.api.result.Result` form.
     a = rt.Graph(rt.graphs.laplace3d(100))
     r = rt.mis2(a)                           # cuda_resident on the card
                                              # (cuda_hybrid past 256 MiB)
+    r3 = rt.misk(a, k=3)                     # distance-3 MIS
     agg = rt.coarsen(a, method="two_phase")
+    parts = rt.partition(a, 8)               # multilevel, MIS-2 coarsening
     amg = rt.amg_setup(a)                    # SA-AMG hierarchy, set up on
     gs = rt.cluster_gs_setup(a)              # the card (engine resident)
     # then rt.solvers.cg(matvec, b, precond=amg.as_precond(), tol=1e-6)
@@ -24,6 +26,7 @@ from ..graphs.handle import Graph, as_graph
 from .backend import (
     Backend,
     default_mis2_engine,
+    default_misk_engine,
     default_multilevel_engine,
     resolve_backend,
 )
@@ -34,6 +37,7 @@ from .result import (
     ClusterGsSetup,
     ColoringResult,
     Mis2Result,
+    PartitionResult,
 )
 
 
@@ -65,6 +69,26 @@ def mis2(graph, *, active=None, options: Mis2Options | None = None,
     dt = time.perf_counter() - t0
     return Mis2Result(r.in_set, r.iterations, r.converged, dt, engine=engine,
                       host_syncs=r.host_syncs, collectives=r.collectives,
+                      num_compiles=r.num_compiles)
+
+
+def misk(graph, k: int = 2, *, priority: str = "xorshift_star",
+         max_iters: int = 256, engine: str | None = None,
+         backend: Backend | None = None) -> Mis2Result:
+    """Distance-k maximal independent set (k-fold min-propagation):
+    ``dense`` and ``resident`` (the worklist refresh) return bit-identical
+    sets, equal to the JAX package's.  ``engine=None`` selects ``dense``.
+    ``result.engine`` is ``f"misk{k}_{engine}"``; ``host_syncs`` counts the
+    one live-flag read a round."""
+    be = resolve_backend(backend)
+    gh = _prepare(graph, be)
+    engine = default_misk_engine() if engine is None else engine
+    fn = get_engine("misk", engine)
+    t0 = time.perf_counter()
+    r = fn(gh, k, priority, max_iters)
+    dt = time.perf_counter() - t0
+    return Mis2Result(r.in_set, r.iterations, r.converged, dt,
+                      engine=f"misk{k}_{engine}", host_syncs=r.host_syncs,
                       num_compiles=r.num_compiles)
 
 
@@ -107,6 +131,27 @@ def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
     dt = time.perf_counter() - t0
     return ColoringResult(r.colors, r.rounds, r.converged, dt,
                           num_colors=r.num_colors, host_syncs=r.host_syncs)
+
+
+def partition(graph, num_parts: int, *, coarse_target: int | None = None,
+              options: Mis2Options | None = None,
+              engine: str = "multilevel",
+              backend: Backend | None = None) -> PartitionResult:
+    """Multilevel graph partitioning via MIS-2 aggregation (paper §VII):
+    parts, edge cut, levels and per-level ``(V, E)`` history equal to the
+    JAX package's.  Each level coarsens on the device (the inner MIS-2 as
+    ``coarsen`` selects it: ``cuda_resident`` on the card); the greedy
+    split of the coarsest graph and the refinement's moves run on the
+    host."""
+    be = resolve_backend(backend)
+    gh = _prepare(graph, be)
+    fn = get_engine("partition", engine)
+    t0 = time.perf_counter()
+    r = fn(gh, num_parts, coarse_target, options)
+    dt = time.perf_counter() - t0
+    return PartitionResult(r.parts, r.levels, r.converged, dt,
+                           num_parts=r.num_parts, edge_cut=r.edge_cut,
+                           levels=r.levels, history=list(r.history))
 
 
 def amg_setup(matrix, *, aggregation: str = "two_phase",

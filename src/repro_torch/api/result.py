@@ -109,6 +109,23 @@ class ColoringResult(Result):
 
 
 @dataclass
+class PartitionResult(Result):
+    """Multilevel partition: ``payload`` is the int32 part id per vertex
+    (so ``digest`` is the parts digest); ``iterations`` and ``levels`` are
+    the number of graphs in the hierarchy, ``history`` the ``(V, E)`` of
+    each coarse one."""
+
+    num_parts: int = 0
+    edge_cut: int = 0
+    levels: int = 0
+    history: list = field(default_factory=list)
+
+    @property
+    def parts(self) -> np.ndarray:
+        return self.payload
+
+
+@dataclass
 class AmgSetup(Result):
     """AMG hierarchy setup: ``payload`` is the ``[levels, 2]`` (n, nnz)
     table; the usable hierarchy hangs off ``.hierarchy`` /

@@ -177,6 +177,86 @@ def _mis2_dense_impl(graph, active=None,
     return Mis2Result((t == IN).cpu().numpy(), iters, not undecided, syncs)
 
 
+def mis2_dense_jittable(neighbors: torch.Tensor, active: torch.Tensor,
+                        priority: str = "xorshift_star",
+                        max_iters: int = MAX_ITERS_DEFAULT):
+    """:func:`mis2_dense_fixed_point` with ``b = id_bits(V)`` taken from
+    ``neighbors``' rows (the reference's public name, which the batched
+    pipelines call).  Returns ``(T widened int64 [V], iterations,
+    host_syncs)``."""
+    return mis2_dense_fixed_point(neighbors, active,
+                                  id_bits(neighbors.shape[0]), priority,
+                                  max_iters)
+
+
+# ===========================================================================
+# incremental repair (the streaming mode of the serving layer)
+# ===========================================================================
+
+def mis2_repair_fixed_point(neighbors: torch.Tensor, t_init: torch.Tensor,
+                            b: int, priority: str = "fixed",
+                            max_iters: int = MAX_ITERS_DEFAULT):
+    """Warm-started MIS-2 fixed point: the dense round, seeded from a prior
+    solution instead of all-undecided.
+
+    ``t_init`` (stored int32 or widened int64) holds IN / OUT on frozen
+    vertices and the undecided seed 1 on the reactivated region.  Frozen
+    vertices are never refreshed: a frozen IN poisons its distance-2
+    neighbourhood like a vertex decided mid-run, a frozen OUT is
+    invisible.  With the round-independent ``"fixed"`` priority the result
+    is the unique lexicographically-first MIS-2, so a repaired solution
+    with no :func:`lexfirst_violations` equals a from-scratch run bit for
+    bit.  Returns ``(T widened int64 [V], iterations, host_syncs)``;
+    ``iterations`` counts the rounds that had an undecided vertex.
+    """
+    nb = neighbors.to(torch.int64)
+    vids = torch.arange(nb.shape[0], device=nb.device)
+    prio_fn = PRIORITY_FNS[priority]
+    t = widen(t_init) if t_init.dtype == torch.int32 else t_init.clone()
+    it = syncs = 0
+    while it < max_iters:
+        und = is_undecided(t)
+        syncs += 1
+        if not bool(und.any()):     # the one host read a round
+            break
+        t = torch.where(und, pack(prio_fn(it, vids), vids, b), t)
+        m = t[nb].amin(dim=1)
+        m = torch.where(m == IN, OUT, m)
+        mn = m[nb]
+        any_out = (mn == OUT).any(dim=1)
+        all_eq = (mn == t[:, None]).all(dim=1)
+        t = torch.where(und & any_out, OUT, t)
+        t = torch.where(und & ~any_out & all_eq, IN, t)
+        it += 1
+    return t, it, syncs
+
+
+def lexfirst_violations(neighbors: torch.Tensor, in_set: torch.Tensor,
+                        p: torch.Tensor) -> torch.Tensor:
+    """Vertices violating the lex-first MIS-2 recurrence (bool ``[V]``).
+
+    Under the packed priority total order ``p`` (widened int64) the
+    lex-first MIS-2 is the unique assignment with ``v`` IN iff no member
+    within distance 2 has a smaller priority.  ``m2[v]``, two closed
+    min-propagations of the members' priorities, is the smallest member
+    priority within distance 2: an IN ``v`` must see ``m2 == p[v]``, an OUT
+    one ``m2 < p[v]`` (which also covers maximality)."""
+    nb = neighbors.to(torch.int64)
+    pin = torch.where(in_set, p, OUT)
+    m1 = torch.minimum(pin[nb].amin(dim=1), pin)
+    m2 = torch.minimum(m1[nb].amin(dim=1), m1)
+    return ~torch.where(in_set, m2 == p, m2 < p)
+
+
+def fixed_packed_priorities(num_vertices: int,
+                            device: torch.device | str = "cuda"
+                            ) -> torch.Tensor:
+    """The packed ``"fixed"``-priority total order (widened int64 ``[V]``)
+    under which the MIS-2 fixed point computes the lex-first set."""
+    vids = torch.arange(num_vertices, device=device)
+    return pack(PRIORITY_FNS["fixed"](0, vids), vids, id_bits(num_vertices))
+
+
 # ===========================================================================
 # device-resident engine on the fused kernels
 # ===========================================================================

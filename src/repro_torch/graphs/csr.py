@@ -219,3 +219,72 @@ def ensure_self_loops(g: CSRGraph) -> CSRGraph:
     rows = np.concatenate([rows, missing])
     cols = np.concatenate([g.indices, missing])
     return csr_from_coo(rows.astype(np.int64), cols.astype(np.int64), v)
+
+
+def symmetrize(g: CSRGraph) -> CSRGraph:
+    """The graph plus its transpose (host; sorted, deduplicated)."""
+    v = g.num_vertices
+    rows = np.repeat(np.arange(v), np.diff(g.indptr))
+    return csr_from_coo(np.concatenate([rows, g.indices]),
+                        np.concatenate([g.indices, rows]), v)
+
+
+def degrees(g: CSRGraph) -> np.ndarray:
+    """Entries per row (host)."""
+    return np.diff(g.indptr)
+
+
+# ---------------------------------------------------------------------------
+# degree-bucketed ELL: one padded block per degree class, so a skewed graph
+# does not pay max-degree padding on every row
+# ---------------------------------------------------------------------------
+
+class BucketedELL(NamedTuple):
+    """``rows[i]`` (int32 vertex ids) and ``graphs[i]`` (their ELL block,
+    padding = the row's own id) of degree bucket ``i``, on one device."""
+
+    rows: tuple       # tuple of int32 tensors
+    graphs: tuple     # tuple of ELLGraph
+
+    @property
+    def num_vertices(self) -> int:
+        return int(sum(len(r) for r in self.rows))
+
+    @property
+    def padding_ratio(self) -> float:
+        """Padded slots / real entries (1.0 = no waste)."""
+        padded = sum(g.neighbors.shape[0] * g.width for g in self.graphs)
+        real = sum(int(g.mask.sum()) for g in self.graphs)
+        return padded / max(1, real)
+
+    def to(self, device: torch.device | str) -> "BucketedELL":
+        return BucketedELL(
+            tuple(r.to(device) for r in self.rows),
+            tuple(ELLGraph(*(x.to(device) for x in g)) for g in self.graphs))
+
+
+def csr_to_bucketed_ell(g: CSRGraph, boundaries=(8, 32, 128), *,
+                        device: torch.device | str) -> BucketedELL:
+    """Split the rows into degree buckets (``<= 8``, ``<= 32``, ``<= 128``,
+    the rest; rows of degree 0 in none), each padded to its own widest row,
+    on ``device``: the JAX package's buckets, built without a row loop."""
+    deg = np.diff(g.indptr)
+    top = int(deg.max())
+    edges = [0] + [b for b in boundaries if b < top] + [top]
+    rows_out, graphs_out = [], []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        sel = np.flatnonzero((deg > lo) & (deg <= hi))
+        if len(sel) == 0:
+            continue
+        d = deg[sel]
+        width = int(d.max())
+        pos = np.repeat(np.arange(len(sel)), d)
+        slot = np.arange(len(pos)) - np.repeat(np.cumsum(d) - d, d)
+        nbrs = np.repeat(sel.astype(np.int32)[:, None], width, axis=1)
+        mask = np.zeros((len(sel), width), dtype=bool)
+        nbrs[pos, slot] = g.indices[np.repeat(g.indptr[sel], d) + slot]
+        mask[pos, slot] = True
+        rows_out.append(torch.from_numpy(sel.astype(np.int32)).to(device))
+        graphs_out.append(ELLGraph(torch.from_numpy(nbrs).to(device),
+                                   torch.from_numpy(mask).to(device)))
+    return BucketedELL(tuple(rows_out), tuple(graphs_out))

@@ -7,7 +7,8 @@
   (81 entries per interior row at dof=3); values are a diagonally dominant
   SPD surrogate.
 * ``random_uniform_graph`` / ``random_skewed_graph`` / ``path_graph`` —
-  the random and toy graphs of the test and benchmark suites.
+  the random and toy graphs of the test and benchmark suites;
+  ``er_laplacian`` — the Laplacian (+I) of such a random graph.
 * ``powerlaw_graph`` — the Chung-Lu power-law graph whose hub rows make
   the monolithic padded ELL infeasible at V = 1M (the hybrid layout's
   case).
@@ -115,6 +116,25 @@ def random_uniform_graph(num_vertices: int, avg_degree: float, seed: int = 0,
     rows = rng.integers(0, num_vertices, size=m, dtype=np.int64)
     cols = rng.integers(0, num_vertices, size=m, dtype=np.int64)
     return _symmetric(rows, cols, num_vertices, with_self_loops)
+
+
+def er_laplacian(num_vertices: int, avg_degree: float,
+                 seed: int = 0) -> CSRMatrix:
+    """Graph Laplacian (+I, so it is SPD with a full diagonal) of an
+    Erdos-Renyi graph: the random *matrix* companion of
+    :func:`random_uniform_graph` (host, scipy, float32 values)."""
+    import scipy.sparse as sp
+
+    g = random_uniform_graph(num_vertices, avg_degree, seed=seed,
+                             with_self_loops=False)
+    off = sp.csr_matrix((np.ones(len(g.indices)), g.indices, g.indptr),
+                        shape=(num_vertices, num_vertices))
+    lap = sp.diags(np.asarray(off.sum(axis=1)).ravel() + 1.0) - off
+    lap = lap.tocsr()
+    lap.sort_indices()
+    return CSRMatrix(lap.indptr.astype(np.int32),
+                     lap.indices.astype(np.int32),
+                     lap.data.astype(np.float32))
 
 
 def random_skewed_graph(num_vertices: int, avg_degree: float, seed: int = 0,

@@ -9,7 +9,10 @@ multilevel setup is one): its sizes then come from the ELL's shape and
 mask on the device, and the host CSR is built only when asked for
 (``ell_to_csr``).
 ``graph.conversions`` counts the times each conversion's work actually ran,
-so a second ``.ell`` access is visibly a cache hit.
+so a second ``.ell`` access is visibly a cache hit, and
+``graph.conversion_timings`` sums the host seconds each kind took (no
+device synchronize: a conversion that ends in an asynchronous copy is timed
+to its enqueue).
 
 ``Graph.digest`` hashes the CSR bytes exactly as the JAX package does
 (numpy dtype names, shapes, raw bytes), so a graph and its reference twin
@@ -18,19 +21,25 @@ share a digest.
 from __future__ import annotations
 
 import hashlib
-from typing import Any
+import time
+from contextlib import contextmanager
+from typing import Any, Iterable
 
 import numpy as np
 import torch
 
 from .csr import (
+    BucketedELL,
     CSRGraph,
     CSRMatrix,
     ELLGraph,
     ELLMatrix,
+    csr_from_coo,
+    csr_to_bucketed_ell,
     csr_to_ell_graph,
     csr_to_ell_matrix,
     ell_to_csr_graph,
+    pad_ell_graph,
 )
 from .hybrid import ELL_BYTES_PER_SLOT, HybridEllGraph, csr_to_hybrid_ell
 
@@ -55,6 +64,10 @@ class LayoutOverflowError(MemoryError):
             f"intentional.")
 
 
+#: cache entries of an ELL-seeded handle that hold a scalar, not a format
+_SCALAR_KEYS = ("num_entries", "max_degree")
+
+
 def ell_bytes_estimate(num_rows: int, width: int) -> int:
     """Bytes a monolithic padded-ELL graph would allocate."""
     return int(num_rows) * int(width) * ELL_BYTES_PER_SLOT
@@ -67,7 +80,8 @@ class Graph:
     ``CSRMatrix`` (the device defaults to ``cuda``) or a device
     ``ELLGraph`` / ``ELLMatrix`` (the device defaults to its tensors').
     ``g.csr`` / ``g.csr_matrix`` are host numpy, ``g.ell`` /
-    ``g.ell_matrix`` are tensors on ``g.device``.
+    ``g.ell_matrix`` / ``g.padded_ell(rows, width)`` / ``g.bucketed()`` /
+    ``g.hybrid()`` are tensors on ``g.device``.
     """
 
     def __init__(self, structure, device: torch.device | str | None = None):
@@ -80,6 +94,7 @@ class Graph:
                             f"ELLMatrix, got {type(structure).__name__}")
         self._cache: dict[str, Any] = {}
         self._counts: dict[str, int] = {}
+        self._timings: dict[str, float] = {}
         if isinstance(structure, CSRMatrix):
             self._cache["csr_matrix"] = structure
             self._cache["csr"] = structure.graph
@@ -98,6 +113,14 @@ class Graph:
             self._device = torch.device("cuda" if device is None else device)
 
     # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def from_coo(cls, rows, cols, num_vertices: int, vals=None,
+                 device: torch.device | str = "cuda") -> "Graph":
+        """A graph (``vals`` None) or matrix from COO triples, sorted and
+        deduplicated (duplicate values summed) by ``csr_from_coo``."""
+        return cls(csr_from_coo(np.asarray(rows), np.asarray(cols),
+                                num_vertices, vals), device)
 
     @classmethod
     def from_reference(cls, indptr, indices, values=None,
@@ -122,28 +145,39 @@ class Graph:
         conversions build there."""
         device = torch.device(device)
         if device != self._device:
-            for key in ("ell", "ell_matrix"):
-                if key in self._cache:
-                    self._cache[key] = type(self._cache[key])(
-                        *(x.to(device) for x in self._cache[key]))
-            if "csr_edges" in self._cache:
-                self._cache["csr_edges"] = tuple(
-                    x.to(device) for x in self._cache["csr_edges"])
             for key, val in self._cache.items():
-                if isinstance(val, HybridEllGraph):
+                if isinstance(val, (ELLGraph, ELLMatrix)):
+                    self._cache[key] = type(val)(*(x.to(device) for x in val))
+                elif isinstance(val, (HybridEllGraph, BucketedELL)):
                     self._cache[key] = val.to(device)
+                elif key == "csr_edges":
+                    self._cache[key] = tuple(x.to(device) for x in val)
             self._device = device
         return self
 
     # -- cache plumbing -----------------------------------------------------
 
-    def _count(self, name: str) -> None:
+    @contextmanager
+    def _convert(self, name: str):
+        """Count and time one conversion's work (a conversion that raises
+        is not counted).  Callers read the formats it needs (``self.csr``,
+        ``self.ell``) before entering, so a nested conversion is counted and
+        timed under its own kind."""
+        t0 = time.perf_counter()
+        yield
         self._counts[name] = self._counts.get(name, 0) + 1
+        self._timings[name] = (self._timings.get(name, 0.0)
+                               + time.perf_counter() - t0)
 
     @property
     def conversions(self) -> dict[str, int]:
         """Times each conversion's work actually ran (cache hits excluded)."""
         return dict(self._counts)
+
+    @property
+    def conversion_timings(self) -> dict[str, float]:
+        """Host seconds spent per conversion kind (this handle)."""
+        return dict(self._timings)
 
     # -- structural formats -------------------------------------------------
 
@@ -154,8 +188,8 @@ class Graph:
     @property
     def csr(self) -> CSRGraph:
         if "csr" not in self._cache:       # ELL-seeded: one host copy
-            self._cache["csr"] = ell_to_csr_graph(self._cache["ell"])
-            self._count("ell_to_csr")
+            with self._convert("ell_to_csr"):
+                self._cache["csr"] = ell_to_csr_graph(self._cache["ell"])
         return self._cache["csr"]
 
     @property
@@ -170,10 +204,11 @@ class Graph:
     @property
     def ell(self) -> ELLGraph:
         if "ell" not in self._cache:
+            csr = self.csr
             self._check_ell_budget(self.num_vertices, self.max_degree)
-            self._cache["ell"] = csr_to_ell_graph(self.csr,
-                                                  device=self._device)
-            self._count("csr_to_ell")
+            with self._convert("csr_to_ell"):
+                self._cache["ell"] = csr_to_ell_graph(csr,
+                                                      device=self._device)
         return self._cache["ell"]
 
     @property
@@ -181,9 +216,9 @@ class Graph:
         if "ell_matrix" not in self._cache:
             csr_matrix = self.csr_matrix
             self._check_ell_budget(self.num_vertices, self.max_degree)
-            self._cache["ell_matrix"] = csr_to_ell_matrix(
-                csr_matrix, device=self._device)
-            self._count("csr_to_ell_matrix")
+            with self._convert("csr_to_ell_matrix"):
+                self._cache["ell_matrix"] = csr_to_ell_matrix(
+                    csr_matrix, device=self._device)
         return self._cache["ell_matrix"]
 
     @property
@@ -193,14 +228,27 @@ class Graph:
         ``csr_segment`` layout of the segment-reduction MIS-2 steps."""
         if "csr_edges" not in self._cache:
             csr = self.csr
-            rows = np.repeat(np.arange(csr.num_vertices, dtype=np.int32),
-                             np.diff(csr.indptr))
-            self._cache["csr_edges"] = (
-                torch.from_numpy(rows).to(self._device),
-                torch.from_numpy(np.array(csr.indices, dtype=np.int32)).to(
-                    self._device))
-            self._count("csr_edges")
+            with self._convert("csr_edges"):
+                rows = np.repeat(np.arange(csr.num_vertices, dtype=np.int32),
+                                 np.diff(csr.indptr))
+                self._cache["csr_edges"] = (
+                    torch.from_numpy(rows).to(self._device),
+                    torch.from_numpy(np.array(csr.indices,
+                                              dtype=np.int32)).to(
+                        self._device))
         return self._cache["csr_edges"]
+
+    def padded_ell(self, num_rows: int, width: int) -> ELLGraph:
+        """``.ell`` padded to ``[num_rows, width]`` (self slots, mask off)
+        on the handle's device, cached per shape; the target's bytes are
+        checked against ``ELL_BYTE_LIMIT`` before anything is built."""
+        key = f"padded_ell({num_rows},{width})"
+        if key not in self._cache:
+            self._check_ell_budget(num_rows, width)
+            ell = self.ell
+            with self._convert("pad_ell"):
+                self._cache[key] = pad_ell_graph(ell, num_rows, width)
+        return self._cache[key]
 
     @staticmethod
     def _check_ell_budget(num_rows: int, width: int) -> None:
@@ -220,10 +268,23 @@ class Graph:
         device, cached per ``(widths, spill_cap)``; never builds ``.ell``."""
         key = f"hybrid({widths},{spill_cap})"
         if key not in self._cache:
-            self._cache[key] = csr_to_hybrid_ell(
-                self.csr, widths=widths, spill_cap=spill_cap,
-                device=self._device)
-            self._count("csr_to_hybrid")
+            csr = self.csr
+            with self._convert("csr_to_hybrid"):
+                self._cache[key] = csr_to_hybrid_ell(
+                    csr, widths=widths, spill_cap=spill_cap,
+                    device=self._device)
+        return self._cache[key]
+
+    def bucketed(self, boundaries: Iterable[int] = (8, 32, 128)
+                 ) -> BucketedELL:
+        """Degree-bucketed ELL (``csr_to_bucketed_ell``) on the handle's
+        device, cached per ``boundaries``."""
+        key = f"bucketed{tuple(boundaries)}"
+        if key not in self._cache:
+            csr = self.csr
+            with self._convert("csr_to_bucketed_ell"):
+                self._cache[key] = csr_to_bucketed_ell(
+                    csr, tuple(boundaries), device=self._device)
         return self._cache[key]
 
     @property
@@ -231,17 +292,17 @@ class Graph:
         """Content digest (16 hex chars) of the CSR structure plus values,
         byte-compatible with ``repro.Graph.digest``."""
         if "digest" not in self._cache:
-            h = hashlib.sha256()
             arrays = [self.csr.indptr, self.csr.indices]
             if self.has_values:
                 arrays.append(self.csr_matrix.values)
-            for arr in arrays:
-                a = np.asarray(arr)
-                h.update(str(a.dtype).encode())
-                h.update(str(a.shape).encode())
-                h.update(a.tobytes())
-            self._cache["digest"] = h.hexdigest()[:16]
-            self._count("digest")
+            with self._convert("digest"):
+                h = hashlib.sha256()
+                for arr in arrays:
+                    a = np.asarray(arr)
+                    h.update(str(a.dtype).encode())
+                    h.update(str(a.shape).encode())
+                    h.update(a.tobytes())
+                self._cache["digest"] = h.hexdigest()[:16]
         return self._cache["digest"]
 
     # -- stats --------------------------------------------------------------
@@ -271,12 +332,12 @@ class Graph:
     @property
     def degrees(self) -> np.ndarray:
         if "degrees" not in self._cache:
-            if self._ell_seeded():
-                deg = self._cache["ell"].mask.sum(dim=1).cpu().numpy()
-            else:
-                deg = np.diff(self.csr.indptr)
-            self._cache["degrees"] = deg
-            self._count("degrees")
+            with self._convert("degrees"):
+                if self._ell_seeded():
+                    deg = self._cache["ell"].mask.sum(dim=1).cpu().numpy()
+                else:
+                    deg = np.diff(self.csr.indptr)
+                self._cache["degrees"] = deg
         return self._cache["degrees"]
 
     @property
@@ -288,6 +349,20 @@ class Graph:
         d = self.degrees
         return int(d.max()) if len(d) else 0
 
+    def stats(self) -> dict:
+        """Sizes, degree summary and the cached formats (the reference's
+        keys; the ELL-seeded handle's cached scalars are not formats)."""
+        d = self.degrees
+        return {
+            "num_vertices": self.num_vertices,
+            "num_entries": self.num_entries,
+            "max_degree": self.max_degree,
+            "avg_degree": float(d.mean()) if len(d) else 0.0,
+            "has_values": self.has_values,
+            "cached_formats": sorted(k for k in self._cache
+                                     if k not in _SCALAR_KEYS),
+        }
+
     def __repr__(self) -> str:
         fmts = ",".join(sorted(self._cache))
         return (f"Graph(V={self.num_vertices}, E={self.num_entries}, "
@@ -297,3 +372,13 @@ class Graph:
 def as_graph(obj, device: torch.device | str | None = None) -> Graph:
     """Coerce a CSR or ELL container (or handle) to a Graph handle."""
     return obj if isinstance(obj, Graph) else Graph(obj, device)
+
+
+def as_ell_graph(obj) -> ELLGraph:
+    """An ``ELLGraph`` as is, else the handle's (cached) ``.ell``."""
+    return obj if isinstance(obj, ELLGraph) else as_graph(obj).ell
+
+
+def as_csr_graph(obj) -> CSRGraph:
+    """A ``CSRGraph`` as is, else the handle's (cached) ``.csr``."""
+    return obj if isinstance(obj, CSRGraph) else as_graph(obj).csr

@@ -2,7 +2,14 @@
 ``repro.graphs.ops``).
 
 * :func:`spmv_ell` — ``y = A x`` over a device ELL matrix, through the
-  hand-written SpMV kernel (``kernels.spmv_ell``);
+  hand-written SpMV kernel (``kernels.spmv_ell``); :func:`spmv_csr_segment`
+  — the same product as a segment sum over the CSR entries (the
+  no-coalescing baseline layout, plain torch, as the reference computes it
+  outside any Pallas kernel);
+* :func:`neighbor_min`, :func:`neighbor_all_eq`, :func:`neighbor_any_eq`
+  — the closed-neighbourhood reductions of the MIS-2 inner loops over a
+  device ELL graph;
+* :func:`graph_power2` — ``G^2`` with self loops (host, scipy);
 * :func:`extract_diagonal` — the diagonal of a CSR matrix, on a device;
   :func:`ell_diagonal` — that of a device ELL matrix;
 * :func:`matrix_to_scipy`, :func:`coarse_graph_from_labels`,
@@ -16,12 +23,58 @@ import numpy as np
 import torch
 
 from ..kernels.spmv_ell import ops as spmv_ops
-from .csr import CSRGraph, CSRMatrix, ELLMatrix, csr_from_coo
+from .csr import CSRGraph, CSRMatrix, ELLGraph, ELLMatrix, csr_from_coo
 
 
 def spmv_ell(m: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in ELL form (padding has vals == 0)."""
     return spmv_ops.spmv(m.cols, m.vals, x)
+
+
+def spmv_csr_segment(m: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x as a segment sum of the CSR entries' products, on ``x``'s
+    device (the host CSR is copied there)."""
+    dev = x.device
+    indptr = torch.from_numpy(np.asarray(m.indptr, dtype=np.int64)).to(dev)
+    cols = torch.from_numpy(np.asarray(m.indices, dtype=np.int64)).to(dev)
+    vals = torch.from_numpy(np.asarray(m.values)).to(dev)
+    rows = torch.repeat_interleave(
+        torch.arange(m.num_rows, device=dev), torch.diff(indptr),
+        output_size=m.num_entries)
+    dtype = torch.promote_types(vals.dtype, x.dtype)
+    y = torch.zeros(m.num_rows, dtype=dtype, device=dev)
+    return y.index_add_(0, rows, vals * x[cols])
+
+
+def neighbor_min(ell: ELLGraph, t: torch.Tensor) -> torch.Tensor:
+    """min over w in N[v] of t[w] (closed: the self padding counts v)."""
+    return t[ell.neighbors].amin(dim=1)
+
+
+def neighbor_all_eq(ell: ELLGraph, m: torch.Tensor,
+                    t: torch.Tensor) -> torch.Tensor:
+    """For all w in N[v]: m[w] == t[v] (closed; a pad slot gives m[v])."""
+    return (m[ell.neighbors] == t[:, None]).all(dim=1)
+
+
+def neighbor_any_eq(ell: ELLGraph, m: torch.Tensor, value) -> torch.Tensor:
+    """Exists w in N[v]: m[w] == value (closed)."""
+    return (m[ell.neighbors] == value).any(dim=1)
+
+
+def graph_power2(g: CSRGraph) -> CSRGraph:
+    """G^2 with self loops (host, scipy): Lemma IV.2's graph, MIS-1(G^2) ==
+    MIS-2(G)."""
+    import scipy.sparse as sp
+
+    v = g.num_vertices
+    a = sp.csr_matrix((np.ones(g.num_entries, dtype=np.int8),
+                       np.asarray(g.indices, dtype=np.int64),
+                       np.asarray(g.indptr, dtype=np.int64)), shape=(v, v))
+    a = a + sp.identity(v, dtype=np.int8, format="csr")
+    a2 = (a @ a).tocsr()
+    a2.sort_indices()
+    return CSRGraph(a2.indptr.astype(np.int32), a2.indices.astype(np.int32))
 
 
 def coarse_graph_from_labels(g: CSRGraph, labels: np.ndarray,

@@ -162,3 +162,41 @@ def ref_ablation(name: str, entry: str, priority: str | None = None,
     r = repro.mis2(ref_graph(name), active=active_mask(name, active_seed),
                    options=opts, engine=engine)
     return r, HOTLOOP_STATS.host_syncs - before
+
+
+@functools.lru_cache(maxsize=None)
+def ref_misk(name: str, k: int, engine: str = "dense",
+             priority: str = "xorshift_star", max_iters: int = 256):
+    return repro.misk(ref_graph(name), k=k, engine=engine, priority=priority,
+                      max_iters=max_iters)
+
+
+#: the partitions of the parity matrix: (graph, parts, coarse_target); the
+#: facade's where its compiles are cheap, else the reference's core with
+#: its digest-equal compacted_resident inner engine (one compile a shape)
+PARTITIONS = {
+    "laplace3d(8)/4": ("laplace3d(8)", 4, None, "facade"),
+    "laplace3d(8)/8": ("laplace3d(8)", 8, None, "facade"),
+    "laplace3d(12)/8": ("laplace3d(12)", 8, None, "core"),
+    "laplace3d(12)/4/target50": ("laplace3d(12)", 4, 50, "core"),
+    "elasticity3d(4)/4/target20": ("elasticity3d(4)", 4, 20, "core"),
+    "elasticity3d(4)/3": ("elasticity3d(4)", 3, None, "facade"),
+    "uniform(2000,6)/4": ("uniform(2000,6)", 4, None, "core"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def ref_partition(case: str):
+    """``(parts digest, edge_cut, levels, history, converged)`` of the
+    reference on a ``PARTITIONS`` case."""
+    from repro.api.result import determinism_digest
+    from repro.core.partition import _partition_impl
+
+    name, parts, target, how = PARTITIONS[case]
+    if how == "facade":
+        r = repro.partition(ref_graph(name), parts, coarse_target=target)
+        return r.digest, r.edge_cut, r.levels, r.history, r.converged
+    r = _partition_impl(ref_graph(name), parts, target,
+                        engine="compacted_resident")
+    return (determinism_digest(r.parts), r.edge_cut, r.levels, r.history,
+            r.converged)

@@ -784,3 +784,45 @@ def test_cuda_compacted_on_the_card(cuda_device, no_twins_on_cuda,
     a = rt.coarsen(g, method="two_phase", mis2_engine="cuda_compacted")
     assert (a.num_aggregates, a.iterations, a.digest) == \
         ANCHORS["laplace3d(12)"][1]
+
+
+# -- distance-k MIS and the multilevel partition --------------------------------
+
+# the reference's misk (dense and resident give these) on laplace3d(8):
+# k -> (size, rounds, digest)
+MISK_L8 = {1: (174, 3, "bb3c6f919d05dea6"), 2: (53, 5, "0c5589862dc23fba"),
+           3: (31, 4, "32c79e9bbf96fafc")}
+
+
+@pytest.mark.parametrize("engine", ["dense", "resident"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_misk_on_the_card_equals_the_cpu(cuda_device, name, k, engine):
+    r = rt.misk(rt.Graph(GRAPHS[name]()), k=k, engine=engine)
+    want = rt.misk(rt.Graph(GRAPHS[name](), device="cpu"), k=k,
+                   engine=engine, backend=rt.Backend(device="cpu"))
+    assert (r.digest, r.iterations, r.converged, r.host_syncs) == (
+        want.digest, want.iterations, want.converged, want.host_syncs)
+    if name == "laplace3d(8)":
+        assert (r.size, r.iterations, r.digest) == MISK_L8[k]
+
+
+@pytest.mark.parametrize("name,parts", [("laplace3d(8)", 4),
+                                        ("laplace3d(12)", 8),
+                                        ("elasticity3d(4)", 3)])
+def test_partition_on_the_card_equals_the_cpu(cuda_device, no_twins_on_cuda,
+                                              name, parts):
+    before = dict(ops.LAUNCHES)
+    r = rt.partition(rt.Graph(GRAPHS[name]()), parts)
+    launched = {k: ops.LAUNCHES[k] - before[k]
+                for k in ("fused_refresh_columns", "fused_decide")}
+    want = rt.partition(rt.Graph(GRAPHS[name](), device="cpu"), parts,
+                        backend=rt.Backend(device="cpu"))
+    assert (r.digest, r.edge_cut, r.levels, r.history, r.converged) == (
+        want.digest, want.edge_cut, want.levels, want.history,
+        want.converged)
+    if r.levels > 1:                 # each level coarsens on the kernels
+        assert min(launched.values()) > 0
+    if name == "laplace3d(12)":
+        assert (r.edge_cut, r.levels, r.digest) == (766, 3,
+                                                    "7bc0dcd81b18c422")

@@ -29,7 +29,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.run_sums.ops, repro_torch.solvers,"
             "repro_torch.multilevel, repro_torch.graphs.ops,"
             "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid,"
-            "repro_torch.core.mis2, repro_torch.api.backend;"
+            "repro_torch.core.mis2, repro_torch.core.misk,"
+            "repro_torch.core.partition, repro_torch.api.backend;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -60,7 +61,10 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
         rt.mis2(g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rt.coarsen(g)
-    for entry in (rt.color, rt.amg_setup, rt.amg, rt.cluster_gs_setup):
+    for entry in (rt.color, rt.amg_setup, rt.amg, rt.cluster_gs_setup,
+                  rt.misk):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.partition(g, 2)
     assert "csr_to_ell" not in g.conversions

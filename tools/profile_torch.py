@@ -19,7 +19,10 @@ the same tol and b); on Powerlaw_1M
 and ``color(engine="luby_hybrid")`` too; the setups themselves, with
 ``engine=None`` (the ``resident`` multilevel engine on the card), as
 ``amg_setup`` on both paper graphs and ``gs_setup`` (``cluster_gs_setup``)
-on Elasticity3D_60.  Prints one JSON line per call
+on Elasticity3D_60; and, on the two paper graphs, ``misk`` (k = 2, the
+``dense`` engine ``engine=None`` takes) and ``partition(g, 8)`` (the
+multilevel partition, its coarsening on the fused kernels).  Prints one
+JSON line per call
 with the device time by kernel name (top entries, and every kernel of the
 port's ``csrc/``), the summed device time, the device span of each setup
 phase (``setup_range_device_ms``),
@@ -27,7 +30,7 @@ the unprofiled wall time, the device's idle share of it and the traced
 call's peak device memory.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
-``coarsen_basic``, ``color``),
+``coarsen_basic``, ``color``, ``misk``, ``partition``),
 and skips the setups of the others.  The coloring's per-round priorities
 (``repro_torch.core.coloring._round_priorities``) run inside a profiler
 range, ``hash_step``: a traced call that colors reports its rounds and the
@@ -207,6 +210,8 @@ def main() -> int:
             calls["gs_setup"] = lambda: rt.cluster_gs_setup(g)
         if label != "Powerlaw_1M":
             calls["amg_setup"] = lambda: rt.amg_setup(g)
+            calls["misk"] = lambda: rt.misk(g, k=2)
+            calls["partition"] = lambda: rt.partition(g, 8)
         if label == "Powerlaw_1M":
             calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
             calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
