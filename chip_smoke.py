@@ -71,7 +71,25 @@ Phases (any failure raises, and the script exits non-zero):
    (parts digest, edge cut, levels and per-level history) against the
    reference's (``tools/reference_misk_partition.py``), the partition's
    coarsening launching the fused kernels;
-10. time each kernel (CUDA events, L2 flushed before each launch), its twin
+10. the batched pipelines: fleet A, the reference's own batch benchmark
+   (``benchmarks/batch_throughput.py``, full size: ``laplace3d(6, 8, 10,
+   12)`` and ``random_uniform_graph(n, 6.0, seed=s)`` for n = 1,000 /
+   2,000 / 5,000 / 10,000, four copies each, seeds 0-15), through
+   ``mis2_batch``, ``color_batch``, ``coarsen_batch`` (``two_phase`` and
+   ``basic``) against the reference's anchors
+   (``tools/reference_batch.py``), and ``amg_setup_batch`` on the same fleet
+   as matrices (``er_laplacian`` for the random graphs) against the
+   reference's and, member by member, against ``amg_setup``; fleet B, the
+   subdomains of a domain-decomposed problem (64 x ``laplace3d(32)`` and 64
+   x ``random_uniform_graph(20_000, 6.0, seed=100+i)``, two buckets, 3.4M
+   vertices), through ``mis2_batch``, ``color_batch`` and
+   ``coarsen_batch(two_phase)``, each member equal to the single-graph
+   ``mis2`` / ``color`` / ``coarsen``; the batched wall time against the
+   loop of single-graph calls (graphs/s); every result's ``provenance``
+   (its digest the result's, a batch's shared by its members, platform
+   ``gpu``); the batched hash-pack form (``round_priorities_batched``)
+   against its twin on fleet B's two buckets, bitwise;
+11. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside its bound (bytes, float32 flops or the integer
    instructions of the §V-A hashes, whichever takes longest; the
@@ -83,7 +101,8 @@ Phases (any failure raises, and the script exits non-zero):
    of the setup phases of both multilevel engines (and of the
    Elasticity3D_60 cluster-GS setup's coarse graph, on each), of one
    V-cycle, one GS apply on each paper graph and each CG solve, and three
-   warm calls of each ``misk`` and of the partition of phase 9.
+   warm calls of each ``misk`` and of the partition of phase 9, and
+   ``round_priorities_batched`` on fleet B's larger bucket.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -161,6 +180,26 @@ PARTITION_L100 = dict(
 FUSED = ("fused_refresh_columns", "fused_decide")
 CG_TOL = 1e-6
 
+# fleet A: the reference's batch benchmark at full size
+# (benchmarks/batch_throughput.py:24-41, quick=False): laplace3d meshes,
+# then random_uniform_graph(n, 6.0, seed) / er_laplacian(n, 6.0, seed)
+FLEET_A = dict(meshes=(6, 8, 10, 12), ns=(1_000, 2_000, 5_000, 10_000),
+               copies=4)
+# the reference's batched calls on fleet A (JAX on the CPU,
+# tools/reference_batch.py): fleet_anchor of the ordered member digests and
+# the bucket shapes; for amg_setup of the level digests of the leading
+# members whose hierarchy the reference builds (the meshes and the n =
+# 1,000 copies: its two-phase coarsening of the wide coarse ER levels does
+# not return) and of their own batch's bucket shapes
+FLEET_A_ANCHORS = {"mis2": "54bfa723e4c1c123", "color": "60c0a44dddfb9eaa",
+                   "coarsen_two_phase": "0bb7b314f4cef3a8",
+                   "coarsen_basic": "e1a287a0fb2be420",
+                   "amg_setup": "da2fd134ee18a18c"}
+FLEET_A_AMG_MEMBERS = 8
+# fleet B: the subdomains of a domain-decomposed setup, two buckets:
+# (copies, laplace3d n) and (copies, random graph V, degree, first seed)
+FLEET_B = dict(laplace=(64, 32), random=(64, 20_000, 6.0, 100))
+
 # the reference's pallas_hybrid path on powerlaw_graph(1_000_000, 8.0,
 # exponent=2.5, seed=42) (JAX on the CPU, Pallas in interpret mode)
 POWERLAW_1M = dict(
@@ -202,6 +241,11 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
                "src/repro_torch/kernels/csrc/spmv_ell.cu"),
     "hash_pack": ("src/repro/kernels/hash_priority/kernel.py:31",
                   "src/repro_torch/kernels/csrc/hash_pack.cu"),
+    # the batched coloring's form of the same kernel, one launch a Luby
+    # round a bucket (the reference vmaps the plain hash there)
+    "round_priorities_batched": (
+        "src/repro/kernels/hash_priority/kernel.py:31",
+        "src/repro_torch/kernels/csrc/hash_pack.cu"),
     "sliced_refresh_columns": ("src/repro/kernels/minprop_ell/kernel.py:375",
                                "src/repro_torch/kernels/csrc/minprop_ell.cu"),
     "sliced_decide": ("src/repro/kernels/minprop_ell/kernel.py:409",
@@ -274,6 +318,7 @@ def main() -> int:
     from repro_torch.kernels.spmv_ell import ref as spmv_ref
 
     launches = Launches(ops, spmv_ops, hash_ops, run_ops)
+    provenance_checked = checking_provenance(rt)
     path_launches = {k: 0 for k in KERNELS}
 
     def add_path(counts: dict) -> None:
@@ -692,10 +737,22 @@ def main() -> int:
     for k in FUSED:
         check(counts[k] > 0, f"{k} was never launched by the partition")
     emit({"phase": "misk_partition_path", "launches": counts, **misk_part})
+
+    # -- 10. the batched pipelines ---------------------------------------------
+    launches.reset()
+    batch = _batch_path(torch, rt, dev, launches)
+    counts = batch.pop("launches")
+    add_path(counts)
+    for k in ("round_priorities_batched", *FUSED, "run_sums"):
+        check(counts[k] > 0, f"{k} was never launched on the batch path")
+    batch_b = batch.pop("fleet_b")
+    batch["round_priorities_batched_vs_twin"] = _hold_batched_priorities(
+        torch, hash_ops, hash_ref, batch_b, errs)
+    emit({"phase": "batch_path", "launches": counts, **batch})
     for k in KERNELS:
         check(path_launches[k] > 0, f"{k} was never launched on a path")
 
-    # -- 10. timing -----------------------------------------------------------------
+    # -- 11. timing -----------------------------------------------------------------
     timing = {}
     for label in PAPER_GRAPHS:
         timing[label] = _time_kernels(torch, graphs[label], ops, ref, id_bits)
@@ -760,6 +817,10 @@ def main() -> int:
         ("color", lambda: rt.color(pl, engine="luby_hybrid")))}
     emit({"phase": "timing_hybrid", "graph": "Powerlaw_1M",
           "slabs": sliced_time, "end_to_end_wall_ms": pl_e2e})
+    batched_time = _time_batched_priorities(torch, batch_b, hash_ops,
+                                            hash_ref)
+    del batch_b
+    emit({"phase": "timing_batched_priorities", **batched_time})
     emit({"phase": "timing_misk_partition", "graph": "Laplace3D_100",
           "wall_ms": {
               **{f"misk k={k} {e}": _wall_ms(
@@ -783,6 +844,8 @@ def main() -> int:
         **{k: ("Laplace3D_100 round 0", timing["Laplace3D_100"][k])
            for k in UNFUSED},
         "run_sums": ("Laplace3D_100 level-0 Galerkin stage 2", run_time),
+        "round_priorities_batched": (
+            f"fleet B bucket {batched_time['shape']}", batched_time),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -805,6 +868,7 @@ def main() -> int:
             entry["by_slab"] = {f"width {w}": sliced_time[w][k]
                                 for w in TIMED_SLABS}
         kernels_line.append(entry)
+    emit({"provenance_checked": provenance_checked})
     emit({"kernels": kernels_line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -849,6 +913,218 @@ def _misk_partition_path(rt, np, g, launches) -> dict:
                             loads=loads.tolist(),
                             launches={k: after[k] - before[k] for k in FUSED})
     return out
+
+
+def fleet_anchor(members: list, bucket_shapes: list) -> str:
+    """One digest over the ordered per-member digests (strings, or lists of
+    level digests) and the bucket shapes, as ``tools/reference_batch.py``
+    computes it."""
+    import hashlib
+
+    text = json.dumps([members, [list(s) for s in bucket_shapes]])
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def fleet_a(rt, dev) -> tuple[list, list]:
+    """Fleet A's structures and matrices on ``dev``, in the benchmark's
+    order: the meshes, then each size's copies with seeds counting from 0."""
+    gen = rt.graphs
+    specs = [("laplace3d", m, None) for m in FLEET_A["meshes"]]
+    seeds = iter(range(len(FLEET_A["ns"]) * FLEET_A["copies"]))
+    specs += [("random", n, next(seeds)) for n in FLEET_A["ns"]
+              for _ in range(FLEET_A["copies"])]
+    graphs = [rt.Graph(gen.laplace3d(m).graph if kind == "laplace3d" else
+                       gen.random_uniform_graph(m, 6.0, seed=s), device=dev)
+              for kind, m, s in specs]
+    mats = [rt.Graph(gen.laplace3d(m) if kind == "laplace3d" else
+                     gen.er_laplacian(m, 6.0, seed=s), device=dev)
+            for kind, m, s in specs]
+    return graphs, mats
+
+
+def fleet_b(rt, dev) -> list:
+    """Fleet B's structures on ``dev``: the Laplace subdomains (one CSR,
+    a handle each), then the random ones."""
+    copies, n = FLEET_B["laplace"]
+    lap = rt.graphs.laplace3d(n).graph
+    graphs = [rt.Graph(lap, device=dev) for _ in range(copies)]
+    copies, v, deg, seed = FLEET_B["random"]
+    graphs += [rt.Graph(rt.graphs.random_uniform_graph(v, deg, seed=seed + i),
+                        device=dev) for i in range(copies)]
+    return graphs
+
+
+PROVENANCE_KINDS = {"amg": "amg_setup"}
+
+
+def _check_provenance(kind: str, r) -> None:
+    """A facade result's provenance: its kind, the card's platform, the
+    result's own digest; a batch's record shared by its members."""
+    p = r.provenance
+    check(p is not None, f"{kind}: no provenance")
+    check((p.kind, p.backend, p.digest) == (PROVENANCE_KINDS.get(kind, kind),
+                                            "gpu", r.digest),
+          f"{kind}: provenance {(p.kind, p.backend, p.digest)}, digest "
+          f"{r.digest}")
+    check(p.span.get("name") == f"api.{p.kind}" and p.engine,
+          f"{kind}: provenance span {p.span.get('name')}, engine {p.engine}")
+    if hasattr(r, "results"):
+        check(all(m.provenance is p for m in r.results),
+              f"{kind}: a member's provenance is not the batch's")
+
+
+def checking_provenance(rt) -> dict:
+    """Wrap each facade entry of ``rt`` so that every result any phase gets
+    is checked by :func:`_check_provenance`; returns the count a kind."""
+    seen: dict = {}
+    for kind in ("mis2", "misk", "coarsen", "color", "partition",
+                 "amg_setup", "amg", "cluster_gs_setup", "mis2_batch",
+                 "color_batch", "coarsen_batch", "amg_setup_batch"):
+        def wrapped(*args, _fn=getattr(rt, kind), _kind=kind, **kw):
+            r = _fn(*args, **kw)
+            _check_provenance(_kind, r)
+            seen[_kind] = seen.get(_kind, 0) + 1
+            return r
+        setattr(rt, kind, wrapped)
+    return seen
+
+
+def _mis2_key(r):
+    return (r.digest, r.iterations, r.converged)
+
+
+def _color_key(r):
+    return (r.digest, r.rounds, r.num_colors, r.converged)
+
+
+def _coarsen_key(r):
+    return (r.digest, r.num_aggregates, r.iterations, r.converged)
+
+
+def _batch_path(torch, rt, dev, launches) -> dict:
+    """Phase 10: fleets A and B through the batched calls (the launches of
+    these calls alone are the path's), then every member against the
+    single-graph call on the card, and the batched against the looped wall
+    time.  Returns the phase's record, with ``launches`` and the stacked
+    fleet B (``fleet_b``, for the kernel's twin check and timing)."""
+    t0 = time.perf_counter()
+    ga, ma = fleet_a(rt, dev)
+    gb = fleet_b(rt, dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch_a, mats_a, batch_b = (rt.GraphBatch(ga), rt.GraphBatch(ma),
+                                rt.GraphBatch(gb))
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    calls = {
+        "mis2": (rt.mis2_batch, lambda g: rt.mis2(g), _mis2_key),
+        "color": (rt.color_batch, lambda g: rt.color(g), _color_key),
+        "coarsen_two_phase": (
+            lambda b: rt.coarsen_batch(b, method="two_phase"),
+            lambda g: rt.coarsen(g, method="two_phase"), _coarsen_key),
+        "coarsen_basic": (
+            lambda b: rt.coarsen_batch(b, method="basic"),
+            lambda g: rt.coarsen(g, method="basic"), _coarsen_key),
+        "amg_setup": (rt.amg_setup_batch, lambda a: rt.amg_setup(a),
+                      lambda r: (r.level_digests, r.level_sizes)),
+    }
+    fleets = {"A": (batch_a, ga, list(calls)),
+              "B": (batch_b, gb, ["mis2", "color", "coarsen_two_phase"])}
+
+    def operands(fleet, name):     # (stack, members) of a call
+        if name == "amg_setup":
+            return mats_a, ma
+        return fleets[fleet][0], fleets[fleet][1]
+
+    # the path: every batched call once (fleet A's AMG on its matrices)
+    first = {(fleet, name): calls[name][0](operands(fleet, name)[0])
+             for fleet, (_, _, names) in fleets.items() for name in names}
+    torch.cuda.synchronize()
+    counts = launches.read()
+    out = {"generate_s": gen_s, "stack_s": stack_s, "fleets": {}}
+    for fleet, (batch, graphs, names) in fleets.items():
+        rec = {"graphs": len(graphs), "bucket_shapes": batch.bucket_shapes,
+               "stats": batch.stats(), "calls": {}}
+        for name in names:
+            batched, single, key = calls[name]
+            stack, members = operands(fleet, name)
+            br = first[fleet, name]
+            check(br.converged, f"fleet {fleet} {name}: a member did not "
+                  "converge")
+            if fleet == "A":
+                if name == "amg_setup":
+                    k = FLEET_A_AMG_MEMBERS
+                    anchor = fleet_anchor(
+                        [r.level_digests for r in br.results[:k]],
+                        rt.GraphBatch(stack.graphs[:k]).bucket_shapes)
+                else:
+                    anchor = fleet_anchor(br.digests, br.bucket_shapes)
+                check(anchor == FLEET_A_ANCHORS[name],
+                      f"fleet A {name}: anchor {anchor} != "
+                      f"{FLEET_A_ANCHORS[name]}")
+            batched_ms = _wall_ms(torch, lambda: batched(stack), reps=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles = [single(g) for g in members]
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t0) * 1e3
+            for i, (r, s1) in enumerate(zip(br, singles)):
+                check(key(r) == key(s1), f"fleet {fleet} {name} member {i}:"
+                      f" batched {key(r)} != single {key(s1)}")
+            n = len(members)
+            rec["calls"][name] = {
+                "engine": br.engine, "digest": br.digest,
+                "first_call_s": br.wall_time_s,
+                "batched_wall_ms": batched_ms, "loop_wall_ms": loop_ms,
+                "graphs_per_s_batched": n / (min(batched_ms) / 1e3),
+                "graphs_per_s_loop": n / (loop_ms / 1e3),
+                "host_syncs": br.provenance.metrics.get("mis2.host_syncs"),
+                "iterations": [r.iterations for r in br][:8]}
+        out["fleets"][fleet] = rec
+    out["launches"] = counts
+    out["fleet_b"] = batch_b
+    return out
+
+
+def _hold_batched_priorities(torch, hash_ops, hash_ref, batch, errs) -> dict:
+    """``round_priorities_batched`` on each bucket of ``batch`` for three
+    rounds: two launches run-to-run equal and equal to the twin, bitwise."""
+    out = {}
+    for bucket in batch.buckets:
+        for rnd in (0, 1, 2**31 - 1):
+            itd = torch.tensor([rnd], dtype=torch.int32,
+                               device=bucket.id_bits.device)
+            call = (bucket.rows, itd, bucket.id_bits)
+            k1, k2 = (hash_ops.round_priorities_batched(*call),
+                      hash_ops.round_priorities_batched(*call))
+            tw = hash_ref.round_priorities_batched_ref(*call)
+            torch.cuda.synchronize()
+            check(torch.equal(k1, k2) and torch.equal(k1, tw),
+                  f"round_priorities_batched != twin or not run-to-run "
+                  f"equal (bucket {bucket.shape}, round {rnd})")
+            errs["round_priorities_batched"] = max(
+                errs["round_priorities_batched"], _max_abs_err_u32(k1, tw))
+        out[f"{bucket.size} x {bucket.rows} x {bucket.width}"] = {
+            "rounds": 3, "slots": bucket.size * bucket.rows}
+    return out
+
+
+def _time_batched_priorities(torch, batch, hash_ops, hash_ref,
+                             reps: int = 50) -> dict:
+    """One round's priorities of fleet B's first bucket: ``B * rows``
+    hashes, an int64 word written a slot (the ``[B]`` bits and the round
+    read once)."""
+    bucket = batch.buckets[0]
+    n = bucket.size * bucket.rows
+    it = torch.ones(1, dtype=torch.int32, device=bucket.id_bits.device)
+    call = (bucket.rows, it, bucket.id_bits)
+    res = _timed(torch, lambda: hash_ops.round_priorities_batched(*call),
+                 lambda: hash_ref.round_priorities_batched_ref(*call), None,
+                 nbytes=8 * n + 4 * bucket.size + 4, hashes=n, reps=reps)
+    return {**res, "n": n, "shape": f"{bucket.size} x {bucket.rows}",
+            "ms_read_flush": _event_ms(
+                torch, lambda: hash_ops.round_priorities_batched(*call),
+                reps, clean=True)}
 
 
 def _stage2_stream(torch, rt, g):

@@ -7,25 +7,32 @@ It imports torch, numpy and the standard library only — never jax, and
 nothing of the JAX package, which stays in the repository as the reference
 each part of the port is held against (equal determinism digests).
 """
-from . import graphs, solvers
+from . import graphs, obs, solvers
 from .api import (
     ABLATION_CHAIN,
     AggregationResult,
     AmgSetup,
     Backend,
+    BatchResult,
     ClusterGsSetup,
     ColoringResult,
+    GraphBatch,
     Mis2Result,
     PartitionResult,
     Result,
     amg,
     amg_setup,
+    amg_setup_batch,
+    as_graph_batch,
     cluster_gs_setup,
     coarsen,
+    coarsen_batch,
     color,
+    color_batch,
     determinism_digest,
     list_engines,
     mis2,
+    mis2_batch,
     misk,
     partition,
 )
@@ -37,5 +44,7 @@ __all__ = [
     "coarsen", "color", "partition", "amg_setup", "amg", "cluster_gs_setup",
     "list_engines", "Result", "Mis2Result", "AggregationResult",
     "ColoringResult", "PartitionResult", "AmgSetup", "ClusterGsSetup",
-    "determinism_digest", "ABLATION_CHAIN",
+    "determinism_digest", "ABLATION_CHAIN", "obs", "mis2_batch",
+    "color_batch", "coarsen_batch", "amg_setup_batch", "GraphBatch",
+    "as_graph_batch", "BatchResult",
 ]

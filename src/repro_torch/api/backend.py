@@ -30,6 +30,13 @@ def resolve_backend(backend: Backend | None) -> Backend:
     return Backend() if backend is None else backend
 
 
+def backend_platform(backend: Backend | None = None) -> str:
+    """The platform a call under ``backend`` runs on, as provenance names
+    it: ``gpu`` for a CUDA device, ``cpu`` otherwise."""
+    dev = resolve_backend(backend).resolve_device()
+    return "gpu" if dev.type == "cuda" else "cpu"
+
+
 #: ``engine=None`` below the hybrid threshold: the device-resident fixed
 #: point on the fused kernels over the monolithic padded ELL
 DEFAULT_MIS2_ENGINE = "cuda_resident"

@@ -12,6 +12,8 @@
 """
 from __future__ import annotations
 
+from ..batch.container import GraphBatch
+from ..batch.pipeline import _mis2_batch_impl
 from ..core.aggregation import (
     _aggregate_basic_impl,
     _aggregate_serial_greedy_impl,
@@ -39,6 +41,14 @@ register_engine("mis2", "compacted")(_mis2_compacted_impl)
 register_engine("mis2", "compacted_resident")(_mis2_resident_plain_impl)
 register_engine("mis2", "cuda_resident")(_mis2_resident_impl)
 register_engine("mis2", "cuda_hybrid")(_mis2_hybrid_impl)
+
+
+@register_engine("mis2", "dense_batched")
+def _mis2_dense_batched(graph, active, options):
+    """A single graph as a batch of one (``mis2_batch``'s fixed point):
+    bit-identical to ``dense``."""
+    actives = None if active is None else [active]
+    return _mis2_batch_impl(GraphBatch([graph]), options, actives)[0]
 
 
 @register_engine("mis2", "cuda_compacted")

@@ -13,6 +13,16 @@ the :class:`~repro_torch.api.result.Result` form.
     amg = rt.amg_setup(a)                    # SA-AMG hierarchy, set up on
     gs = rt.cluster_gs_setup(a)              # the card (engine resident)
     # then rt.solvers.cg(matvec, b, precond=amg.as_precond(), tol=1e-6)
+
+    br = rt.mis2_batch(graphs)               # many graphs, one pass a
+    br.digests                               # size bucket (also color_,
+                                             # coarsen_, amg_setup_batch)
+
+Every result carries ``provenance`` (:class:`~repro_torch.obs.Provenance`):
+the call's kind, engine, platform (``gpu`` on CUDA, else ``cpu``), digest
+and root span ``api.<kind>`` with its wall time and metric deltas (host
+syncs, resident dispatches, conversions, multilevel stage calls).  A
+``BatchResult`` and its members share one batch-level record.
 """
 from __future__ import annotations
 
@@ -20,11 +30,22 @@ import time
 
 import numpy as np
 
+from ..batch.container import GraphBatch
+from ..batch.pipeline import (
+    _amg_setup_batch_impl,
+    _coarsen_batch_impl,
+    _color_batch_impl,
+    _mis2_batch_impl,
+)
+from ..core.aggregation import _aggregate_serial_greedy_impl
 from ..core.coloring import MAX_ROUNDS_DEFAULT
 from ..core.mis2 import Mis2Options
 from ..graphs.handle import Graph, as_graph
+from ..obs import Provenance
+from ..obs import span as _obs_span
 from .backend import (
     Backend,
+    backend_platform,
     default_mis2_engine,
     default_misk_engine,
     default_multilevel_engine,
@@ -34,6 +55,7 @@ from .registry import get_engine
 from .result import (
     AggregationResult,
     AmgSetup,
+    BatchResult,
     ClusterGsSetup,
     ColoringResult,
     Mis2Result,
@@ -43,6 +65,27 @@ from .result import (
 
 def _prepare(graph, be: Backend) -> Graph:
     return as_graph(graph).place(be.resolve_device())
+
+
+def _traced(kind: str, engine, be: Backend, call, wrap):
+    """Run one facade engine call inside an ``obs`` span and attach the
+    provenance record to the wrapped Result.
+
+    ``call()`` runs the engine; ``wrap(core, dt)`` builds the facade Result
+    from its output and wall seconds.  The root span ``api.<kind>`` (wall
+    time and the metric deltas inside the call) with the engine, platform
+    and digest become ``result.provenance``."""
+    platform = backend_platform(be)
+    with _obs_span(f"api.{kind}", engine=str(engine),
+                   backend=platform) as sp:
+        t0 = time.perf_counter()
+        core = call()
+        dt = time.perf_counter() - t0
+        result = wrap(core, dt)
+    result.provenance = Provenance(kind, str(engine), platform,
+                                   getattr(result, "digest", ""),
+                                   sp.to_dict())
+    return result
 
 
 def mis2(graph, *, active=None, options: Mis2Options | None = None,
@@ -64,12 +107,12 @@ def mis2(graph, *, active=None, options: Mis2Options | None = None,
     gh = _prepare(graph, be)
     engine = default_mis2_engine(gh, options) if engine is None else engine
     fn = get_engine("mis2", engine)
-    t0 = time.perf_counter()
-    r = fn(gh, active, options)
-    dt = time.perf_counter() - t0
-    return Mis2Result(r.in_set, r.iterations, r.converged, dt, engine=engine,
-                      host_syncs=r.host_syncs, collectives=r.collectives,
-                      num_compiles=r.num_compiles)
+    return _traced(
+        "mis2", engine, be, lambda: fn(gh, active, options),
+        lambda r, dt: Mis2Result(
+            r.in_set, r.iterations, r.converged, dt, engine=engine,
+            host_syncs=r.host_syncs, collectives=r.collectives,
+            num_compiles=r.num_compiles))
 
 
 def misk(graph, k: int = 2, *, priority: str = "xorshift_star",
@@ -84,12 +127,12 @@ def misk(graph, k: int = 2, *, priority: str = "xorshift_star",
     gh = _prepare(graph, be)
     engine = default_misk_engine() if engine is None else engine
     fn = get_engine("misk", engine)
-    t0 = time.perf_counter()
-    r = fn(gh, k, priority, max_iters)
-    dt = time.perf_counter() - t0
-    return Mis2Result(r.in_set, r.iterations, r.converged, dt,
-                      engine=f"misk{k}_{engine}", host_syncs=r.host_syncs,
-                      num_compiles=r.num_compiles)
+    return _traced(
+        "misk", engine, be, lambda: fn(gh, k, priority, max_iters),
+        lambda r, dt: Mis2Result(
+            r.in_set, r.iterations, r.converged, dt,
+            engine=f"misk{k}_{engine}", host_syncs=r.host_syncs,
+            num_compiles=r.num_compiles))
 
 
 def coarsen(graph, *, method: str = "two_phase",
@@ -107,12 +150,21 @@ def coarsen(graph, *, method: str = "two_phase",
     fn = get_engine("aggregation", method)
     inner = default_mis2_engine(gh, options) if mis2_engine is None \
         else mis2_engine
-    t0 = time.perf_counter()
-    r = fn(gh, options, inner, min_secondary_neighbors)
-    dt = time.perf_counter() - t0
+    return _traced(
+        "coarsen", method, be,
+        lambda: fn(gh, options, inner, min_secondary_neighbors),
+        lambda r, dt: _wrap_aggregation(r, dt, inner))
+
+
+def _wrap_aggregation(r, dt: float, engine: str) -> AggregationResult:
     return AggregationResult(r.labels, r.mis2_iterations, r.converged, dt,
                              num_aggregates=r.num_aggregates, roots=r.roots,
-                             phase=r.phase, engine=inner)
+                             phase=r.phase, engine=engine)
+
+
+def _wrap_coloring(r, dt: float) -> ColoringResult:
+    return ColoringResult(r.colors, r.rounds, r.converged, dt,
+                          num_colors=r.num_colors, host_syncs=r.host_syncs)
 
 
 def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
@@ -126,11 +178,8 @@ def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     fn = get_engine("coloring", engine)
-    t0 = time.perf_counter()
-    r = fn(gh, max_rounds)
-    dt = time.perf_counter() - t0
-    return ColoringResult(r.colors, r.rounds, r.converged, dt,
-                          num_colors=r.num_colors, host_syncs=r.host_syncs)
+    return _traced("color", engine, be, lambda: fn(gh, max_rounds),
+                   _wrap_coloring)
 
 
 def partition(graph, num_parts: int, *, coarse_target: int | None = None,
@@ -146,12 +195,21 @@ def partition(graph, num_parts: int, *, coarse_target: int | None = None,
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     fn = get_engine("partition", engine)
-    t0 = time.perf_counter()
-    r = fn(gh, num_parts, coarse_target, options)
-    dt = time.perf_counter() - t0
-    return PartitionResult(r.parts, r.levels, r.converged, dt,
-                           num_parts=r.num_parts, edge_cut=r.edge_cut,
-                           levels=r.levels, history=list(r.history))
+    return _traced(
+        "partition", engine, be,
+        lambda: fn(gh, num_parts, coarse_target, options),
+        lambda r, dt: PartitionResult(
+            r.parts, r.levels, r.converged, dt, num_parts=r.num_parts,
+            edge_cut=r.edge_cut, levels=r.levels, history=list(r.history)))
+
+
+def _wrap_hierarchy(h, aggregation: str, engine: str,
+                    wall_time: float) -> AmgSetup:
+    sizes = np.asarray(h.level_sizes, dtype=np.int64).reshape(-1, 2)
+    return AmgSetup(sizes, len(h.levels), True, wall_time, hierarchy=h,
+                    aggregation=aggregation, setup_seconds=h.setup_seconds,
+                    aggregation_seconds=h.aggregation_seconds, engine=engine,
+                    timings=dict(h.timings), dispatches=h.dispatches)
 
 
 def amg_setup(matrix, *, aggregation: str = "two_phase",
@@ -182,19 +240,16 @@ def amg_setup(matrix, *, aggregation: str = "two_phase",
     gh = _prepare(matrix, be)
     engine = default_multilevel_engine(gh) if engine is None else engine
     fn = get_engine("multilevel", engine)
-    t0 = time.perf_counter()
-    h = fn("amg", gh, aggregation=aggregation, max_levels=max_levels,
-           coarse_size=coarse_size, omega=omega, jacobi_weight=jacobi_weight,
-           smoother_sweeps=smoother_sweeps, options=options,
-           mis2_engine=mis2_engine, coarse_dtype=coarse_dtype,
-           dense_coarse_cap=dense_coarse_cap,
-           explicit_restriction=explicit_restriction)
-    dt = time.perf_counter() - t0
-    sizes = np.asarray(h.level_sizes, dtype=np.int64).reshape(-1, 2)
-    return AmgSetup(sizes, len(h.levels), True, dt, hierarchy=h,
-                    aggregation=aggregation, setup_seconds=h.setup_seconds,
-                    aggregation_seconds=h.aggregation_seconds, engine=engine,
-                    timings=dict(h.timings), dispatches=h.dispatches)
+    return _traced(
+        "amg_setup", engine, be,
+        lambda: fn("amg", gh, aggregation=aggregation, max_levels=max_levels,
+                   coarse_size=coarse_size, omega=omega,
+                   jacobi_weight=jacobi_weight,
+                   smoother_sweeps=smoother_sweeps, options=options,
+                   mis2_engine=mis2_engine, coarse_dtype=coarse_dtype,
+                   dense_coarse_cap=dense_coarse_cap,
+                   explicit_restriction=explicit_restriction),
+        lambda h, dt: _wrap_hierarchy(h, aggregation, engine, dt))
 
 
 def amg(matrix, *, aggregation: str = "two_phase", max_levels: int = 10,
@@ -230,15 +285,157 @@ def cluster_gs_setup(matrix, *, aggregation: str = "two_phase",
     gh = _prepare(matrix, be)
     engine = default_multilevel_engine(gh) if engine is None else engine
     fn = get_engine("multilevel", engine)
-    t0 = time.perf_counter()
-    color_rows, num_colors, nagg, labels, colors, timings, rounds = fn(
-        "cluster_gs", gh, aggregation=aggregation, options=options,
-        coarsen_levels=coarsen_levels, mis2_engine=mis2_engine)
-    dt = time.perf_counter() - t0
-    pre = MulticolorGSPreconditioner(
-        gh.ell_matrix, extract_diagonal(gh.csr_matrix, gh.device),
-        color_rows, num_colors, nagg, dt, "cluster", timings=timings)
-    return ClusterGsSetup(labels, 0, True, dt, preconditioner=pre,
-                          num_colors=num_colors, num_clusters=nagg,
-                          colors=colors, engine=engine, timings=timings,
-                          color_rounds=rounds)
+
+    def build(out, dt):
+        color_rows, num_colors, nagg, labels, colors, timings, rounds = out
+        pre = MulticolorGSPreconditioner(
+            gh.ell_matrix, extract_diagonal(gh.csr_matrix, gh.device),
+            color_rows, num_colors, nagg, dt, "cluster", timings=timings)
+        return ClusterGsSetup(labels, 0, True, dt, preconditioner=pre,
+                              num_colors=num_colors, num_clusters=nagg,
+                              colors=colors, engine=engine, timings=timings,
+                              color_rounds=rounds)
+
+    return _traced(
+        "cluster_gs_setup", engine, be,
+        lambda: fn("cluster_gs", gh, aggregation=aggregation,
+                   options=options, coarsen_levels=coarsen_levels,
+                   mis2_engine=mis2_engine),
+        build)
+
+
+# ---------------------------------------------------------------------------
+# batched entry points: many graphs, one pass per size bucket
+# ---------------------------------------------------------------------------
+
+def _traced_batch(kind: str, engine: str, be: Backend, call,
+                  wrap) -> BatchResult:
+    """:func:`_traced` for a batched call: the batch-level provenance (one
+    span over every bucket) is shared by the ``BatchResult`` and each of
+    its members."""
+    batch = _traced(kind, engine, be, call, wrap)
+    for r in batch.results:
+        r.provenance = batch.provenance
+    return batch
+
+
+def _prepare_batch(graphs, be: Backend) -> GraphBatch:
+    """The batch on the backend's device: a ``GraphBatch`` already there as
+    it is, else every member placed there (cached formats move with it) and
+    stacked anew."""
+    dev = be.resolve_device()
+    if isinstance(graphs, GraphBatch):
+        if graphs.device == dev:
+            return graphs
+        graphs = graphs.graphs
+    return GraphBatch([as_graph(g).place(dev) for g in graphs])
+
+
+def _per_graph(core: list, dt: float) -> float:
+    return dt / max(1, len(core))
+
+
+def mis2_batch(graphs, *, options: Mis2Options | None = None,
+               backend: Backend | None = None) -> BatchResult:
+    """Distance-2 MIS over many graphs at once: size-bucketed, each bucket
+    one block-diagonal dense fixed point (a few launches a round for ``B``
+    graphs).  Each per-graph result (digest, iterations, ``converged``) is
+    bit-identical to ``mis2(g, engine="dense")`` and to the JAX package's
+    ``mis2_batch``.  ``graphs`` is a sequence of ``Graph`` handles /
+    structural containers, or a ``GraphBatch`` (reusable across calls)."""
+    be = resolve_backend(backend)
+    batch = _prepare_batch(graphs, be)
+
+    def wrap(core, dt):
+        per = _per_graph(core, dt)
+        return BatchResult(
+            [Mis2Result(r.in_set, r.iterations, r.converged, per,
+                        engine="dense_batched", host_syncs=r.host_syncs)
+             for r in core], dt, engine="dense_batched",
+            bucket_shapes=batch.bucket_shapes)
+
+    return _traced_batch("mis2_batch", "dense_batched", be,
+                         lambda: _mis2_batch_impl(batch, options), wrap)
+
+
+def color_batch(graphs, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
+                backend: Backend | None = None) -> BatchResult:
+    """Batched deterministic greedy coloring (Luby rounds over each bucket,
+    one batched hash-pack launch a round); each per-graph result equals
+    ``color(g)``'s bit for bit."""
+    be = resolve_backend(backend)
+    batch = _prepare_batch(graphs, be)
+
+    def wrap(core, dt):
+        per = _per_graph(core, dt)
+        return BatchResult([_wrap_coloring(r, per) for r in core], dt,
+                           engine="luby_batched",
+                           bucket_shapes=batch.bucket_shapes)
+
+    return _traced_batch("color_batch", "luby_batched", be,
+                         lambda: _color_batch_impl(batch, max_rounds), wrap)
+
+
+def coarsen_batch(graphs, *, method: str = "two_phase",
+                  options: Mis2Options | None = None,
+                  min_secondary_neighbors: int = 2,
+                  backend: Backend | None = None) -> BatchResult:
+    """Batched MIS-2 coarsening (paper Alg. 2 / 3) over the batched dense
+    MIS-2; per-graph labels equal ``coarsen(g, method=...)``'s bit for bit.
+    ``serial`` runs the host-sequential reference per graph, with no
+    stacking (``bucket_shapes`` empty)."""
+    be = resolve_backend(backend)
+    if method == "serial":
+        members = graphs.graphs if isinstance(graphs, GraphBatch) \
+            else [as_graph(g) for g in graphs]
+
+        def wrap_serial(core, dt):
+            per = _per_graph(core, dt)
+            return BatchResult([_wrap_aggregation(r, per, "serial")
+                                for r in core], dt, engine="serial_batched")
+
+        return _traced_batch(
+            "coarsen_batch", "serial_batched", be,
+            lambda: [_aggregate_serial_greedy_impl(g) for g in members],
+            wrap_serial)
+    batch = _prepare_batch(graphs, be)
+
+    def wrap(core, dt):
+        per = _per_graph(core, dt)
+        return BatchResult([_wrap_aggregation(r, per, "dense_batched")
+                            for r in core], dt, engine=f"{method}_batched",
+                           bucket_shapes=batch.bucket_shapes)
+
+    return _traced_batch(
+        "coarsen_batch", f"{method}_batched", be,
+        lambda: _coarsen_batch_impl(batch, method, options,
+                                    min_secondary_neighbors), wrap)
+
+
+def amg_setup_batch(matrices, *, aggregation: str = "two_phase",
+                    engine: str | None = None,
+                    options: Mis2Options | None = None,
+                    backend: Backend | None = None,
+                    **hierarchy_kwargs) -> BatchResult:
+    """Batched AMG setup: every member's finest-level aggregation runs
+    through the batched coarsening, then each hierarchy is finished by the
+    multilevel ``engine`` (``engine=None``: ``resident`` on CUDA, ``host``
+    on the CPU); ``hierarchy_kwargs`` are ``amg_setup``'s.  Per-graph
+    hierarchies equal ``amg_setup(a, ...)``'s (equal level digests)."""
+    be = resolve_backend(backend)
+    batch = _prepare_batch(matrices, be)
+    if engine is None:
+        engine = default_multilevel_engine(batch.graphs[0])
+
+    def wrap(hierarchies, dt):
+        per = _per_graph(hierarchies, dt)
+        return BatchResult([_wrap_hierarchy(h, aggregation, engine, per)
+                            for h in hierarchies], dt,
+                           engine=f"{engine}_batched",
+                           bucket_shapes=batch.bucket_shapes)
+
+    return _traced_batch(
+        "amg_setup_batch", f"{engine}_batched", be,
+        lambda: _amg_setup_batch_impl(batch, aggregation, options,
+                                      engine=engine, **hierarchy_kwargs),
+        wrap)

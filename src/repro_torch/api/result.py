@@ -2,9 +2,12 @@
 
 Every facade call returns a :class:`Result`: the primary output as a host
 numpy ``payload``, the iteration count, convergence, the facade-measured
-wall time and a determinism digest of the payload.  The digest is
+wall time, a determinism digest of the payload and a ``provenance`` record
+(:class:`~repro_torch.obs.Provenance`: engine, platform, digest, and the
+call's span with its wall time and metric deltas).  The digest is
 byte-compatible with the JAX package's, so equal digests mean the port and
-the reference produced bit-identical output.
+the reference produced bit-identical output.  A batched call returns a
+:class:`BatchResult` of per-graph Results.
 """
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ class Result:
     converged: bool = True
     wall_time_s: float = 0.0
     digest: str = ""
+    # the facade's repro_torch.obs.Provenance, set after construction so
+    # that the record can carry the digest computed in __post_init__
+    provenance: object | None = None
 
     def __post_init__(self):
         self.payload = np.asarray(self.payload)
@@ -123,6 +129,66 @@ class PartitionResult(Result):
     @property
     def parts(self) -> np.ndarray:
         return self.payload
+
+
+@dataclass
+class BatchResult:
+    """Result of one batched facade call (``mis2_batch`` / ``color_batch``
+    / ``coarsen_batch`` / ``amg_setup_batch``): the per-graph
+    :class:`Result` objects in **input order**, each with its own digest, so
+    a batch is checked member by member against the single-graph calls.
+
+    ``wall_time_s`` is the whole batched call (every bucket);
+    ``bucket_shapes`` holds ``(rows, width, member count)`` per bucket;
+    ``provenance`` is the one batch-level record its members share (its
+    ``digest`` is the batch's, :attr:`digest`).
+    """
+
+    results: list = field(default_factory=list)
+    wall_time_s: float = 0.0
+    engine: str = ""
+    bucket_shapes: list = field(default_factory=list)
+    provenance: object | None = None
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __getitem__(self, i):
+        return self.results[i]
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self.results)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.bucket_shapes)
+
+    @property
+    def digests(self) -> list:
+        """Per-graph determinism digests, input order."""
+        return [r.digest for r in self.results]
+
+    @property
+    def digest(self) -> str:
+        """One digest over the members' digests in input order: the batch's
+        own, which its ``provenance`` carries."""
+        h = hashlib.sha256()
+        for d in self.digests:
+            h.update(d.encode())
+        return h.hexdigest()[:16]
+
+    @property
+    def converged(self) -> bool:
+        return all(r.converged for r in self.results)
+
+    @property
+    def graphs_per_second(self) -> float:
+        return len(self.results) / self.wall_time_s if self.wall_time_s \
+            else 0.0
 
 
 @dataclass

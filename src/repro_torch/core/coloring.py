@@ -24,6 +24,7 @@ import torch
 from ..graphs.handle import as_graph
 from ..kernels.hash_priority import ops as hash_ops
 from ..kernels.minprop_ell.ops import segment_reduce
+from .mis2 import record_loop
 from .tuples import U32_MASK, id_bits
 
 MAX_COLORS = 64
@@ -104,6 +105,7 @@ def _luby_loop(v: int, dev, max_rounds: int, round_fn):
         colors = round_fn(colors, _round_priorities(v, rnd_dev, b))
         rnd_dev += 1
         rnd += 1
+    record_loop(syncs)
     return colors, rnd, syncs
 
 
@@ -116,6 +118,46 @@ def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
     return _luby_loop(v, neighbors.device, max_rounds,
                       lambda colors, prio: _color_round_rows(
                           neighbors, mask, vids, colors, prio))
+
+
+def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
+                              row_valid: torch.Tensor, bits: torch.Tensor,
+                              rows: int, max_rounds: int):
+    """The Luby round loop over a bucket of ``B`` graphs at once: the
+    reference's ``_color_round_masked`` vmapped over a ``[B, rows, width]``
+    stack with the round number shared (``in_axes=(0, 0, 0, None, 0)``).
+
+    ``neighbors`` (int64 ``[B * rows, width]``) is the bucket as one
+    block-diagonal graph, as :func:`~repro_torch.core.mis2.
+    mis2_dense_batched_fixed_point` takes it, so each round is
+    :func:`_color_round_rows` over every row, with the priorities of one
+    launch of the batched hash-pack kernel (each member's local ids and its
+    own ``bits``, int32 ``[B]`` on the device).  Padded rows
+    (``row_valid`` False) enter pre-colored 0: never contenders, nobody's
+    neighbor.  One ``[B]`` finished flag comes to the host a round, not the
+    colors.  Returns ``(colors int32 [B * rows], done_round [B] (the round
+    after which each member had every vertex colored, -1 if none), rounds,
+    host_syncs)``.
+    """
+    n, dev = neighbors.shape[0], neighbors.device
+    vids = torch.arange(n, device=dev)
+    colors = torch.where(row_valid, -1, 0).to(torch.int32)
+    done_round = np.full(n // rows, -1, dtype=np.int64)
+    rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
+    rnd = syncs = 0
+    while True:
+        prio = hash_ops.round_priorities_batched(rows, rnd_dev, bits)
+        colors = _color_round_rows(neighbors, mask, vids, colors, prio)
+        rnd_dev += 1
+        rnd += 1
+        finished = ((colors >= 0) | ~row_valid).view(-1, rows).all(dim=1)
+        finished = finished.cpu().numpy()     # the one host read a round
+        syncs += 1
+        done_round[(done_round < 0) & finished] = rnd
+        if finished.all() or rnd >= max_rounds:
+            break
+    record_loop(syncs)
+    return colors, done_round, rnd, syncs
 
 
 def _spill_color_round(spill_rows, spill_seg, spill_cols, colors, prio):
@@ -173,9 +215,8 @@ def color_fixed_point_hybrid(hyb, max_rounds: int):
                       round_fn)
 
 
-def _coloring_result(colors: torch.Tensor, rounds: int,
+def _coloring_result(c: np.ndarray, rounds: int,
                      syncs: int) -> ColoringResult:
-    c = colors.cpu().numpy()
     num = int(c.max()) + 1 if (c >= 0).any() else 0
     if num > MAX_COLORS:
         raise RuntimeError(f"{num} colors exceed MAX_COLORS={MAX_COLORS}")
@@ -189,7 +230,7 @@ def _color_graph_impl(graph,
     ell = as_graph(graph).ell
     colors, rounds, syncs = color_fixed_point(ell.neighbors, ell.mask,
                                               max_rounds)
-    return _coloring_result(colors, rounds, syncs)
+    return _coloring_result(colors.cpu().numpy(), rounds, syncs)
 
 
 def _color_hybrid_impl(graph,
@@ -198,7 +239,7 @@ def _color_hybrid_impl(graph,
     never builds ``graph.ell``; colors equal the ``luby`` engine's."""
     colors, rounds, syncs = color_fixed_point_hybrid(as_graph(graph).hybrid(),
                                                      max_rounds)
-    return _coloring_result(colors, rounds, syncs)
+    return _coloring_result(colors.cpu().numpy(), rounds, syncs)
 
 
 def check_coloring(graph, colors: np.ndarray) -> bool:

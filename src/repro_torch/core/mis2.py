@@ -40,7 +40,9 @@ The Fig. 2 chain of optimizations is ``Mis2Options`` (see
 
 The resident and hybrid loops read one live flag per round on the host, to
 decide whether to go on; the host-driven driver pulls two ``[V]`` arrays a
-round.  ``Mis2Result.host_syncs`` reports both.
+round.  ``Mis2Result.host_syncs`` reports both, and every loop adds its
+reads to the ``repro_torch.obs`` counter ``mis2.host_syncs`` (and a
+resident solve one ``mis2.resident_dispatches``), the reference's names.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import torch
 
 from ..graphs.handle import as_graph
 from ..kernels.minprop_ell import ops, ref
+from ..obs import metrics as _obs
 from .hashing import PRIORITY_FNS
 from .tuples import (
     IN,
@@ -69,6 +72,19 @@ from .tuples import (
 )
 
 MAX_ITERS_DEFAULT = 128
+
+#: the ``obs`` counters of the MIS-2 loops (the reference's names)
+HOST_SYNCS = "mis2.host_syncs"
+RESIDENT_DISPATCHES = "mis2.resident_dispatches"
+
+
+def record_loop(syncs: int, resident: bool = False) -> None:
+    """Add one fixed point's host reads to ``mis2.host_syncs`` and, for a
+    resident solve (the reference's one dispatch), one to
+    ``mis2.resident_dispatches``."""
+    _obs.counter(HOST_SYNCS).inc(syncs)
+    if resident:
+        _obs.counter(RESIDENT_DISPATCHES).inc()
 
 
 LAYOUTS = ("ell", "csr_segment")
@@ -133,6 +149,21 @@ def _active_mask(active, v: int, device: torch.device) -> torch.Tensor:
 # dense engine — the plain referent
 # ===========================================================================
 
+def _dense_round(t, und, fresh, neighbors, active):
+    """One masked dense round over every row: the rows ``und`` take their
+    ``fresh`` tuple (§V-A), then the closed-neighborhood min (§V-D) with
+    the IN poison, and the decide (widened int64 words)."""
+    t = torch.where(und, fresh, t)
+    m = t[neighbors].amin(dim=1)
+    m = torch.where(m == IN, OUT, m)            # IN-adjacent poison
+    mn = m[neighbors]
+    an = active[neighbors]
+    any_out = (an & (mn == OUT)).any(dim=1)
+    all_eq = (~an | (mn == t[:, None])).all(dim=1)
+    t = torch.where(und & any_out, OUT, t)
+    return torch.where(und & ~any_out & all_eq, IN, t)
+
+
 def mis2_dense_fixed_point(neighbors: torch.Tensor, active: torch.Tensor,
                            b: int, priority: str = "xorshift_star",
                            max_iters: int = MAX_ITERS_DEFAULT):
@@ -152,16 +183,9 @@ def mis2_dense_fixed_point(neighbors: torch.Tensor, active: torch.Tensor,
         syncs += 1
         if not bool(und.any()):
             break
-        t = torch.where(und, pack(prio_fn(it, vids), vids, b), t)   # §V-A
-        m = t[nb].amin(dim=1)                                        # §V-D
-        m = torch.where(m == IN, OUT, m)            # IN-adjacent poison
-        mn = m[nb]
-        an = active[nb]
-        any_out = (an & (mn == OUT)).any(dim=1)
-        all_eq = (~an | (mn == t[:, None])).all(dim=1)
-        t = torch.where(und & any_out, OUT, t)
-        t = torch.where(und & ~any_out & all_eq, IN, t)
+        t = _dense_round(t, und, pack(prio_fn(it, vids), vids, b), nb, active)
         it += 1
+    record_loop(syncs)
     return t, it, syncs
 
 
@@ -187,6 +211,58 @@ def mis2_dense_jittable(neighbors: torch.Tensor, active: torch.Tensor,
     return mis2_dense_fixed_point(neighbors, active,
                                   id_bits(neighbors.shape[0]), priority,
                                   max_iters)
+
+
+def mis2_dense_batched_fixed_point(neighbors: torch.Tensor,
+                                   active: torch.Tensor, bits: torch.Tensor,
+                                   rows: int, priority: str = "xorshift_star",
+                                   max_iters: int = MAX_ITERS_DEFAULT):
+    """:func:`mis2_dense_fixed_point` over a bucket of ``B`` graphs at once:
+    the reference's ``mis2_dense_fixed_point`` vmapped over a ``[B, rows,
+    width]`` stack.
+
+    ``neighbors`` (int64 ``[B * rows, width]``) is the bucket as one
+    block-diagonal graph: member ``j`` holds rows ``j * rows ..`` with its
+    neighbor ids offset by ``j * rows`` (padded slots and padded rows hold
+    their own id), so no row reaches another member's and the closed-
+    neighborhood min, the IN poison and the decide are the single-graph
+    rows unchanged.  Only the priority needs the member: row ``i`` hashes
+    its local id ``i % rows`` in its member's round, packed with the
+    member's ``b = bits[i // rows]`` (``rows`` a power of two, so a mask and
+    a shift).  ``active`` (bool ``[B * rows]``) is False on padding.
+
+    Member ``j``'s round counter advances only while it has an undecided
+    active vertex and is below ``max_iters``; a member that stops keeps its
+    T exactly while its mates go on, as a member whose ``cond`` is false
+    does under the reference's vmapped ``while_loop``.  A member that stops
+    never goes on again (no undecided vertex stays so, and the counter no
+    longer moves), so every live member's counter is the loop's round
+    ``it``, which the priority takes.  One host read a round (is any member
+    live).  Returns ``(T widened int64 [B * rows], iterations int64 [B],
+    host_syncs)``.
+    """
+    n, dev = neighbors.shape[0], neighbors.device
+    idx = torch.arange(n, device=dev)
+    member = idx >> (rows.bit_length() - 1)
+    vids = idx & (rows - 1)
+    b = bits.to(torch.int64)[member]
+    prio_fn = PRIORITY_FNS[priority]
+    t = torch.where(active, 1, OUT).to(torch.int64)
+    its = torch.zeros(n // rows, dtype=torch.int64, device=dev)
+    it = syncs = 0
+    while it < max_iters:
+        und = is_undecided(t) & active
+        live = und.view(-1, rows).any(dim=1)
+        syncs += 1
+        if not bool(live.any()):      # the one host read a round
+            break
+        und &= live[member]
+        t = _dense_round(t, und, pack(prio_fn(it, vids), vids, b),
+                         neighbors, active)
+        its += live
+        it += 1
+    record_loop(syncs)
+    return t, its, syncs
 
 
 # ===========================================================================
@@ -228,6 +304,7 @@ def mis2_repair_fixed_point(neighbors: torch.Tensor, t_init: torch.Tensor,
         t = torch.where(und & any_out, OUT, t)
         t = torch.where(und & ~any_out & all_eq, IN, t)
         it += 1
+    record_loop(syncs)
     return t, it, syncs
 
 
@@ -310,6 +387,7 @@ def resident_ell_fixed_point(neighbors: torch.Tensor, active: torch.Tensor,
         wl2, n2 = compact_worklist(m != OUT_I32)
         it_dev += 1
         it += 1
+    record_loop(syncs, resident=True)
     return t, it, n1, syncs
 
 
@@ -662,6 +740,7 @@ def _mis2_compacted_impl(graph, active=None,
                           for x in _undecided_live(state, host=True))
         syncs += 2                    # T and M pulled to the host
         it += 1
+    record_loop(syncs)
     return Mis2Result(_in_set(state), it, len(wl1_np) == 0, syncs,
                       num_compiles=max(1, len(pads.shape_pairs)))
 
@@ -698,6 +777,7 @@ def _mis2_resident_plain_impl(graph, active=None,
             state = _csr_round(state, und, live, edges, act, it, **kw)
         und, live = _undecided_live(state)
         it += 1
+    record_loop(syncs, resident=True)
     return Mis2Result(_in_set(state), it, not bool(und.any()), syncs,
                       num_compiles=1)
 

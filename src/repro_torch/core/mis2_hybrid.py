@@ -37,6 +37,7 @@ from .mis2 import (
     _require_kernel_layout,
     _require_worklists,
     compact_worklist,
+    record_loop,
 )
 from .tuples import IN, OUT_I32, id_bits, is_undecided
 
@@ -87,6 +88,7 @@ def hybrid_fixed_point(hyb, active: torch.Tensor | None, *, priority: str,
         n1 = und.sum(dtype=torch.int32).reshape(1)
         it_dev += 1
         it += 1
+    record_loop(syncs, resident=True)
     return t, it, n1, acc[:len(slabs)], syncs
 
 

@@ -29,7 +29,7 @@ import torch
 from ..graphs.handle import as_ell_graph
 from ..kernels.minprop_ell.ref import set_drop
 from .hashing import PRIORITY_FNS
-from .mis2 import Mis2Result, compact_worklist
+from .mis2 import Mis2Result, compact_worklist, record_loop
 from .tuples import IN, OUT, id_bits, is_undecided, pack
 
 MAX_ITERS_DEFAULT = 256
@@ -77,6 +77,7 @@ def misk_dense_fixed_point(neighbors: torch.Tensor, k: int,
         t = torch.where(und, pack(prio_fn(it, vids), vids, b), t)
         t = _decide(t, neighbors, k)
         it += 1
+    record_loop(syncs)
     return t, it, syncs
 
 
@@ -103,6 +104,7 @@ def misk_resident_fixed_point(neighbors: torch.Tensor, k: int,
         t = _decide(set_drop(t, wl, newt), neighbors, k)
         wl, n = compact_worklist(is_undecided(t))
         it += 1
+    record_loop(syncs, resident=True)
     return t, it, n, syncs
 
 

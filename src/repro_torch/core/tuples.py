@@ -55,14 +55,18 @@ def narrow(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
-def effective_priority(priority: torch.Tensor, b: int) -> torch.Tensor:
-    """The high ``32 - b`` bits of a (widened) 32-bit hash."""
+def effective_priority(priority: torch.Tensor,
+                       b: int | torch.Tensor) -> torch.Tensor:
+    """The high ``32 - b`` bits of a (widened) 32-bit hash; ``b`` an int or
+    an int64 tensor broadcast against ``priority`` (a batch's per-row
+    bits)."""
     return priority >> b
 
 
 def pack(priority: torch.Tensor, vertex_ids: torch.Tensor,
-         b: int) -> torch.Tensor:
-    """(priority' << b) | (id + 1), widened."""
+         b: int | torch.Tensor) -> torch.Tensor:
+    """(priority' << b) | (id + 1), widened; ``b`` as in
+    :func:`effective_priority`."""
     ids = vertex_ids.to(torch.int64)
     return (effective_priority(priority, b) << b) | ((ids + 1) & U32_MASK)
 

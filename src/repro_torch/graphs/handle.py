@@ -28,6 +28,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from ..obs import metrics as _obs
 from .csr import (
     BucketedELL,
     CSRGraph,
@@ -159,15 +160,20 @@ class Graph:
 
     @contextmanager
     def _convert(self, name: str):
-        """Count and time one conversion's work (a conversion that raises
-        is not counted).  Callers read the formats it needs (``self.csr``,
+        """Count and time one conversion's work, on the handle and in the
+        ``repro_torch.obs`` registry as ``graph.conversions{kind}`` /
+        ``graph.conversion_seconds{kind}`` (a conversion that raises is not
+        counted).  Callers read the formats it needs (``self.csr``,
         ``self.ell``) before entering, so a nested conversion is counted and
         timed under its own kind."""
         t0 = time.perf_counter()
         yield
+        dt = time.perf_counter() - t0
         self._counts[name] = self._counts.get(name, 0) + 1
-        self._timings[name] = (self._timings.get(name, 0.0)
-                               + time.perf_counter() - t0)
+        self._timings[name] = self._timings.get(name, 0.0) + dt
+        _obs.counter("graph.conversions", labels={"kind": name}).inc()
+        _obs.histogram("graph.conversion_seconds",
+                       labels={"kind": name}).observe(dt)
 
     @property
     def conversions(self) -> dict[str, int]:

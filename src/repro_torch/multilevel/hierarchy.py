@@ -14,6 +14,12 @@ engines of ``repro.multilevel.hierarchy``, giving equal hierarchies (per-level
   7 stage calls a level (2 prolongator, 4 Galerkin, 1 pack) are counted in
   :attr:`AMGHierarchy.dispatches`.
 
+Both engines count in the ``repro_torch.obs`` registry as the reference
+does: ``multilevel.host_syncs`` (the host engine's matrix-sized round-trips,
+3 a level, and 1 for each cluster-GS coarse graph and packing) and
+``multilevel.resident_dispatches`` (the resident engine's stage calls, 7 a
+level, and 2 for each cluster-GS coarse graph and packing).
+
 The aggregation inside (MIS-2 coarsening on the fused kernels), the
 coloring, every level matrix and the whole solve phase live on the
 graph's device; the ``float32`` coarsest-level LU factors and solves there
@@ -49,6 +55,7 @@ from ..graphs.ops import (
     matrix_to_scipy,
 )
 from ..kernels.spmv_ell import ops as spmv_ops
+from ..obs import metrics as _obs
 from .galerkin import (
     _coarse_graph_ell_device,
     _coarse_graph_keys_device,
@@ -72,6 +79,9 @@ ENGINES = ("host", "resident")
 #: jitted dispatches: prolongator 2, Galerkin 4 (stage 1, repack, stage 2,
 #: coarse ELL), pack 1
 STAGES_PER_LEVEL = 7
+#: the ``obs`` counters of the setup (the reference's names)
+HOST_SYNCS = "multilevel.host_syncs"
+RESIDENT_DISPATCHES = "multilevel.resident_dispatches"
 
 
 @dataclass
@@ -249,6 +259,7 @@ def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
     v = cur.num_rows
     t0 = time.perf_counter()
     pr, pc, pv = smoothed_prolongator_host(cur, labels, nagg, omega)
+    _obs.counter(HOST_SYNCS).inc()
     _add_time(timings, "prolongator", t0)
     t0 = time.perf_counter()
     a_host = csr_to_ell_arrays(cur)
@@ -258,6 +269,7 @@ def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
     np.add.at(indptr, cr + 1, 1)
     a_next = CSRMatrix(np.cumsum(indptr).astype(np.int32),
                        cc.astype(np.int32), cv.astype(np.float32))
+    _obs.counter(HOST_SYNCS).inc()
     _add_time(timings, "galerkin", t0)
     t0 = time.perf_counter()
     pv32 = pv.astype(np.float32)
@@ -267,6 +279,7 @@ def _host_level(cur: CSRMatrix, a_ell: ELLMatrix | None, labels: np.ndarray,
                      rect_ell(pr, pc, pv32, v, device),
                      rect_ell(pc, pr, pv32, nagg, device),
                      v, cur.num_entries)
+    _obs.counter(HOST_SYNCS).inc()
     _add_time(timings, "pack", t0)
     return level, a_next
 
@@ -295,6 +308,7 @@ def _resident_level(a_ell: ELLMatrix, nnz: int, labels: np.ndarray,
         p_cols, p_vals, p_mask, diag = _prolongator_device(
             a_ell, labels, nagg, omega)
         _sync(dev)
+    _obs.counter(RESIDENT_DISPATCHES).inc(2)
     _add_time(timings, "prolongator", t0)
     t0 = time.perf_counter()
     with _phase("galerkin"):
@@ -304,11 +318,13 @@ def _resident_level(a_ell: ELLMatrix, nnz: int, labels: np.ndarray,
         a_next = _coo_to_ell_device(keys, sums, v, nagg)
         nnz_next = int(keys.shape[0])
         _sync(dev)
+    _obs.counter(RESIDENT_DISPATCHES).inc(4)
     _add_time(timings, "galerkin", t0)
     t0 = time.perf_counter()
     with _phase("pack"):
         p_ell, r_ell = _prolongator_pack_device(p_cols, p_vals, p_mask, nagg)
         _sync(dev)
+    _obs.counter(RESIDENT_DISPATCHES).inc()
     _add_time(timings, "pack", t0)
     return AMGLevel(a_ell, diag, p_ell, r_ell, v, nnz), a_next, nnz_next
 
@@ -333,7 +349,8 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
                           coarse_dtype: Optional[str] = None,
                           dense_coarse_cap: Optional[int] = None,
                           explicit_restriction: bool = True,
-                          engine: str = "host") -> AMGHierarchy:
+                          engine: str = "host",
+                          first_agg=None) -> AMGHierarchy:
     """Build the SA-AMG hierarchy of matrix ``a`` (a ``Graph`` handle with
     values, or a ``CSRMatrix``) on its device with the multilevel
     ``engine`` (``host`` | ``resident``).
@@ -343,6 +360,11 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
     weighted-Jacobi sweeps instead.  ``explicit_restriction=False`` drops
     the stored ``R = P^T`` after the build; the V-cycle then restricts
     through the transposed SpMV kernel on P.
+
+    ``first_agg`` optionally injects a precomputed finest-level
+    ``AggregationResult``, used once in place of the first aggregation (the
+    batched setup aggregates every finest level of a batch at once and
+    finishes each hierarchy here).
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown multilevel engine {engine!r} "
@@ -364,7 +386,10 @@ def _build_hierarchy_impl(a, aggregation: str = "two_phase",
     n, nnz = gh.num_vertices, gh.num_entries
     while len(levels) < max_levels - 1 and n > coarse_size:
         t0 = time.perf_counter()
-        agg = aggregate(cur_graph)
+        if first_agg is not None:
+            agg, first_agg = first_agg, None
+        else:
+            agg = aggregate(cur_graph)
         dt = time.perf_counter() - t0
         t_agg += dt
         timings["aggregate"] = timings.get("aggregate", 0.0) + dt
@@ -476,15 +501,18 @@ def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
 
     def coarse_structure(labels, nagg):
         if engine == "host":
-            return Graph(coarse_graph_from_labels(gh.csr, labels, nagg),
-                         device=dev)
+            g = coarse_graph_from_labels(gh.csr, labels, nagg)
+            _obs.counter(HOST_SYNCS).inc()
+            return Graph(g, device=dev)
         with _phase("coarse_graph"):
             ell = gh.ell
             keys = _coarse_graph_keys_device(
                 ell.neighbors, ell.mask,
                 torch.from_numpy(np.asarray(labels, dtype=np.int64)).to(dev),
                 v)
-            return Graph(_coarse_graph_ell_device(keys, v, nagg))
+            g = _coarse_graph_ell_device(keys, v, nagg)
+        _obs.counter(RESIDENT_DISPATCHES).inc(2)
+        return Graph(g)
 
     t0 = time.perf_counter()
     agg = aggregate(gh)
@@ -507,11 +535,13 @@ def _cluster_gs_setup_impl(a, aggregation: str = "two_phase", options=None,
     if engine == "host":
         color_rows = pack_clusters_host(labels, coloring.colors,
                                         coloring.num_colors, v, dev)
+        _obs.counter(HOST_SYNCS).inc()
     else:
         with _phase("pack"):
             color_rows = pack_clusters_device(labels, coloring.colors,
                                               coloring.num_colors, v, dev)
             _sync(dev)
+        _obs.counter(RESIDENT_DISPATCHES).inc(2)
     timings["pack"] += time.perf_counter() - t0
     return color_rows, coloring.num_colors, nagg, labels, \
         coloring.colors, timings, coloring.rounds

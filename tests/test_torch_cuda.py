@@ -437,6 +437,31 @@ def test_hash_pack_forms_match_twins_bitwise(cuda_device, n, offset):
                     form, it, b)
 
 
+@pytest.mark.parametrize("rows,bits", [(1, [2, 9, 31]), (2, [3] * 5),
+                                       (64, [7, 1]), (128, [8, 17, 31]),
+                                       (4096, [13] * 9)])
+def test_round_priorities_batched_matches_twin_bitwise(cuda_device, rows,
+                                                       bits):
+    """The batched form, bitwise equal to its twin and run-to-run equal,
+    one launch a call, on buckets of one-row members (every id on the
+    scalar path), pairs within a warp step and whole warp steps."""
+    bits_d = torch.tensor(bits, dtype=torch.int32, device=cuda_device)
+    for it in (0, 7, 2**31 - 1):
+        itd = torch.tensor([it], dtype=torch.int32, device=cuda_device)
+        before = hash_ops.LAUNCHES["round_priorities_batched"]
+        got = hash_ops.round_priorities_batched(rows, itd, bits_d)
+        again = hash_ops.round_priorities_batched(rows, itd, bits_d)
+        want = hash_ref.round_priorities_batched_ref(rows, itd, bits_d)
+        torch.cuda.synchronize()
+        assert hash_ops.LAUNCHES["round_priorities_batched"] - before == 2
+        assert got.dtype == torch.int64 and got.shape == (rows * len(bits),)
+        assert torch.equal(got, want) and torch.equal(got, again), (rows, it)
+        # each member's words are its single-graph round priorities
+        for j, b in enumerate(bits):
+            assert torch.equal(got[j * rows:(j + 1) * rows],
+                               hash_ops.round_priorities(rows, itd, b))
+
+
 @pytest.fixture
 def no_twins_on_cuda(monkeypatch):
     """Make every twin raise on a CUDA tensor for the test's duration."""
@@ -448,7 +473,8 @@ def no_twins_on_cuda(monkeypatch):
         return wrapped
     for mod, names in ((spmv_ref, ("spmv_ref", "spmv_t_ref")),
                        (run_ref, ("run_sums_ref",)),
-                       (hash_ref, ("hash_pack_ref", "round_priorities_ref")),
+                       (hash_ref, ("hash_pack_ref", "round_priorities_ref",
+                                   "round_priorities_batched_ref")),
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
                               "sliced_decide_ref", "refresh_columns_ref",
@@ -826,3 +852,30 @@ def test_partition_on_the_card_equals_the_cpu(cuda_device, no_twins_on_cuda,
     if name == "laplace3d(12)":
         assert (r.edge_cut, r.levels, r.digest) == (766, 3,
                                                     "7bc0dcd81b18c422")
+
+
+# -- slice 12: the batched pipelines -----------------------------------------
+
+def test_batched_pipelines_on_the_card(cuda_device, no_twins_on_cuda):
+    """mis2_batch / color_batch / coarsen_batch on the card, every member
+    equal to the single-graph call; one batched hash-pack launch per Luby
+    round per bucket, every result's provenance on the gpu."""
+    graphs = [rt.Graph(GRAPHS[name]()) for name in GRAPHS]
+    graphs.append(rt.Graph(gen.random_uniform_graph(900, 6.0, seed=2)))
+    batch = rt.GraphBatch(graphs)
+    br = rt.mis2_batch(batch)
+    before = hash_ops.LAUNCHES["round_priorities_batched"]
+    cb = rt.color_batch(batch)
+    launched = hash_ops.LAUNCHES["round_priorities_batched"] - before
+    ab = rt.coarsen_batch(batch)
+    assert launched >= max(r.rounds for r in cb) and launched <= sum(
+        r.rounds for r in cb)
+    for g, m, c, a in zip(graphs, br, cb, ab):
+        assert (m.digest, m.iterations) == (
+            lambda s: (s.digest, s.iterations))(rt.mis2(g))
+        assert (c.digest, c.rounds) == (lambda s: (s.digest, s.rounds))(
+            rt.color(g))
+        assert a.digest == rt.coarsen(g).digest
+    for res in (br, cb, ab):
+        assert res.provenance.backend == "gpu"
+        assert all(r.provenance is res.provenance for r in res)

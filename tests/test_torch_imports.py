@@ -30,7 +30,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.multilevel, repro_torch.graphs.ops,"
             "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid,"
             "repro_torch.core.mis2, repro_torch.core.misk,"
-            "repro_torch.core.partition, repro_torch.api.backend;"
+            "repro_torch.core.partition, repro_torch.api.backend,"
+            "repro_torch.batch, repro_torch.batch.pipeline, repro_torch.obs;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")

@@ -2,7 +2,8 @@
 """Where the time of the port's main path goes, on one GPU.
 
     python3 tools/profile_torch.py [--graphs Laplace3D_100 Elasticity3D_60
-                                          Powerlaw_1M] [--calls mis2 coarsen]
+                                          Powerlaw_1M Fleet_A Fleet_B]
+                                   [--calls mis2 coarsen]
 
 For each graph: one warm ``repro_torch.mis2`` and one warm
 ``repro_torch.coarsen(method="two_phase")`` are timed on the host clock
@@ -21,8 +22,11 @@ and ``color(engine="luby_hybrid")`` too; the setups themselves, with
 ``amg_setup`` on both paper graphs and ``gs_setup`` (``cluster_gs_setup``)
 on Elasticity3D_60; and, on the two paper graphs, ``misk`` (k = 2, the
 ``dense`` engine ``engine=None`` takes) and ``partition(g, 8)`` (the
-multilevel partition, its coarsening on the fused kernels).  Prints one
-JSON line per call
+multilevel partition, its coarsening on the fused kernels).  The two
+batch fleets of ``chip_smoke.py`` (``Fleet_A``, the reference's batch
+benchmark; ``Fleet_B``, 128 subdomains) are profiled through
+``mis2_batch``, ``coarsen_batch`` (``two_phase``) and ``color_batch`` on
+one ``GraphBatch`` each.  Prints one JSON line per call
 with the device time by kernel name (top entries, and every kernel of the
 port's ``csrc/``), the summed device time, the device span of each setup
 phase (``setup_range_device_ms``),
@@ -30,7 +34,8 @@ the unprofiled wall time, the device's idle share of it and the traced
 call's peak device memory.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
-``coarsen_basic``, ``color``, ``misk``, ``partition``),
+``coarsen_basic``, ``color``, ``misk``, ``partition``, ``mis2_batch``,
+``coarsen_batch``, ``color_batch``),
 and skips the setups of the others.  The coloring's per-round priorities
 (``repro_torch.core.coloring._round_priorities``) run inside a profiler
 range, ``hash_step``: a traced call that colors reports its rounds and the
@@ -51,6 +56,7 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Elasticity3D_60": ("elasticity3d", (60,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
+FLEETS = ("Fleet_A", "Fleet_B")
 HASH_STEP = "hash_step"
 HASH_KERNEL = "hash_pack_kernel"
 # the resident multilevel setup's profiler ranges (multilevel.prolongator,
@@ -170,12 +176,35 @@ def _cg(torch, rt, g, setup):
                                  precond=s.as_precond(), tol=1e-6)
 
 
+def _profile_fleet(torch, rt, label: str, wanted) -> None:
+    """The batched calls on one of ``chip_smoke.py``'s fleets, stacked
+    once into a ``GraphBatch``."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    graphs = chip_smoke.fleet_a(rt, dev)[0] if label == "Fleet_A" \
+        else chip_smoke.fleet_b(rt, dev)
+    batch = rt.GraphBatch(graphs)
+    calls = {"mis2_batch": lambda: rt.mis2_batch(batch),
+             "coarsen_batch": lambda: rt.coarsen_batch(batch),
+             "color_batch": lambda: rt.color_batch(batch)}
+    for what, call in calls.items():
+        if wanted is not None and what not in wanted:
+            continue
+        call()                                      # warm-up
+        rec = {"graph": label, "call": what, "graphs": len(graphs),
+               "bucket_shapes": batch.bucket_shapes,
+               **profile_call(torch, call)}
+        print(json.dumps(rec), flush=True)
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graphs", nargs="+", default=list(GRAPHS),
-                    choices=list(GRAPHS))
+                    choices=[*GRAPHS, *FLEETS])
     ap.add_argument("--calls", nargs="+", default=None)
     args = ap.parse_args()
     wanted = args.calls
@@ -194,6 +223,9 @@ def main() -> int:
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
     for label in args.graphs:
+        if label in FLEETS:
+            _profile_fleet(torch, rt, label, wanted)
+            continue
         kind, gen_args, kw = GRAPHS[label]
         g = rt.Graph(getattr(rt.graphs, kind)(*gen_args, **kw))
         calls = {"mis2": lambda: rt.mis2(g),
