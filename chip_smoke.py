@@ -102,10 +102,35 @@ Phases (any failure raises, and the script exits non-zero):
    Elasticity3D_60 cluster-GS setup's coarse graph, on each), of one
    V-cycle, one GS apply on each paper graph and each CG solve, and three
    warm calls of each ``misk`` and of the partition of phase 9, and
-   ``round_priorities_batched`` on fleet B's larger bucket.
+   ``round_priorities_batched`` on fleet B's larger bucket;
+12. the distributed engines: four spawned ranks on the one card (gloo; a
+   one-rank NCCL group inside the same world drives the NCCL path) run
+   ``mis2`` with ``distributed`` and ``distributed_single_gather``,
+   ``coarsen(method="two_phase_distributed")`` and ``coarsen(method=
+   "two_phase", mis2_engine="distributed")`` on Laplace3D_100 and
+   Elasticity3D_60 at P = 4 and on Laplace3D_100 at P = 3 (1,000,000 rows
+   pad to 1,000,002) and P = 1; every rank gives the anchors, the counted
+   T/M gather bytes equal ``collective_bytes_per_iteration`` x rounds and
+   the registry's ``dist.collective_bytes``, one launch of each sliced
+   kernel a rank a round (single-gather: one ``fused_refresh_columns``);
+   the wall time per call beside the single-device ``engine=None`` call;
+13. the serving layer (``repro_torch.serve``): pool S, the reference's
+   serve benchmark at full size (``benchmarks/serve_throughput.py``: 160
+   requests over 8 graphs), batched against serialized, every digest the
+   direct ``dense`` call's, no cold shape and no ``nvcc`` after the
+   warm-up; pool M, 128 requests of seeded kinds (``mis2``, ``color``,
+   ``coarsen``, ``amg_setup``) over subdomains at fleet B's sizes, each
+   equal to its direct call; the large requests (Laplace3D_100 ``mis2``,
+   ``coarsen``, ``amg_setup``, Elasticity3D_60 ``mis2``, Powerlaw_1M
+   ``mis2`` on ``cuda_hybrid``) against the anchors, and an ELL-bound
+   explicit engine on Powerlaw_1M shed with ``LayoutInfeasible``; ten
+   streaming deltas on Laplace3D_100, each repair equal to a from-scratch
+   ``mis2``; a persistent tier restarted with one corrupt entry dropped,
+   and a seeded fault plan's exact retry / fallback / injected counts;
+   every response carries its own provenance.
 
 The launch counts of each path are set to 0 just before it and read just
-after.  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
+after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -829,6 +854,28 @@ def main() -> int:
               "partition": _wall_ms(
                   torch, lambda: rt.partition(l100, PARTITION_L100["parts"]))}})
 
+    # -- 12. the distributed engines ---------------------------------------------
+    distributed = _distributed_path(torch, np, rt, graphs)
+    dist_counts = distributed.pop("launches")
+    add_path(dist_counts)
+    for k in (*SLICED, "fused_refresh_columns"):
+        check(dist_counts.get(k, 0) > 0,
+              f"{k} was never launched on the distributed path")
+    emit({"phase": "distributed_path", "card": smi, "launches": dist_counts,
+          **distributed})
+
+    # -- 13. the serving layer ------------------------------------------------------
+    launches.reset()
+    serving = _serving_path(torch, np, rt, dev, graphs, pl, launches)
+    serve_counts = serving.pop("launches")
+    add_path(serve_counts)
+    for k in (*FUSED, *SLICED, "round_priorities_batched", "run_sums"):
+        check(serve_counts[k] > 0, f"{k} was never launched by the server")
+    emit({"phase": "serving_path", "card": smi, "launches": serve_counts,
+          **serving})
+    new_sites = {"distributed (phase 12)": dist_counts,
+                 "serving (phase 13)": serve_counts}
+
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
                                   timing["Elasticity3D_60"]
@@ -867,6 +914,9 @@ def main() -> int:
         if k in SLICED:
             entry["by_slab"] = {f"width {w}": sliced_time[w][k]
                                 for w in TIMED_SLABS}
+        sites = {site: c[k] for site, c in new_sites.items() if c.get(k)}
+        if sites:
+            entry["new_sites"] = sites
         kernels_line.append(entry)
     emit({"provenance_checked": provenance_checked})
     emit({"kernels": kernels_line})
@@ -1880,6 +1930,507 @@ def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
                          "R": r, "W": w, "distinct_ids": n_distinct}
     return out
 
+
+# ---------------------------------------------------------------------------
+# 12. the distributed engines: spawned gloo ranks, each on the one card
+# ---------------------------------------------------------------------------
+
+#: the world of ranks phase 12 spawns, and the groups made inside it:
+#: (backend, ranks) -> the graphs run there.  NCCL refuses two ranks on one
+#: card, so the multi-rank groups are gloo; the one-rank group is NCCL
+DIST_WORLD = 4
+DIST_GROUPS = {("gloo", 4): PAPER_GRAPHS, ("gloo", 3): ("Laplace3D_100",),
+               ("nccl", 1): ("Laplace3D_100",)}
+DIST_CALLS = ("mis2 distributed", "mis2 distributed_single_gather",
+              "coarsen two_phase_distributed",
+              "coarsen two_phase mis2_engine=distributed")
+
+
+def _dist_call(rt, name: str, g, be):
+    kind, rest = name.split(" ", 1)
+    if kind == "mis2":
+        return rt.mis2(g, engine=rest, backend=be)
+    if rest == "two_phase_distributed":
+        return rt.coarsen(g, method="two_phase_distributed", backend=be)
+    return rt.coarsen(g, method="two_phase", mis2_engine="distributed",
+                      backend=be)
+
+
+def _dist_rank(rank: int, tmp: str, device: str) -> None:
+    """One spawned rank of phase 12: every group it belongs to, every
+    call on every graph of the group (each run twice), one JSON record a
+    call."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch as rt
+    from repro_torch.core import dist as core_dist
+    from repro_torch.graphs.csr import CSRGraph
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.minprop_ell import ops
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=DIST_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    groups = {}
+    for backend, p in DIST_GROUPS:
+        if backend == "nccl" and not cuda:
+            continue
+        groups[(backend, p)] = dist.group.WORLD if p == DIST_WORLD else \
+            dist.new_group(list(range(p)), backend=backend)
+    graphs = {}
+    for label in PAPER_GRAPHS:
+        arrays = np.load(f"{tmp}/{label}.npz")
+        graphs[label] = rt.Graph(CSRGraph(arrays["indptr"],
+                                          arrays["indices"]), device=dev)
+    records = []
+    for (backend, p), group in groups.items():
+        if rank >= p:
+            continue
+        be = rt.Backend(device=dev, group=group)
+        for label in DIST_GROUPS[(backend, p)]:
+            g = graphs[label]
+            for name in DIST_CALLS:
+                # twice: the first call in a process pays the first launch
+                # of each kernel instance; the record is the second's
+                walls, digests = [], []
+                for _ in range(2):
+                    dist.barrier(group=group)
+                    ops.reset_launches()
+                    core_dist.reset_collective_bytes()
+                    with rt.obs.capture() as cap:
+                        if cuda:
+                            torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        r = _dist_call(rt, name, g, be)
+                        if cuda:
+                            torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    digests.append(r.digest)
+                rec = {"group": f"{backend} P={p}", "rank": rank,
+                       "graph": label, "call": name, "wall_ms": walls[1],
+                       "first_call_wall_ms": walls[0],
+                       "digest": r.digest if digests[0] == digests[1]
+                       else f"first call {digests[0]}",
+                       "iterations": r.iterations,
+                       "launches": dict(ops.LAUNCHES),
+                       "collective_bytes": dict(core_dist.COLLECTIVE_BYTES),
+                       "provenance": [r.provenance.backend,
+                                      r.provenance.digest]}
+                if name.startswith("mis2"):
+                    variant = "single_gather" if name.endswith("gather") \
+                        else "two_gather"
+                    rec.update(size=r.size, collectives=r.collectives,
+                               host_syncs=r.host_syncs,
+                               registry_bytes=cap.value(
+                                   "dist.collective_bytes",
+                                   {"variant": variant}))
+                else:
+                    rec["size"] = r.num_aggregates
+                records.append(rec)
+    with open(f"{tmp}/rank{rank}.json", "w") as fh:
+        json.dump({"records": records, "nvcc_runs": _build.NVCC_RUNS["count"]},
+                  fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _distributed_path(torch, np, rt, graphs, device: str = "cuda") -> dict:
+    """Phase 12: spawn ``DIST_WORLD`` ranks (the kernels are built; each rank
+    loads them), hold every rank's every call to the anchors, the counted
+    T/M gather bytes to the model and the registry, the launches to one of
+    each sliced kernel a rank a round (single-gather: one whole-graph
+    refresh a round); beside them, the single-device ``engine=None``
+    call's wall time.  Each call runs twice in a row; the launches, bytes
+    and wall time are the second's, the first's wall time is reported
+    apart (it pays each kernel instance's first launch in the process).  Returns the record with the ranks' summed launches
+    under ``launches``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.dist import collective_bytes_per_iteration
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in PAPER_GRAPHS:
+            csr = graphs[label].csr
+            np.savez(f"{tmp}/{label}.npz", indptr=np.asarray(csr.indptr),
+                     indices=np.asarray(csr.indices))
+        t0 = time.perf_counter()
+        mp.spawn(_dist_rank, args=(tmp, device), nprocs=DIST_WORLD,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+    launches = {}
+    walls: dict = {}
+    first_walls: dict = {}
+    checked = 0
+    for rk in ranks:
+        check(rk["nvcc_runs"] == 0, "a rank built a kernel library")
+        for rec in rk["records"]:
+            a = ANCHORS[rec["graph"]]
+            where = f"{rec['group']} rank {rec['rank']} {rec['graph']} " \
+                    f"{rec['call']}"
+            want = a["mis2"] if rec["call"].startswith("mis2") \
+                else a["coarsen"]
+            got = (rec["size"], rec["iterations"], rec["digest"])
+            check(got == want, f"{where}: {got} != {want}")
+            check(rec["provenance"] == ["gpu" if device == "cuda" else "cpu",
+                                        rec["digest"]],
+                  f"{where}: provenance {rec['provenance']}")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            it = rec["iterations"]
+            lc = rec["launches"]
+            if rec["call"].startswith("mis2"):
+                single = rec["call"].endswith("single_gather")
+                p = int(rec["group"].split("P=")[1])
+                model = collective_bytes_per_iteration(
+                    graphs[rec["graph"]].num_vertices, p,
+                    single)["result_bytes_per_iteration"] * it
+                col = rec["collectives"]
+                check(rec["collective_bytes"]["tuples"] == model ==
+                      col["result_bytes_total"] == rec["registry_bytes"],
+                      f"{where}: gathered {rec['collective_bytes']['tuples']}"
+                      f" B, model {model}, registry {rec['registry_bytes']}")
+                check(lc["sliced_decide"] == it
+                      and lc["sliced_refresh_columns"] == (0 if single
+                                                           else it)
+                      and lc["fused_refresh_columns"] == (it if single
+                                                          else 0),
+                      f"{where}: launches {lc} over {it} rounds")
+                check(rec["host_syncs"] == it + 1, f"{where}: host syncs")
+            else:
+                check(lc["sliced_decide"] > 0, f"{where}: no sliced decide")
+            key = f"{rec['group']} {rec['graph']} {rec['call']}"
+            walls.setdefault(key, []).append(rec["wall_ms"])
+            first_walls.setdefault(key, []).append(rec["first_call_wall_ms"])
+            checked += 1
+    for key in {f"{b} P={p} {label}"
+                for (b, p), labels in DIST_GROUPS.items()
+                if b != "nccl" or device == "cuda" for label in labels}:
+        b, pp, label = key.split(" ")
+        n = sum(1 for rk in ranks for rec in rk["records"]
+                if rec["group"] == f"{b} {pp}" and rec["graph"] == label)
+        check(n == int(pp[2:]) * len(DIST_CALLS), f"{key}: {n} records")
+    single_device = {}
+    for label in PAPER_GRAPHS:
+        g = graphs[label]
+        single_device[label] = {
+            "mis2 engine=None": _wall_ms(torch, lambda g=g: rt.mis2(g)),
+            "coarsen engine=None": _wall_ms(torch, lambda g=g: rt.coarsen(g))}
+    return {"launches": launches, "records_checked": checked,
+            "collective_bytes_by_kind": {
+                f"{rec['group']} {rec['graph']} {rec['call']}":
+                    rec["collective_bytes"]
+                for rec in ranks[0]["records"]},
+            "wall_ms_per_rank": walls,
+            "first_call_wall_ms_per_rank": first_walls,
+            "single_device_wall_ms": single_device,
+            "spawn_and_run_s": spawn_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# 13. the serving layer
+# ---------------------------------------------------------------------------
+
+#: pool S: the reference's serve benchmark at full size
+#: (benchmarks/serve_throughput.py:36-96, quick=False): the meshes and the
+#: (V, degree) random graphs (seeds 0-4), 160 requests from default_rng(0)
+SERVE_POOL_S = dict(meshes=(6, 8, 10),
+                    uniforms=((500, 6.0), (1_200, 8.0), (2_000, 8.0),
+                              (800, 16.0), (300, 5.0)), requests=160)
+#: pool M: subdomains at fleet B's sizes, 128 requests of seeded kinds
+SERVE_POOL_M = dict(laplace=(8, 32), random=(8, 20_000, 6.0, 100),
+                    requests=128, seed=1)
+#: the streaming deltas on Laplace3D_100 (fixed priority)
+STREAM = dict(deltas=10, adds=100, removes=100, seed=23)
+
+
+def _pool_s(rt, dev) -> list:
+    want = SERVE_POOL_S
+    pool = [rt.Graph(rt.graphs.laplace3d(n), device=dev)
+            for n in want["meshes"]]
+    pool += [rt.Graph(rt.graphs.random_uniform_graph(v, d, seed=i),
+                      device=dev) for i, (v, d) in enumerate(want["uniforms"])]
+    return pool
+
+
+def _workload(np, pool, n: int, rng) -> list:
+    """The reference's ``_workload`` with no resubmission: its stream, RNG
+    draws included (a draw for the resubmit test once a graph is seen)."""
+    stream = []
+    for _ in range(n):
+        if stream:
+            rng.random()
+        stream.append(pool[int(rng.integers(len(pool)))])
+    return stream
+
+
+def _own_provenance(r, platform: str) -> None:
+    p = r.provenance
+    check(p is not None and p.digest == r.digest and p.backend == platform,
+          f"served {type(r).__name__}: provenance {p}")
+
+
+def _serving_path(torch, np, rt, dev, graphs, pl, launches) -> dict:
+    """Phase 13: pools S and M, the large requests, the streaming deltas,
+    the persistent tier and the fault counts; every response held to its
+    direct call or anchor and carrying its own provenance.  ``launches``
+    (reset by the caller) ends with the served path's launches: those of
+    the direct calls the responses are held to are moved to the record's
+    ``direct_launches``."""
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.serve import (Fault, FaultPlan, LayoutInfeasible,
+                                   RetryPolicy, Server, ServerConfig)
+
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    direct_launches: dict = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def direct_call(fn, *args, **kw):
+        """A direct facade call (a referent), its launches kept apart."""
+        before = launches.read()
+        r = fn(*args, **kw)
+        for k, n in launches.read().items():
+            direct_launches[k] = direct_launches.get(k, 0) + n - before[k]
+        return r
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    # -- pool S: batched against serialized -----------------------------------
+    pool = _pool_s(rt, dev)
+    stream = _workload(np, pool, SERVE_POOL_S["requests"],
+                       np.random.default_rng(0))
+    for g in pool:                          # formats built outside the clock
+        direct_call(rt.mis2, g, engine="dense")
+    sync()
+    t0 = time.perf_counter()
+    serial = [direct_call(rt.mis2, g, engine="dense").digest
+              for g in stream]
+    sync()
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = Server(ServerConfig(max_batch=8,
+                              warm_buckets=serve.warm_buckets_for(pool),
+                              cache_bytes=0))
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    futs = [srv.submit("mis2", g) for g in stream]
+    srv.flush()
+    results = [f.result() for f in futs]
+    sync()
+    batched_s = time.perf_counter() - t0
+    for r, d in zip(results, serial):
+        check(r.digest == d, f"pool S: served {r.digest} != direct {d}")
+        _own_provenance(r, platform)
+    st = srv.server_stats()
+    check(st["compiles"]["runtime_cold"] == 0, f"pool S: {st['compiles']}")
+    check(st["compiles"]["nvcc_since_warm"] == 0, "pool S: nvcc after warm")
+    check(st["fallbacks"] == 0 and st["retries"] == 0, "pool S: fallbacks")
+    out["pool_s"] = {
+        "requests": len(stream), "graphs": len(pool),
+        "warm_buckets": len(srv.config.warm_buckets), "warm_s": warm_s,
+        "serialized_rps": len(stream) / serial_s,
+        "batched_rps": len(stream) / batched_s,
+        "batched_over_serialized": serial_s / batched_s,
+        "dispatches": st["dispatches"], "dedup_hits": st["dedup_hits"],
+        "batched_graphs": st["batched_graphs"]}
+
+    # -- pool M: subdomain requests of seeded kinds ------------------------------
+    lap_n, lap = SERVE_POOL_M["laplace"]
+    rn, rv, rd, rseed = SERVE_POOL_M["random"]
+    structs = [rt.Graph(rt.graphs.laplace3d(lap), device=dev)
+               for _ in range(lap_n)]
+    structs += [rt.Graph(rt.graphs.random_uniform_graph(rv, rd,
+                                                        seed=rseed + i),
+                         device=dev) for i in range(rn)]
+    mats = structs[:lap_n] + [
+        rt.Graph(rt.graphs.er_laplacian(rv, rd, seed=rseed + i), device=dev)
+        for i in range(rn)]
+    kinds = serve.KINDS
+    rng = np.random.default_rng(SERVE_POOL_M["seed"])
+    reqs = [(kinds[int(rng.integers(len(kinds)))],
+             int(rng.integers(len(structs))))
+            for _ in range(SERVE_POOL_M["requests"])]
+    srv = Server(ServerConfig(max_batch=8,
+                              warm_buckets=serve.warm_buckets_for(structs)))
+    t0 = time.perf_counter()
+    futs = [srv.submit(k, mats[i] if k == "amg_setup" else structs[i])
+            for k, i in reqs]
+    srv.flush()
+    results = [f.result() for f in futs]
+    sync()
+    served_s = time.perf_counter() - t0
+    direct_fn = {"mis2": rt.mis2, "color": rt.color, "coarsen": rt.coarsen,
+                 "amg_setup": rt.amg_setup}
+    direct: dict = {}
+    for (k, i), r in zip(reqs, results):
+        if (k, i) not in direct:
+            direct[(k, i)] = direct_call(
+                direct_fn[k], mats[i] if k == "amg_setup" else structs[i])
+        want = direct[(k, i)]
+        check(r.digest == want.digest, f"pool M {k}[{i}]: {r.digest} != "
+                                       f"{want.digest}")
+        if k == "amg_setup":
+            check(r.level_digests == want.level_digests,
+                  f"pool M amg_setup[{i}]: level digests")
+        _own_provenance(r, platform)
+    st = srv.server_stats()
+    check(st["fallbacks"] == 0 and st["retries"] == 0, "pool M: fallbacks")
+    check(st["compiles"]["nvcc_since_warm"] == 0, "pool M: nvcc after warm")
+    out["pool_m"] = {"requests": len(reqs),
+                     "by_kind": {k: sum(1 for kk, _ in reqs if kk == k)
+                                 for k in kinds},
+                     "served_s": served_s, "direct_calls": len(direct),
+                     "dispatches": st["dispatches"],
+                     "batched_graphs": st["batched_graphs"],
+                     "cache_hits": st["cache"]["hits"],
+                     "dedup_hits": st["dedup_hits"],
+                     "runtime_cold": st["compiles"]["runtime_cold"]}
+
+    # -- large requests, and one shed before it queues ----------------------------
+    l100, e60 = graphs["Laplace3D_100"], graphs["Elasticity3D_60"]
+    srv = Server(ServerConfig(max_batch=8))
+    large = {"Laplace3D_100 mis2": srv.submit("mis2", l100),
+             "Laplace3D_100 coarsen": srv.submit("coarsen", l100),
+             "Laplace3D_100 amg_setup": srv.submit("amg_setup", l100),
+             "Elasticity3D_60 mis2": srv.submit("mis2", e60),
+             "Powerlaw_1M mis2": srv.submit("mis2", pl)}
+    queued = len(srv.batcher)
+    shed = srv.submit("mis2", pl, engine="cuda_resident")
+    check(shed.done() and isinstance(shed.exception(), LayoutInfeasible),
+          f"Powerlaw_1M cuda_resident not shed: {shed}")
+    check(len(srv.batcher) == queued, "the shed request was queued")
+    t0 = time.perf_counter()
+    srv.flush()
+    got = {k: f.result() for k, f in large.items()}
+    sync()
+    large_s = time.perf_counter() - t0
+    for key, r in got.items():
+        label, kind = key.split(" ")
+        _own_provenance(r, platform)
+        if kind == "amg_setup":
+            check([tuple(x) for x in r.level_sizes] == AMG_L100["levels"]
+                  and r.level_digests == AMG_L100["digests"],
+                  f"{key}: {r.level_sizes} {r.level_digests}")
+            continue
+        if label == "Powerlaw_1M":
+            want = POWERLAW_1M["mis2"]
+            check(r.engine == "cuda_hybrid", f"{key} served on {r.engine}")
+        else:
+            want = ANCHORS[label][kind]
+        size = r.size if kind == "mis2" else r.num_aggregates
+        check((size, r.iterations, r.digest) == want,
+              f"{key}: {(size, r.iterations, r.digest)} != {want}")
+    st = srv.server_stats()
+    check(st["fallbacks"] == 0, "large requests: fallbacks")
+    out["large"] = {"wall_s": large_s,
+                    "engines": {k: getattr(r, "engine", None)
+                                for k, r in got.items()},
+                    "shed": type(shed.exception()).__name__,
+                    "single_dispatches": st["single_dispatches"]}
+
+    # -- streaming deltas on Laplace3D_100 ---------------------------------------
+    sess = srv.open_stream(l100)
+    v = l100.num_vertices
+    rng = np.random.default_rng(STREAM["seed"])
+    fixed = rt.Mis2Options(priority="fixed")
+    repair_ms, scratch_ms, regions = [], [], []
+    for _ in range(STREAM["deltas"]):
+        adds = rng.integers(0, v, size=(STREAM["adds"], 2))
+        adds = adds[adds[:, 0] != adds[:, 1]]
+        rows, cols = sess._keys // v, sess._keys % v
+        offd = np.flatnonzero(rows != cols)
+        pick = rng.choice(offd, size=STREAM["removes"], replace=False)
+        removes = np.stack([rows[pick], cols[pick]], axis=1)
+        sync()
+        t0 = time.perf_counter()
+        r = sess.apply_delta(adds, removes)
+        sync()
+        repair_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        scratch = direct_call(rt.mis2, sess.graph, options=fixed)
+        sync()
+        scratch_ms.append((time.perf_counter() - t0) * 1e3)
+        check(r.digest == scratch.digest,
+              f"stream: repaired {r.digest} != scratch {scratch.digest}")
+        check(sess.last_repair.mode == "repair", "stream: not a repair")
+        _own_provenance(r, platform)
+        regions.append(sess.last_repair.reactivated)
+    out["stream"] = {"deltas": STREAM["deltas"], "repair_ms": repair_ms,
+                     "scratch_ms": scratch_ms, "reactivated": regions,
+                     "scratch_engine": scratch.engine}
+
+    # -- persistence and faults ---------------------------------------------------
+    items = [(k, g) for k in ("mis2", "color", "coarsen") for g in pool[:3]]
+    with tempfile.TemporaryDirectory() as d:
+        plan = FaultPlan(seed=3, sites={
+            "persist_corrupt": Fault("corrupt", count=1)})
+        s1 = Server(ServerConfig(persist_dir=d, faults=plan))
+        first = [s1.request(k, g) for k, g in items]
+        check(s1.persist.stats.writes == len(items), "persist: writes")
+        s1.stop()
+        s2 = Server(ServerConfig(persist_dir=d))
+        again = [s2.request(k, g) for k, g in items]
+        ps = s2.persist.stats
+        check([r.digest for r in again] == [r.digest for r in first],
+              "persist: rehydrated digests")
+        check((ps.hits, ps.corrupt, s2.stats.dispatches) ==
+              (len(items) - 1, 1, 1),
+              f"persist: hits {ps.hits}, corrupt {ps.corrupt}, "
+              f"dispatches {s2.stats.dispatches}")
+        out["persist"] = {"entries": len(items), **ps.as_dict(),
+                          "dispatches_after_restart": s2.stats.dispatches}
+    g = pool[3]
+    ref = direct_call(rt.mis2, g)
+    want = ref.digest
+    plan = FaultPlan(seed=7, sites={
+        "engine": Fault("error", count=2, transient=True)})
+    s3 = Server(ServerConfig(faults=plan, cache_bytes=0, retry=RetryPolicy(
+        max_attempts=3, base_backoff_s=0.0)))
+    r3 = s3.request("mis2", g)
+    plan2 = FaultPlan(seed=7, sites={
+        "engine": Fault("error", count=1, transient=False)})
+    s4 = Server(ServerConfig(faults=plan2, cache_bytes=0))
+    r4 = s4.request("mis2", g)
+    counts = {"transient": (s3.stats.retries, s3.stats.fallbacks,
+                            dict(plan.fired)),
+              "persistent": (s4.stats.retries, s4.stats.fallbacks,
+                             dict(plan2.fired))}
+    check(counts == {"transient": (2, 0, {"engine": 2}),
+                     "persistent": (0, 1, {"engine": 1})},
+          f"fault counts {counts}")
+    check(r3.digest == want and r4.digest == want
+          and r4.engine == ref.engine,
+          "faults: a degraded answer differs or left the card's engine")
+    out["faults"] = {k: {"retries": a, "fallbacks": b, "injected": c}
+                     for k, (a, b, c) in counts.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    served = launches.read()
+    out["launches"] = {k: n - direct_launches.get(k, 0)
+                       for k, n in served.items()}
+    out["direct_launches"] = direct_launches
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

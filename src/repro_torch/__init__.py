@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``: distance-2 and
 distance-k MIS, MIS-2 graph coarsening, multilevel partitioning, Luby
 coloring, SA-AMG and cluster multicolor Gauss-Seidel on hand-written
-Hopper kernels.
+Hopper kernels; the distributed MIS-2 engines over ``torch.distributed``
+and the serving layer (``repro_torch.serve``).
 
 It imports torch, numpy and the standard library only — never jax, and
 nothing of the JAX package, which stays in the repository as the reference
@@ -39,6 +40,17 @@ from .api import (
 from .core.mis2 import Mis2Options
 from .graphs import Graph
 
+
+def __getattr__(name: str):
+    """``repro_torch.serve`` is imported on first use, as the reference's
+    ``repro.serve`` is."""
+    if name == "serve":
+        import importlib
+
+        return importlib.import_module(".serve", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "graphs", "solvers", "Graph", "Backend", "Mis2Options", "mis2", "misk",
     "coarsen", "color", "partition", "amg_setup", "amg", "cluster_gs_setup",
@@ -46,5 +58,5 @@ __all__ = [
     "ColoringResult", "PartitionResult", "AmgSetup", "ClusterGsSetup",
     "determinism_digest", "ABLATION_CHAIN", "obs", "mis2_batch",
     "color_batch", "coarsen_batch", "amg_setup_batch", "GraphBatch",
-    "as_graph_batch", "BatchResult",
+    "as_graph_batch", "BatchResult", "serve",
 ]

@@ -1,20 +1,29 @@
-"""Execution policy: which device the pipelines run on.
+"""Execution policy: which device the pipelines run on, and which process
+group the distributed engines partition the vertices over.
 
 ``Backend()`` runs on ``cuda``; ``Backend(device="cpu")`` asks for the CPU,
 where the kernels' plain-torch twins stand in for the CUDA kernels.  With
 no device given and no CUDA device present, resolving the backend raises:
 the port never falls back to the CPU on its own.
+
+``Backend(group=...)`` names the ``torch.distributed`` process group (or
+``DeviceMesh``) of the ``distributed`` engines; see :meth:`resolve_group`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
+
+#: flattened multi-dimensional meshes: row-major rank order -> process group
+_FLAT_GROUPS: dict[tuple, Any] = {}
 
 
 @dataclass(frozen=True)
 class Backend:
     device: torch.device | str | None = None   # None = cuda
+    group: Any = None   # ProcessGroup | DeviceMesh | None (default group)
 
     def resolve_device(self) -> torch.device:
         if self.device is not None:
@@ -24,6 +33,46 @@ class Backend:
                 "no CUDA device: repro_torch runs on the GPU unless the "
                 "caller passes Backend(device='cpu')")
         return torch.device("cuda")
+
+    def resolve_group(self) -> tuple[Any, int, int]:
+        """``(group, world_size, rank)`` of the distributed engines.
+
+        ``group=None`` takes the initialized default group; with none
+        initialized it is a group of one rank (``group`` None): no
+        collective is run and the model counts one device, as the
+        reference's one-device mesh.  A ``DeviceMesh`` of several
+        dimensions is flattened row-major, as the reference flattens a
+        multi-axis mesh with ``axis=None``; its row-major order must be
+        ascending global ranks (a group's ranks are ordered so)."""
+        import torch.distributed as dist
+
+        group = self.group
+        if group is None:
+            if not (dist.is_available() and dist.is_initialized()):
+                return None, 1, 0
+            group = dist.group.WORLD
+        elif hasattr(group, "mesh") and hasattr(group, "get_group"):
+            group = _mesh_group(group)
+        return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _mesh_group(mesh):
+    """The process group of a ``DeviceMesh``, flattened row-major; a new
+    group is made once per rank order (every rank of the default group
+    takes part, as ``new_group`` asks)."""
+    import torch.distributed as dist
+
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    order = tuple(int(r) for r in mesh.mesh.flatten().tolist())
+    if list(order) != sorted(order):
+        raise ValueError(f"the mesh's row-major rank order {order} is not "
+                         "ascending")
+    if order == tuple(range(dist.get_world_size())):
+        return dist.group.WORLD
+    if order not in _FLAT_GROUPS:
+        _FLAT_GROUPS[order] = dist.new_group(list(order))
+    return _FLAT_GROUPS[order]
 
 
 def resolve_backend(backend: Backend | None) -> Backend:

@@ -108,7 +108,7 @@ def mis2(graph, *, active=None, options: Mis2Options | None = None,
     engine = default_mis2_engine(gh, options) if engine is None else engine
     fn = get_engine("mis2", engine)
     return _traced(
-        "mis2", engine, be, lambda: fn(gh, active, options),
+        "mis2", engine, be, lambda: fn(gh, active, options, backend=be),
         lambda r, dt: Mis2Result(
             r.in_set, r.iterations, r.converged, dt, engine=engine,
             host_syncs=r.host_syncs, collectives=r.collectives,
@@ -141,18 +141,26 @@ def coarsen(graph, *, method: str = "two_phase",
             min_secondary_neighbors: int = 2,
             backend: Backend | None = None) -> AggregationResult:
     """MIS-2 graph coarsening: ``method`` is ``two_phase`` (paper Alg. 3),
-    ``basic`` (Alg. 2) or ``serial`` (host-sequential reference).
+    ``basic`` (Alg. 2), ``serial`` (host-sequential reference) or
+    ``two_phase_distributed`` (Alg. 3 with every MIS-2 and label round
+    sharded over ``Backend.group``; ``mis2_engine=
+    "distributed_single_gather"`` for the half-traffic schedule).
     ``mis2_engine=None`` selects the inner fixed points as ``mis2`` does
     (``cuda_hybrid``, with the joins over the hybrid layout, past the
-    threshold)."""
+    threshold), ``distributed`` for the sharded method; a distributed
+    inner engine with ``basic`` / ``two_phase`` shards the MIS-2 only."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     fn = get_engine("aggregation", method)
-    inner = default_mis2_engine(gh, options) if mis2_engine is None \
-        else mis2_engine
+    if mis2_engine is not None:
+        inner = mis2_engine
+    elif method == "two_phase_distributed":
+        inner = "distributed"
+    else:
+        inner = default_mis2_engine(gh, options)
     return _traced(
         "coarsen", method, be,
-        lambda: fn(gh, options, inner, min_secondary_neighbors),
+        lambda: fn(gh, options, inner, min_secondary_neighbors, backend=be),
         lambda r, dt: _wrap_aggregation(r, dt, inner))
 
 

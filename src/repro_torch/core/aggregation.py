@@ -335,10 +335,11 @@ def _layout_joins(gh, engine: str) -> _Joins:
 # ---------------------------------------------------------------------------
 
 def _aggregate_basic_impl(graph, options: Mis2Options | None = None,
-                          engine: str = "cuda_resident") -> AggregationResult:
+                          engine: str = "cuda_resident",
+                          backend=None) -> AggregationResult:
     gh = as_graph(graph)
     joins = _layout_joins(gh, engine)
-    r = run_mis2(gh, None, options, engine)
+    r = run_mis2(gh, None, options, engine, backend)
     labels, nagg = joins.roots(torch.from_numpy(r.in_set).to(gh.device))
     phase = (labels >= 0).to(torch.uint8)
     labels, phase = joins.cleanup(labels, phase)
@@ -354,14 +355,14 @@ def _aggregate_basic_impl(graph, options: Mis2Options | None = None,
 
 def _aggregate_two_phase_impl(graph, options: Mis2Options | None = None,
                               engine: str = "cuda_resident",
-                              min_secondary_neighbors: int = 2
-                              ) -> AggregationResult:
+                              min_secondary_neighbors: int = 2,
+                              backend=None) -> AggregationResult:
     gh = as_graph(graph)
     joins = _layout_joins(gh, engine)
     dev = gh.device
 
     # Phase 1: MIS-2 roots + direct neighbors
-    r1 = run_mis2(gh, None, options, engine)
+    r1 = run_mis2(gh, None, options, engine, backend)
     labels, nagg = joins.roots(torch.from_numpy(r1.in_set).to(dev))
     phase = (labels >= 0).to(torch.uint8)
     total_iters = r1.iterations
@@ -371,7 +372,7 @@ def _aggregate_two_phase_impl(graph, options: Mis2Options | None = None,
     unagg = labels < 0
     roots2 = np.zeros(gh.num_vertices, dtype=bool)
     if bool(unagg.any()):
-        r2 = run_mis2(gh, unagg, options, engine)
+        r2 = run_mis2(gh, unagg, options, engine, backend)
         total_iters += r2.iterations
         converged = converged and r2.converged
         labels, roots2_d, newly = joins.phase2(
@@ -385,6 +386,83 @@ def _aggregate_two_phase_impl(graph, options: Mis2Options | None = None,
     labels, phase = joins.phase3(labels, phase)
     phase = _host(phase)
     labels, nagg = _finalize_singletons(_host(labels), nagg, phase)
+    return AggregationResult(labels.astype(np.int32), nagg,
+                             r1.in_set | roots2, phase, total_iters,
+                             converged)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 3, sharded (the label rounds over a process group; core.dist)
+# ---------------------------------------------------------------------------
+
+def _aggregate_two_phase_distributed_impl(
+        graph, options: Mis2Options | None = None,
+        min_secondary_neighbors: int = 2, *, backend=None,
+        single_gather: bool = False) -> AggregationResult:
+    """Distributed ML-style coarsening: both MIS-2 phases run the sharded
+    fixed point, and every label-propagation round (root join, unaggregated
+    count, max-coupling phase 3) is one label all-gather and the local
+    rowwise join, with the bookkeeping on the host.  Labels are
+    bit-identical to the single-device ``two_phase`` engine's: the sharded
+    rounds run the same rowwise helpers."""
+    from .dist import (
+        _mis2_distributed_impl,
+        count_unagg_neighbors_distributed,
+        join_adjacent_root_distributed,
+        phase3_join_distributed,
+        prepare_padded,
+    )
+
+    gh = as_graph(graph)
+    v = gh.num_vertices
+    # pad and place this rank's row block once for the whole pipeline (2
+    # MIS-2 fixed points and up to ~6 label rounds reuse it)
+    padded = prepare_padded(gh, backend)
+    dist_kw = {"padded": padded}
+    mis2_kw = dict(dist_kw, single_gather=single_gather)
+
+    # Phase 1: sharded MIS-2 roots + direct neighbors (sharded root join)
+    r1 = _mis2_distributed_impl(gh, options=options, **mis2_kw)
+    agg_ids = np.cumsum(r1.in_set) - 1
+    root_label = np.where(r1.in_set, agg_ids, INT32_MAX).astype(np.int32)
+    labels = join_adjacent_root_distributed(gh, root_label, **dist_kw)
+    nagg = int(r1.in_set.sum())
+    phase = np.where(labels >= 0, 1, 0).astype(np.uint8)
+    total_iters = r1.iterations
+    converged = r1.converged
+
+    # Phase 2: sharded MIS-2 on the induced unaggregated subgraph
+    unagg = labels < 0
+    roots2 = np.zeros(v, dtype=bool)
+    if unagg.any():
+        r2 = _mis2_distributed_impl(gh, active=unagg, options=options,
+                                    **mis2_kw)
+        total_iters += r2.iterations
+        converged = converged and r2.converged
+        n_unagg_nbrs = count_unagg_neighbors_distributed(gh, labels,
+                                                         **dist_kw)
+        roots2 = r2.in_set & (n_unagg_nbrs >= min_secondary_neighbors)
+        if roots2.any():
+            agg_ids2 = nagg + np.cumsum(roots2) - 1
+            rl2 = np.where(roots2, agg_ids2, INT32_MAX).astype(np.int32)
+            adj2 = join_adjacent_root_distributed(gh, rl2, **dist_kw)
+            newly = (labels < 0) & (adj2 >= 0)
+            labels = np.where(newly, adj2, labels)
+            phase[newly] = 2
+            nagg += int(roots2.sum())
+
+    # Phase 3: sharded max-coupling join against frozen tentative labels
+    rounds = 0
+    while (labels < 0).any() and rounds < _JOIN_ROUNDS:
+        aggsize = np.bincount(labels[labels >= 0], minlength=max(nagg, 1))
+        new_labels = phase3_join_distributed(
+            gh, labels.astype(np.int32), aggsize.astype(np.int32), **dist_kw)
+        newly = (labels < 0) & (new_labels >= 0)
+        phase[newly] = 3
+        labels = new_labels
+        rounds += 1
+
+    labels, nagg = _finalize_singletons(labels, nagg, phase)
     return AggregationResult(labels.astype(np.int32), nagg,
                              r1.in_set | roots2, phase, total_iters,
                              converged)

@@ -135,6 +135,15 @@ class Mis2Result:
         return int(self.in_set.sum())
 
 
+def _require_entries(neighbors: torch.Tensor, engine: str) -> None:
+    """A graph with no entries has no closed neighbourhood to take the min
+    over: raise ``ValueError``, as the reference's min over a zero-size
+    array does (``neighbors``: the ELL adjacency or the COO column ids)."""
+    if neighbors.numel() == 0:
+        raise ValueError(f"mis2 engine {engine!r}: the graph has no entries "
+                         "(zero-size array to reduction operation min)")
+
+
 def _active_mask(active, v: int, device: torch.device) -> torch.Tensor:
     if active is None:
         return torch.ones(v, dtype=torch.bool, device=device)
@@ -193,6 +202,7 @@ def _mis2_dense_impl(graph, active=None,
                      options: Mis2Options | None = None) -> Mis2Result:
     options = Mis2Options() if options is None else options
     ell = as_graph(graph).ell
+    _require_entries(ell.neighbors, "dense")
     v = ell.num_vertices
     act = _active_mask(active, v, ell.neighbors.device)
     t, iters, syncs = mis2_dense_fixed_point(
@@ -397,6 +407,7 @@ def _mis2_resident_impl(graph, active=None,
     _require_worklists(options, "cuda_resident")
     _require_kernel_layout(options, "cuda_resident")
     ell = as_graph(graph).ell
+    _require_entries(ell.neighbors, "cuda_resident")
     v = ell.num_vertices
     act = _active_mask(active, v, ell.neighbors.device)
     t, iters, n1, syncs = resident_ell_fixed_point(
@@ -651,13 +662,16 @@ def _in_set(state: tuple) -> np.ndarray:
     return (state[0] == (IN if len(state) == 2 else S_IN)).cpu().numpy()
 
 
-def _layout(gh, options: Mis2Options):
-    """``(V, ELL neighbors or None, int64 COO edges or None)``."""
+def _layout(gh, options: Mis2Options, engine: str):
+    """``(V, ELL neighbors or None, int64 COO edges or None)``; raises on a
+    graph with no entries."""
     if options.layout == "ell":
         nbrs = gh.ell.neighbors
+        _require_entries(nbrs, engine)
         return nbrs.shape[0], nbrs, None
-    return gh.num_vertices, None, tuple(x.to(torch.int64)
-                                        for x in gh.csr_edges)
+    edges = tuple(x.to(torch.int64) for x in gh.csr_edges)
+    _require_entries(edges[1], engine)
+    return gh.num_vertices, None, edges
 
 
 # ===========================================================================
@@ -715,7 +729,8 @@ def _mis2_compacted_impl(graph, active=None,
     if kernels:
         _require_kernel_layout(options, "cuda_compacted")
     gh = as_graph(graph)
-    v, nbrs, edges = _layout(gh, options)
+    v, nbrs, edges = _layout(gh, options,
+                             "cuda_compacted" if kernels else "compacted")
     act = _active_mask(active, v, gh.device)
     kw = dict(priority=options.priority, b=id_bits(v))
     state = _initial_state(act, options.packed)
@@ -759,7 +774,7 @@ def _mis2_resident_plain_impl(graph, active=None,
     options = Mis2Options() if options is None else options
     _require_worklists(options, "compacted_resident")
     gh = as_graph(graph)
-    v, nbrs, edges = _layout(gh, options)
+    v, nbrs, edges = _layout(gh, options, "compacted_resident")
     act = _active_mask(active, v, gh.device)
     kw = dict(priority=options.priority, b=id_bits(v))
     state = _initial_state(act, options.packed)
@@ -781,10 +796,21 @@ def _mis2_resident_plain_impl(graph, active=None,
     return Mis2Result(_in_set(state), it, not bool(und.any()), syncs,
                       num_compiles=1)
 
+#: the engines that partition the vertices over a process group
+DISTRIBUTED_ENGINES = ("distributed", "distributed_single_gather")
+
+
 def run_mis2(graph, active=None, options: Mis2Options | None = None,
-             engine: str = "cuda_resident") -> Mis2Result:
+             engine: str = "cuda_resident", backend=None) -> Mis2Result:
     """Engine dispatch used by the facade and the coarsening drivers; every
-    engine gives a bit-identical set for equal options."""
+    engine gives a bit-identical set for equal options.  ``backend`` names
+    the process group of the distributed engines (``Backend.group``)."""
+    if engine in DISTRIBUTED_ENGINES:
+        from .dist import _mis2_distributed_impl
+
+        return _mis2_distributed_impl(
+            graph, active, options, backend=backend,
+            single_gather=engine == "distributed_single_gather")
     if engine == "dense":
         return _mis2_dense_impl(graph, active, options)
     if engine == "cuda_resident":
@@ -800,7 +826,8 @@ def run_mis2(graph, active=None, options: Mis2Options | None = None,
         return _mis2_resident_plain_impl(graph, active, options)
     raise ValueError(f"unknown mis2 engine {engine!r} (dense | compacted | "
                      "cuda_compacted | compacted_resident | cuda_resident | "
-                     "cuda_hybrid)")
+                     "cuda_hybrid | distributed | "
+                     "distributed_single_gather)")
 
 
 # Fig. 2 cumulative ablation chain: Bell's baseline, then each of the

@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
+#: nvcc processes this process has started (a warmed server's request path
+#: must start none)
+NVCC_RUNS = {"count": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -72,6 +75,7 @@ def _library_path(name: str) -> Path:
 def _start(name: str, out: Path) -> subprocess.Popen:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    NVCC_RUNS["count"] += 1
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

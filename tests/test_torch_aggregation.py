@@ -48,5 +48,5 @@ def test_dense_inner_engine_gives_same_labels(method):
 
 def test_unknown_method_raises():
     with pytest.raises(ValueError, match="aggregation"):
-        rt.coarsen(port_graph("laplace3d(8)"), method="two_phase_distributed",
+        rt.coarsen(port_graph("laplace3d(8)"), method="no_such_method",
                    backend=CPU)

@@ -879,3 +879,106 @@ def test_batched_pipelines_on_the_card(cuda_device, no_twins_on_cuda):
     for res in (br, cb, ab):
         assert res.provenance.backend == "gpu"
         assert all(r.provenance is res.provenance for r in res)
+
+
+# -- slice 13: the distributed engines and the serving layer ----------------
+
+def test_distributed_engines_on_the_card_one_rank(cuda_device,
+                                                  no_twins_on_cuda):
+    """With no process group the distributed engines run as one rank on
+    the card: the anchors, one launch of each sliced kernel a round (and
+    of the whole-graph refresh for single-gather), the two-phase
+    coarsening's anchor through the sharded label rounds."""
+    g = rt.Graph(GRAPHS["laplace3d(8)"]())
+    (size, iters, digest), (nagg, _, cdigest) = ANCHORS["laplace3d(8)"]
+    for engine in ("distributed", "distributed_single_gather"):
+        ops.reset_launches()
+        r = rt.mis2(g, engine=engine)
+        assert (r.size, r.iterations, r.digest) == (size, iters, digest)
+        assert r.collectives["counted_result_bytes"] == \
+            r.collectives["result_bytes_total"]
+        assert ops.LAUNCHES["sliced_decide"] == iters
+        single = engine.endswith("single_gather")
+        assert ops.LAUNCHES["sliced_refresh_columns"] == (0 if single
+                                                          else iters)
+        assert ops.LAUNCHES["fused_refresh_columns"] == (iters if single
+                                                         else 0)
+    for kw in ({"method": "two_phase_distributed"},
+               {"method": "two_phase", "mis2_engine": "distributed"}):
+        a = rt.coarsen(g, **kw)
+        assert (a.num_aggregates, a.digest) == (nagg, cdigest)
+
+
+def test_server_on_the_card_equals_direct_calls(cuda_device,
+                                                no_twins_on_cuda):
+    """A warmed server on the card: every served mis2 / color / coarsen /
+    amg_setup response equals its direct facade call, no shape is cold,
+    no nvcc runs after the warm-up, no fallback answers."""
+    from repro_torch.serve import Server, ServerConfig, warm_buckets_for
+
+    graphs = [rt.Graph(GRAPHS[n]()) for n in GRAPHS]
+    graphs.append(rt.Graph(gen.er_laplacian(600, 6.0, seed=3)))
+    srv = Server(ServerConfig(max_batch=4,
+                              warm_buckets=warm_buckets_for(graphs),
+                              cache_bytes=0))
+    kinds = ("mis2", "color", "coarsen", "amg_setup")
+    futs = [(k, g, srv.submit(k, g)) for k in kinds for g in graphs]
+    srv.flush()
+    direct = {"mis2": rt.mis2, "color": rt.color, "coarsen": rt.coarsen,
+              "amg_setup": rt.amg_setup}
+    for k, g, f in futs:
+        r = f.result()
+        assert r.digest == direct[k](g).digest
+        assert r.provenance.backend == "gpu"
+        assert r.provenance.digest == r.digest
+    st = srv.server_stats()
+    assert st["compiles"]["runtime_cold"] == 0
+    assert st["compiles"]["nvcc_since_warm"] == 0
+    assert st["fallbacks"] == 0
+
+
+def test_server_on_the_card_never_falls_back_on_a_real_error(
+        cuda_device, monkeypatch):
+    """A device out-of-memory error inside a served request on the card
+    resolves it with ``EngineFailure``, the error as its cause; an
+    injected persistent fault degrades to the card's default engine."""
+    from repro_torch.kernels.minprop_ell import ops
+    from repro_torch.serve import (EngineFailure, Fault, FaultPlan, Server,
+                                   ServerConfig)
+
+    g = rt.Graph(gen.laplace3d(12))
+    want = rt.mis2(g)
+    err = torch.OutOfMemoryError("CUDA out of memory. Tried to allocate")
+
+    def oom(*a, **k):
+        raise err
+
+    with monkeypatch.context() as m:
+        m.setattr(ops, "fused_refresh_columns", oom)
+        srv = Server(ServerConfig(cache_bytes=0))
+        fut = srv.submit("mis2", g)
+        srv.flush()
+        with pytest.raises(EngineFailure) as ei:
+            fut.result()
+    assert ei.value.__cause__ is err and srv.stats.fallbacks == 0
+    plan = FaultPlan(seed=1, sites={
+        "engine": Fault("error", transient=False)})
+    srv = Server(ServerConfig(faults=plan, cache_bytes=0))
+    res = srv.request("mis2", g)
+    assert srv.stats.fallbacks == 1
+    assert (res.engine, res.digest) == (want.engine, want.digest)
+
+
+def test_streaming_repair_on_the_card(cuda_device):
+    from repro_torch.serve import StreamSession
+
+    session = StreamSession(gen.laplace3d(10), check_fraction=1.0)
+    rng = np.random.default_rng(3)
+    v = session.graph.num_vertices
+    for _ in range(3):
+        adds = rng.integers(0, v, size=(5, 2))
+        r = session.apply_delta(adds[adds[:, 0] != adds[:, 1]], None)
+        assert session.last_repair.mode == "repair"
+        assert session.last_repair.checked
+        assert r.digest == rt.mis2(session.graph, engine="dense",
+                                   options=session.options).digest

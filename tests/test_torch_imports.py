@@ -18,6 +18,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py",
     ROOT / "tools" / "bench_spmv.py", ROOT / "tools" / "bench_minprop.py",
     ROOT / "tools" / "bench_hash_pack.py",
+    ROOT / "tools" / "bench_serve_route.py",
     ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -31,7 +32,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid,"
             "repro_torch.core.mis2, repro_torch.core.misk,"
             "repro_torch.core.partition, repro_torch.api.backend,"
-            "repro_torch.batch, repro_torch.batch.pipeline, repro_torch.obs;"
+            "repro_torch.batch, repro_torch.batch.pipeline, repro_torch.obs,"
+            "repro_torch.core.dist, repro_torch.serve;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")

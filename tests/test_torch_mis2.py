@@ -86,3 +86,41 @@ def test_bad_options_and_engine_raise():
     with pytest.raises(ValueError, match="active"):
         rt.mis2(port_graph("laplace3d(8)"), active=np.ones(3, bool),
                 backend=CPU)
+
+
+EMPTY_RAISES = ["dense", "compacted", "cuda_compacted", "compacted_resident",
+                "cuda_resident", "distributed", "distributed_single_gather"]
+EMPTY_ANSWERS = ["cuda_hybrid", "dense_batched"]
+
+
+def _empty_graph():
+    none = np.array([], dtype=np.int64)
+    return rt.Graph.from_coo(none, none, 3, device="cpu")
+
+
+@pytest.mark.parametrize("engine", EMPTY_RAISES)
+def test_graph_with_no_entries_raises_value_error(engine):
+    """A graph with no entries has no closed neighbourhood to take the min
+    over: ``ValueError``, as the reference's engines raise (numpy's min
+    over a zero-size array)."""
+    with pytest.raises(ValueError, match="no entries"):
+        rt.mis2(_empty_graph(), engine=engine, backend=CPU)
+    if engine in ("compacted", "compacted_resident"):   # the COO layout
+        with pytest.raises(ValueError, match="no entries"):
+            rt.mis2(_empty_graph(), engine=engine, backend=CPU,
+                    options=rt.Mis2Options(layout="csr_segment"))
+
+
+@pytest.mark.parametrize("engine", EMPTY_ANSWERS)
+def test_graph_with_no_entries_is_answered_where_the_reference_answers(
+        engine):
+    """The reference's ``pallas_hybrid`` and ``dense_batched`` answer (each
+    isolated vertex IN); so do their counterparts."""
+    import repro
+
+    none = np.array([], dtype=np.int64)
+    want = repro.mis2(repro.Graph.from_coo(none, none, 3),
+                      engine="pallas_hybrid" if engine == "cuda_hybrid"
+                      else engine)
+    r = rt.mis2(_empty_graph(), engine=engine, backend=CPU)
+    assert r.digest == want.digest and r.payload.all()
