@@ -22,8 +22,11 @@ Phases (any failure raises, and the script exits non-zero):
    runs, two launches each, all bitwise;
 4. the MIS-2 path: ``repro_torch.mis2`` and ``repro_torch.coarsen(method=
    "two_phase")`` with ``engine=None`` on laplace3d(8), Laplace3D_100 and
-   Elasticity3D_60 against the reference's digests, one launch of each
-   fused kernel per MIS-2 round, the ``dense`` engine's equal digest;
+   Elasticity3D_60 against the reference's digests, one launch of the
+   persistent ``resident_fixed_point`` kernel per MIS-2 solve (its body
+   carries the fused passes; the standalone fused kernels are not
+   launched) and no host sync inside it, the ``dense`` engine's equal
+   digest;
 5. the AMG path on Laplace3D_100: ``amg_setup`` with ``engine=None``
    (the ``resident`` engine: the per-level setup on the card, two-phase
    aggregation) with explicit R and matrix-free, and the ``host`` engine
@@ -127,7 +130,16 @@ Phases (any failure raises, and the script exits non-zero):
    streaming deltas on Laplace3D_100, each repair equal to a from-scratch
    ``mis2``; a persistent tier restarted with one corrupt entry dropped,
    and a seeded fault plan's exact retry / fallback / injected counts;
-   every response carries its own provenance.
+   every response carries its own provenance;
+14. the resident fixed point as one dispatch: the persistent kernel against
+   its twin on laplace3d(8), Laplace3D_100 and Elasticity3D_60 (capped at
+   1, 2 and 4 rounds, uncapped, and under the active mask of a two-phase
+   coarsening's phase 2), bitwise T, equal rounds and live count; the
+   anchors through ``engine=None`` with no host sync and one dispatch (one
+   launch) a solve; a profiled solve whose only kernel is the persistent
+   one and whose device-to-host copies follow it; five warm calls of the
+   paper graphs' ``mis2`` and ``coarsen`` beside the times before the
+   kernel; and ``tools/check_shape_torch.py``'s five gates on the card.
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -282,7 +294,28 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
     # no TPU kernel: the reference sums these runs with XLA's segment_sum
     "run_sums": ("none (XLA segment_sum, src/repro/multilevel/galerkin.py:68)",
                  "src/repro_torch/kernels/csrc/run_sums.cu"),
+    # no TPU kernel of its own: the reference's jitted while_loop around
+    # kernels 1-2 and compact_worklist, whose bodies it runs
+    "resident_fixed_point": (
+        "none (the lax.while_loop of src/repro/core/mis2.py:641 over "
+        "src/repro/kernels/minprop_ell/kernel.py:216 and :254)",
+        "src/repro_torch/kernels/csrc/minprop_ell.cu"),
 }
+# the standalone kernels the main path no longer launches: their bodies run
+# inside resident_fixed_point; each is still held against its twin (phase
+# 3) and timed (phase 11); fused_refresh_columns stays on phase 12's
+# single-gather path
+CARRIED_BY = {"fused_refresh_columns": "resident_fixed_point",
+              "fused_decide": "resident_fixed_point"}
+# wall ms of five warm calls before the persistent kernel (PERF.md section
+# 5, tools/profile_torch.py; NVIDIA H100 80GB HBM3, 700 W)
+WALL_BEFORE_MS = {
+    "Laplace3D_100": {"mis2": [5.36, 5.40, 6.17, 6.40, 6.62],
+                      "coarsen": [19.96, 21.78, 26.73, 26.88, 27.65]},
+    "Elasticity3D_60": {"mis2": [5.15, 5.79, 5.93, 6.17, 6.66],
+                        "coarsen": [75.45, 75.67, 76.41, 79.17, 80.58]},
+}
+RESIDENT = "resident_fixed_point"
 SLICED = ("sliced_refresh_columns", "sliced_decide")
 UNFUSED = ("refresh_columns", "decide")
 # run-sum launches a resident AMG level: A P0 and the two Galerkin stages
@@ -523,13 +556,17 @@ def main() -> int:
               f"{label}: coarsen MIS-2 iterations {agg.iterations} != "
               f"{agg_iters}")
         check(agg.engine == "cuda_resident", f"{label}: {agg.engine}")
-        for k in ("fused_refresh_columns", "fused_decide"):
-            check(after_mis2[k] - before[k] == r.iterations,
-                  f"{label}: {k} launched {after_mis2[k] - before[k]} times "
-                  f"in {r.iterations} rounds")
-            check(after_coarsen[k] - after_mis2[k] == agg.iterations,
-                  f"{label}: {k} launched {after_coarsen[k] - after_mis2[k]}"
-                  f" times in coarsen's {agg.iterations} rounds")
+        check(r.host_syncs == 0, f"{label}: {r.host_syncs} host syncs")
+        check(after_mis2[RESIDENT] - before[RESIDENT] == 1,
+              f"{label}: {RESIDENT} launched "
+              f"{after_mis2[RESIDENT] - before[RESIDENT]} times in a solve")
+        check(after_coarsen[RESIDENT] - after_mis2[RESIDENT] in (1, 2),
+              f"{label}: {RESIDENT} launched "
+              f"{after_coarsen[RESIDENT] - after_mis2[RESIDENT]} times in "
+              "coarsen's two MIS-2 phases")
+        for k in FUSED:
+            check(after_coarsen[k] == before[k],
+                  f"{label}: the standalone {k} was launched on the path")
         main_path[label] = {
             "mis2": {"size": r.size, "iterations": r.iterations,
                      "digest": r.digest, "host_syncs": r.host_syncs,
@@ -540,8 +577,8 @@ def main() -> int:
         }
     counts = launches.read()
     add_path(counts)
-    for k in ("fused_refresh_columns", "fused_decide"):
-        check(counts[k] > 0, f"{k} was never launched on the MIS-2 path")
+    check(counts[RESIDENT] > 0, f"{RESIDENT} was never launched on the MIS-2 "
+          "path")
     for label in ANCHORS:
         rd = rt.mis2(graphs[label], engine="dense")
         check(rd.digest == ANCHORS[label]["mis2"][2],
@@ -609,7 +646,7 @@ def main() -> int:
               f"AMG {key}: spmv/spmv_t launched {(got_spmv, got_spmv_t)}, "
               f"one V-cycle x {cycles} cycles gives "
               f"{(want_spmv, want_spmv_t)}")
-        check(mid["fused_decide"] - before["fused_decide"] > 0,
+        check(mid[RESIDENT] - before[RESIDENT] > 0,
               f"AMG {key}: aggregation launched no MIS-2 kernel")
         amg[key] = {"engine": s.engine, "levels": s.level_sizes,
                     "digests": s.level_digests, "dispatches": s.dispatches,
@@ -759,8 +796,8 @@ def main() -> int:
     misk_part = _misk_partition_path(rt, np, l100, launches)
     counts = launches.read()
     add_path(counts)
-    for k in FUSED:
-        check(counts[k] > 0, f"{k} was never launched by the partition")
+    check(counts[RESIDENT] > 0, f"{RESIDENT} was never launched by the "
+          "partition")
     emit({"phase": "misk_partition_path", "launches": counts, **misk_part})
 
     # -- 10. the batched pipelines ---------------------------------------------
@@ -768,14 +805,15 @@ def main() -> int:
     batch = _batch_path(torch, rt, dev, launches)
     counts = batch.pop("launches")
     add_path(counts)
-    for k in ("round_priorities_batched", *FUSED, "run_sums"):
+    for k in ("round_priorities_batched", RESIDENT, "run_sums"):
         check(counts[k] > 0, f"{k} was never launched on the batch path")
     batch_b = batch.pop("fleet_b")
     batch["round_priorities_batched_vs_twin"] = _hold_batched_priorities(
         torch, hash_ops, hash_ref, batch_b, errs)
     emit({"phase": "batch_path", "launches": counts, **batch})
     for k in KERNELS:
-        check(path_launches[k] > 0, f"{k} was never launched on a path")
+        check(k in CARRIED_BY or path_launches[k] > 0,
+              f"{k} was never launched on a path")
 
     # -- 11. timing -----------------------------------------------------------------
     timing = {}
@@ -785,6 +823,8 @@ def main() -> int:
                                            id_bits))
         timing[label]["spmv"] = _time_spmv(torch, graphs[label].ell_matrix,
                                            spmv_ops, spmv_ref, rng)
+        timing[label][RESIDENT] = _time_resident(torch, graphs[label], ops,
+                                                 ref, id_bits)
         e2e = {}
         g = graphs[label]
         for what, call in (
@@ -869,12 +909,23 @@ def main() -> int:
     serving = _serving_path(torch, np, rt, dev, graphs, pl, launches)
     serve_counts = serving.pop("launches")
     add_path(serve_counts)
-    for k in (*FUSED, *SLICED, "round_priorities_batched", "run_sums"):
+    for k in (RESIDENT, *SLICED, "round_priorities_batched", "run_sums"):
         check(serve_counts[k] > 0, f"{k} was never launched by the server")
     emit({"phase": "serving_path", "card": smi, "launches": serve_counts,
           **serving})
+    # -- 14. the resident fixed point as one dispatch --------------------------
+    t0 = time.perf_counter()
+    one = _resident_one_dispatch(torch, rt, ops, ref, id_bits, graphs,
+                                 launches, errs)
+    one_counts = one.pop("launches")
+    add_path(one_counts)
+    check(one_counts[RESIDENT] > 0, f"{RESIDENT} was never launched in "
+          "phase 14")
+    emit({"phase": "resident_one_dispatch", "card": smi,
+          "launches": one_counts, "seconds": time.perf_counter() - t0, **one})
     new_sites = {"distributed (phase 12)": dist_counts,
-                 "serving (phase 13)": serve_counts}
+                 "serving (phase 13)": serve_counts,
+                 "one dispatch (phase 14)": one_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -893,6 +944,9 @@ def main() -> int:
         "run_sums": ("Laplace3D_100 level-0 Galerkin stage 2", run_time),
         "round_priorities_batched": (
             f"fleet B bucket {batched_time['shape']}", batched_time),
+        RESIDENT: ("Elasticity3D_60, a whole mis2 solve ("
+                   f"{timing['Elasticity3D_60'][RESIDENT]['rounds']} "
+                   "rounds)", timing["Elasticity3D_60"][RESIDENT]),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -905,8 +959,17 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": shape,
         }
-        if k in ("fused_refresh_columns", "fused_decide", "spmv", *UNFUSED):
+        if k in ("fused_refresh_columns", "fused_decide", "spmv", *UNFUSED,
+                 RESIDENT):
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
+        if k in CARRIED_BY:
+            entry["carried_by"] = CARRIED_BY[k]
+            entry["note"] = (
+                f"the main path runs this body inside {CARRIED_BY[k]} (one "
+                "launch a solve), so the standalone kernel's launches fell: "
+                "it is held against its twin in phase 3 and timed at round "
+                "0 here" + (", and phase 12's single-gather rounds launch "
+                            "it" if k == "fused_refresh_columns" else ""))
         if k == "hash_pack":
             entry.update(by_form=hash_time["by_form"],
                          ms_read_flush=hash_time["ms_read_flush"],
@@ -929,7 +992,7 @@ def main() -> int:
 def _misk_partition_path(rt, np, g, launches) -> dict:
     """``misk`` (k = 1, 2, 3, both engines and ``engine=None``) and
     ``partition(g, 8)`` against the reference's Laplace3D_100 anchors; the
-    partition's coarsening must launch the fused kernels."""
+    partition's coarsening must launch the persistent MIS-2 kernel."""
     out = {"numpy": np.__version__, "misk": {}}
     for k, want in MISK_L100.items():
         for engine in ("dense", "resident", None):
@@ -961,7 +1024,8 @@ def _misk_partition_path(rt, np, g, launches) -> dict:
     loads = np.bincount(p.parts, minlength=want["parts"])
     out["partition"] = dict(got, first_call_s=p.wall_time_s,
                             loads=loads.tolist(),
-                            launches={k: after[k] - before[k] for k in FUSED})
+                            launches={RESIDENT: after[RESIDENT]
+                                      - before[RESIDENT]})
     return out
 
 
@@ -1648,6 +1712,264 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
         out[k] = {**_timed(torch, kernel, twin, None, nbytes, hashes=hashes,
                            restore=restore, reps=reps, plain_reps=plain_reps),
                   "V": v, "D": d}
+    return out
+
+
+def _resident_bytes(v: int, d: int, trace) -> tuple[int, int]:
+    """Bytes and §V-A hashes of a resident solve's passes at the rounds
+    run (``trace``: each round's live counts, M worklist then undecided):
+    round 0's state written (T, M, both lists) from the mask; a round's
+    per-vertex pass at wide rows (T read, the tuples written), the refresh
+    (its list, the rows' ids, the words they point at, at most V of them,
+    M written), the decide (its list, the rows' ids and own T, M and the
+    mask at the neighbours, at most V, T written) and both lists' compaction
+    (each list and the word it keys read, the survivors written); the
+    hashes: the undecided rows twice a round (refresh and decide)."""
+    nbytes = v + 16 * v
+    hashes = 0
+    wide = d >= 16
+    for i, (n2, n1) in enumerate(trace):
+        nxt = trace[i + 1] if i + 1 < len(trace) else (0, 0)
+        if wide:
+            nbytes += 8 * v
+        nbytes += 4 * n2 + 4 * n2 * d + 4 * min(n2 * d, v) + 4 * n2
+        nbytes += 4 * n1 + 4 * n1 * d + 4 * n1 + 5 * min(n1 * d, v) + 4 * n1
+        nbytes += 8 * n1 + 8 * n2 + 4 * (nxt[0] + nxt[1])
+        hashes += 2 * n1
+    return nbytes, hashes
+
+
+def _time_resident(torch, g, ops, ref, id_bits, reps: int = 20,
+                   plain_reps: int = 3) -> dict:
+    """A whole ``mis2`` solve of the persistent kernel (every row active)
+    and of its twin, beside the bytes of the solve's passes at the rounds
+    it ran (:func:`_resident_bytes`, from the twin's live counts)."""
+    ell = g.ell
+    v, d = ell.neighbors.shape
+    dev = ell.neighbors.device
+    nbrs_flat = ell.neighbors.reshape(-1)
+    active = torch.ones(v, dtype=torch.bool, device=dev)
+    kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=128)
+    t, m = (torch.empty(v, dtype=torch.int32, device=dev) for _ in range(2))
+    tt, mt = (torch.empty(v, dtype=torch.int32, device=dev) for _ in range(2))
+    trace = []
+    ref.resident_fixed_point_ref(tt, mt, active, nbrs_flat, trace=trace,
+                                 **kw)
+    nbytes, hashes = _resident_bytes(v, d, trace)
+    return {**_timed(
+        torch, lambda: ops.resident_fixed_point(t, m, active, nbrs_flat, **kw),
+        lambda: ref.resident_fixed_point_ref(tt, mt, active, nbrs_flat, **kw),
+        None, nbytes, hashes=hashes, reps=reps, plain_reps=plain_reps),
+        "V": v, "D": d, "rounds": len(trace),
+        "live_counts": [list(x) for x in trace]}
+
+
+def _phase2_masks(rt, graphs) -> dict:
+    """The active mask of each graph's second MIS-2 solve in a two-phase
+    coarsening (the rows phase 1 left unaggregated), caught at the
+    aggregation's ``run_mis2``."""
+    from repro_torch.core import aggregation
+
+    inner = aggregation.run_mis2
+    masks = {}
+    for label, g in graphs.items():
+        seen = []
+
+        def spy(gh, active, *a, **k):
+            seen.append(active)
+            return inner(gh, active, *a, **k)
+
+        aggregation.run_mis2 = spy
+        try:
+            rt.coarsen(g, method="two_phase")
+        finally:
+            aggregation.run_mis2 = inner
+        check(len(seen) == 2 and seen[1] is not None,
+              f"{label}: coarsen made {len(seen)} MIS-2 solves")
+        masks[label] = seen[1].contiguous()
+    return masks
+
+
+def _profiled_solve(torch, rt, g) -> dict:
+    """The device events of one ``cuda_resident`` fixed point and of one
+    ``mis2`` facade call, traced (``torch.profiler``, read from its chrome
+    trace as ``_dtoh_in_phases`` reads it): the fixed point's only kernel
+    must be the persistent one, and every device-to-host copy of either
+    must start after that kernel ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.mis2 import resident_ell_fixed_point
+    from repro_torch.core.tuples import id_bits
+
+    ell = g.ell
+    v = ell.num_vertices
+    act = torch.ones(v, dtype=torch.bool, device=ell.neighbors.device)
+    kw = dict(priority="xorshift_star", max_iters=128, b=id_bits(v))
+    path = ROOT / "build" / "chip_smoke_solve_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for what, call in (
+            ("fixed_point", lambda: resident_ell_fixed_point(ell.neighbors,
+                                                             act, **kw)),
+            ("mis2", lambda: rt.mis2(g))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        dev = sorted((e for e in events
+                      if e.get("cat") in ("kernel", "gpu_memcpy",
+                                          "gpu_memset")),
+                     key=lambda e: float(e["ts"]))
+        listed = [{"name": str(e["name"])[:80], "cat": e["cat"],
+                   "us": float(e.get("dur", 0))} for e in dev]
+        kernels = [e for e in dev if e["cat"] == "kernel"]
+        copies = [e for e in dev if e["cat"] == "gpu_memcpy"
+                  and "DtoH" in str(e["name"])]
+        resident = [e for e in kernels if RESIDENT in str(e["name"])]
+        check(len(resident) == 1, f"{what}: {len(resident)} persistent "
+              f"kernels in one solve; device events {listed}")
+        end = float(resident[0]["ts"]) + float(resident[0].get("dur", 0))
+        check(all(float(c["ts"]) >= end for c in copies),
+              f"{what}: a device-to-host copy before the solve ended: "
+              f"{listed}")
+        out[what] = {"device_events": listed, "kernels": len(kernels),
+                     "dtoh": len(copies)}
+    check(out["fixed_point"]["kernels"] == 1,
+          f"the fixed point ran {out['fixed_point']['kernels']} kernels")
+    return out
+
+
+def _profile_in_child() -> dict:
+    """:func:`_profiled_solve` on Laplace3D_100 in a spawned process, whose
+    profiler is its first: in this process, after the earlier phases'
+    traces and ranks, the profiler saw no device events (measured on one
+    H100).  Raises what the child's check raised."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_profile_rank, args=(tmp,), nprocs=1, join=True)
+        with open(f"{tmp}/profile.json") as fh:
+            rec = json.load(fh)
+    check("error" not in rec, rec.get("error", ""))
+    return rec
+
+
+def _profile_rank(rank: int, tmp: str) -> None:
+    """The spawned process of :func:`_profile_in_child`: writes the
+    profiled solve's record, or the failed check's message, as JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch as rt
+
+    a = ANCHORS["Laplace3D_100"]
+    g = rt.Graph(getattr(rt.graphs, a["kind"])(a["n"]), device="cuda")
+    try:
+        rec = _profiled_solve(torch, rt, g)
+    except SmokeFailure as e:
+        rec = {"error": str(e)}
+    with open(f"{tmp}/profile.json", "w") as fh:
+        json.dump(rec, fh)
+
+
+def _resident_one_dispatch(torch, rt, ops, ref, id_bits, graphs,
+                           launches, errs) -> dict:
+    """Phase 14: the persistent kernel against its twin, then the anchors
+    through ``engine=None`` (one dispatch and no host sync a solve; the
+    phase's ``launches``), a profiled solve, the warm walls beside the
+    times before the kernel, and the execution-shape gates on the card."""
+    import contextlib
+    import importlib.util
+    import io
+
+    out = {"vs_twin": {}}
+    masks = _phase2_masks(rt, graphs)
+    for label, g in graphs.items():
+        ell = g.ell
+        v = ell.num_vertices
+        nbrs_flat = ell.neighbors.reshape(-1)
+        every = torch.ones(v, dtype=torch.bool, device=nbrs_flat.device)
+        for mi, act, case in ((1, every, "1 round"), (2, every, "2 rounds"),
+                              (4, every, "4 rounds"), (128, every, "all"),
+                              (128, masks[label], "phase-2 mask")):
+            kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=mi)
+            tk, sk = ops.resident_fixed_point(
+                torch.empty(v, dtype=torch.int32, device=nbrs_flat.device),
+                torch.empty(v, dtype=torch.int32, device=nbrs_flat.device),
+                act, nbrs_flat, **kw)
+            tr, sr = ref.resident_fixed_point_ref(
+                torch.empty_like(tk), torch.empty_like(tk), act, nbrs_flat,
+                **kw)
+            torch.cuda.synchronize()
+            got, want = sk.tolist(), sr.tolist()
+            errs[RESIDENT] = max(errs[RESIDENT], _max_abs_err_u32(tk, tr))
+            check(torch.equal(tk, tr) and got == want,
+                  f"{label} ({case}): {RESIDENT} {got} != twin {want}, "
+                  f"{int((tk != tr).sum())} words differ")
+            out["vs_twin"][f"{label} {case}"] = {
+                "rows_active": int(act.sum()), "rounds": got[0],
+                "live": got[1], "bitwise": True}
+    launches.reset()
+    anchors = {}
+    for label in PAPER_GRAPHS:
+        g = graphs[label]
+        a = ANCHORS[label]
+        before = launches.read()
+        with rt.obs.capture() as cap:
+            r = rt.mis2(g)
+        mid = launches.read()
+        with rt.obs.capture() as cap_agg:
+            agg = rt.coarsen(g, method="two_phase")
+        after = launches.read()
+        check((r.engine, r.size, r.iterations, r.digest) == (
+            "cuda_resident", *a["mis2"]), f"{label}: mis2 {r.digest}")
+        check((agg.num_aggregates, agg.iterations, agg.digest) ==
+              a["coarsen"], f"{label}: coarsen {agg.digest}")
+        solves = cap_agg.value("mis2.resident_dispatches")
+        check(r.host_syncs == 0 and cap.value("mis2.host_syncs") == 0
+              and cap_agg.value("mis2.host_syncs") == 0,
+              f"{label}: host syncs inside a resident solve")
+        check(cap.value("mis2.resident_dispatches") == 1
+              and mid[RESIDENT] - before[RESIDENT] == 1,
+              f"{label}: mis2 took more than one dispatch")
+        check(solves == after[RESIDENT] - mid[RESIDENT] == 2,
+              f"{label}: coarsen's {solves} solves made "
+              f"{after[RESIDENT] - mid[RESIDENT]} launches")
+        anchors[label] = {
+            "mis2": [r.size, r.iterations, r.digest, r.host_syncs],
+            "coarsen": [agg.num_aggregates, agg.iterations, agg.digest],
+            "coarsen_solves": solves}
+    out["anchors"] = anchors
+    out["launches"] = launches.read()
+    out["profile_Laplace3D_100"] = _profile_in_child()
+    out["wall_ms"] = {
+        label: {what: {"now": _wall_ms(torch, call, reps=5),
+                       "before": WALL_BEFORE_MS[label][what]}
+                for what, call in (
+                    ("mis2", lambda g=graphs[label]: rt.mis2(g)),
+                    ("coarsen", lambda g=graphs[label]: rt.coarsen(
+                        g, method="two_phase")))}
+        for label in PAPER_GRAPHS}
+    spec = importlib.util.spec_from_file_location(
+        "check_shape_torch", ROOT / "tools" / "check_shape_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(["--device", "cuda"])
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    check(rc == 0 and sum(ln.startswith("PASS") for ln in lines) == 5,
+          f"execution-shape gates: rc {rc}")
+    out["gates"] = lines
     return out
 
 

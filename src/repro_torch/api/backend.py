@@ -87,7 +87,7 @@ def backend_platform(backend: Backend | None = None) -> str:
 
 
 #: ``engine=None`` below the hybrid threshold: the device-resident fixed
-#: point on the fused kernels over the monolithic padded ELL
+#: point over the monolithic padded ELL (one persistent kernel on the card)
 DEFAULT_MIS2_ENGINE = "cuda_resident"
 
 

@@ -7,11 +7,12 @@ Engines, bit-identical results for equal options:
   decides over all ``V`` rows with masks (``mis2_dense_fixed_point``).
 * ``cuda_resident`` — the production hot loop (the counterpart of the JAX
   package's ``pallas_resident``).  Fixed ``[V]``-shaped state lives on the
-  device; worklists are compacted there (cumsum stream compaction, sentinel
-  ``V``); each round is the two fused passes of
-  ``kernels.minprop_ell.ops`` (a CUDA kernel each on the card, their
-  plain-torch twins on the CPU), with the live counts and the round number
-  read by the kernels on the device.
+  device; each round is the two fused passes, then both worklists are
+  compacted over themselves (sentinel ``V``).  On the card the whole fixed
+  point is one cooperative launch (``kernels.minprop_ell.ops.
+  resident_fixed_point``) that reads nothing from the host until it ends,
+  as the reference's one jitted ``while_loop``; on the CPU its plain-torch
+  twin runs the rounds.
 * ``cuda_hybrid`` — the same loop over the degree-aware hybrid layout
   (``core.mis2_hybrid``), for graphs whose padded ELL is too large.
 * ``compacted`` / ``cuda_compacted`` — the host-driven §V-B driver: each
@@ -38,11 +39,13 @@ The Fig. 2 chain of optimizations is ``Mis2Options`` (see
                segment reductions over the COO entries
 =============  =============================================================
 
-The resident and hybrid loops read one live flag per round on the host, to
-decide whether to go on; the host-driven driver pulls two ``[V]`` arrays a
-round.  ``Mis2Result.host_syncs`` reports both, and every loop adds its
-reads to the ``repro_torch.obs`` counter ``mis2.host_syncs`` (and a
-resident solve one ``mis2.resident_dispatches``), the reference's names.
+``cuda_resident`` on the card reads nothing on the host inside the fixed
+point; its twin on the CPU and the other resident loops (``cuda_hybrid``,
+``compacted_resident``) read one live flag per round, to decide whether
+to go on; the host-driven driver pulls two ``[V]`` arrays a round.
+``Mis2Result.host_syncs`` reports these reads, and every loop adds them to
+the ``repro_torch.obs`` counter ``mis2.host_syncs`` (and a resident solve
+one ``mis2.resident_dispatches``), the reference's names.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import torch
 from ..graphs.handle import as_graph
 from ..kernels.minprop_ell import ops, ref
 from ..obs import metrics as _obs
+from ..obs import span as _obs_span
 from .hashing import PRIORITY_FNS
 from .tuples import (
     IN,
@@ -345,7 +349,7 @@ def fixed_packed_priorities(num_vertices: int,
 
 
 # ===========================================================================
-# device-resident engine on the fused kernels
+# device-resident engine: the fixed point in one persistent kernel
 # ===========================================================================
 
 def compact_worklist(mask: torch.Tensor):
@@ -367,38 +371,30 @@ def compact_worklist(mask: torch.Tensor):
 
 def resident_ell_fixed_point(neighbors: torch.Tensor, active: torch.Tensor,
                              *, priority: str, max_iters: int, b: int):
-    """The §V-B compacted fixed point over ``[V]`` device state.
-
-    Each round: ``fused_refresh_columns`` over the M worklist, then
-    ``fused_decide`` over the undecided worklist, then both worklists are
-    recompacted on the device.  The round counter is both the loop bound
-    and the §V-A priority round.  Returns ``(T stored int32 [V],
-    iterations, live count int32 [1], host_syncs)``.
+    """The §V-B compacted fixed point over ``[V]`` device state, one call
+    of ``ops.resident_fixed_point``: each round the fused refresh over the
+    M worklist, the fused decide over the undecided worklist, both lists
+    compacted over themselves; the round counter is both the loop bound and
+    the §V-A priority round.  On the card that is one launch with no host
+    read inside it; then one pull of the rounds run and the live count
+    (the reference's final result pull).  On the CPU the twin reads the
+    live count each round and once more at the end unless ``max_iters``
+    cut it.  Returns ``(T stored int32 [V], iterations, live count,
+    host_syncs)``.
     """
-    v = neighbors.shape[0]
-    dev = neighbors.device
-    nbrs_flat = neighbors.contiguous().view(-1)
-    t = torch.where(active, 1, OUT_I32).to(torch.int32)
-    m = torch.full((v,), OUT_I32, dtype=torch.int32, device=dev)
-    wl1, n1 = compact_worklist(active)
-    wl2 = torch.arange(v, dtype=torch.int32, device=dev)  # round 0: every M
-    n2 = torch.full((1,), v, dtype=torch.int32, device=dev)
-    it_dev = torch.zeros(1, dtype=torch.int32, device=dev)
-    it = syncs = 0
-    while it < max_iters:
-        syncs += 1
-        if int(n1.item()) == 0:       # the one host read per round
-            break
-        ops.fused_refresh_columns(t, m, nbrs_flat, wl2, n2, it_dev,
-                                  priority=priority, b=b)
-        ops.fused_decide(t, m, active, nbrs_flat, wl1, n1, it_dev,
-                         priority=priority, b=b)
-        wl1, n1 = compact_worklist(is_undecided(t))
-        wl2, n2 = compact_worklist(m != OUT_I32)
-        it_dev += 1
-        it += 1
-    record_loop(syncs, resident=True)
-    return t, it, n1, syncs
+    v, dev = neighbors.shape[0], neighbors.device
+    t = torch.empty(v, dtype=torch.int32, device=dev)
+    m = torch.empty(v, dtype=torch.int32, device=dev)
+    with _obs_span("mis2.resident_fixed_point", layout="ell", packed=True,
+                   v=v) as sp:
+        t, stats = ops.resident_fixed_point(
+            t, m, active, neighbors.contiguous().view(-1), priority=priority,
+            b=b, max_iters=max_iters)
+        iters, n1 = stats.tolist()
+        syncs = 0 if dev.type == "cuda" else min(iters + 1, max_iters)
+        record_loop(syncs, resident=True)
+        sp.annotate(iterations=iters)
+    return t, iters, n1, syncs
 
 
 def _mis2_resident_impl(graph, active=None,
@@ -413,8 +409,8 @@ def _mis2_resident_impl(graph, active=None,
     t, iters, n1, syncs = resident_ell_fixed_point(
         ell.neighbors, act, priority=options.priority,
         max_iters=options.max_iters, b=id_bits(v))
-    return Mis2Result((t == IN).cpu().numpy(), iters, int(n1.item()) == 0,
-                      syncs, num_compiles=1)
+    return Mis2Result(t.cpu().numpy() == IN, iters, n1 == 0, syncs,
+                      num_compiles=1)
 
 
 # ===========================================================================
@@ -770,7 +766,7 @@ def _mis2_resident_plain_impl(graph, active=None,
     """Engine entry for ``compacted_resident``: the round of the host
     driver over ``[V]`` device state, the worklists compacted on the device
     (ELL) or kept as masks (``csr_segment``); one host read a round, as
-    ``cuda_resident``."""
+    ``cuda_resident``'s twin on the CPU."""
     options = Mis2Options() if options is None else options
     _require_worklists(options, "compacted_resident")
     gh = as_graph(graph)

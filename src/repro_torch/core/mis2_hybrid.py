@@ -21,8 +21,9 @@ Traffic accounting: one device counter per slab (live worklist rows
 processed, both passes), read once at the end; the spill adds two segment
 sweeps a round.  ``kernels.minprop_ell.ops.hybrid_row_traffic_bytes``
 turns them into bytes; the result's ``collectives`` carries all of it, in
-the reference's keys.  The loop's only host involvement is one read of the
-live count per round (``host_syncs``).
+the reference's keys, and the ``repro_torch.obs`` counter
+``mis2.hybrid_row_bytes`` adds the bytes up.  The loop's only host
+involvement is one read of the live count per round (``host_syncs``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from ..graphs.handle import as_graph
 from ..kernels.minprop_ell import ops
+from ..obs import metrics as _obs
 from .mis2 import (
     Mis2Options,
     Mis2Result,
@@ -40,6 +42,9 @@ from .mis2 import (
     record_loop,
 )
 from .tuples import IN, OUT_I32, id_bits, is_undecided
+
+#: the ``obs`` counter of a hybrid solve's adjacency bytes (the reference's)
+HYBRID_ROW_BYTES = "mis2.hybrid_row_bytes"
 
 
 def hybrid_fixed_point(hyb, active: torch.Tensor | None, *, priority: str,
@@ -110,6 +115,7 @@ def _mis2_hybrid_impl(graph, active=None,
     spill_passes = 2 * iters if hyb.num_spill_rows else 0
     row_bytes = ops.hybrid_row_traffic_bytes(
         hyb.slice_widths, rows_processed, hyb.num_spill_entries, spill_passes)
+    _obs.counter(HYBRID_ROW_BYTES).inc(row_bytes)
     return Mis2Result(
         (t == IN).cpu().numpy(), iters, int(n1.item()) == 0, syncs,
         collectives={

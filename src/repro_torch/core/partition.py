@@ -10,7 +10,7 @@ Where each step runs:
 
 * the aggregation of each level is ``core.aggregation``'s two-phase one on
   the graph's device (the inner MIS-2 from ``default_mis2_engine``:
-  ``cuda_resident``, the fused kernels, on the card);
+  ``cuda_resident``, one persistent kernel a solve, on the card);
 * each coarse graph is built on the device from the level's ELL and labels
   (``multilevel.galerkin._coarse_graph_keys_device``): sorted unique keys,
   so its host CSR is ``coarse_graph_from_labels``' entry for entry;

@@ -1,6 +1,7 @@
 // The two passes of one MIS-2 round: fused over padded ELL and over one
 // slab of the degree-aware hybrid layout (the device-resident drivers), and
-// unfused over pre-gathered worklist rows (the host-driven driver).
+// unfused over pre-gathered worklist rows (the host-driven driver); and the
+// whole resident fixed point over padded ELL in one cooperative launch.
 //
 // The fused and sliced passes replace
 // repro/kernels/minprop_ell/kernel.py:fused_refresh_columns_pallas,
@@ -41,8 +42,8 @@
 // D hashes per vertex a round, V * D = 52.5M at Elasticity3D_60 round 0,
 // about 100 us of this card's integer issue against a 65 us bytes bound.
 //
-// The three share one body per pass (refresh_group_kernel,
-// decide_group_kernel) over a row map: a worklist entry is a row of the
+// The three share one body per pass (refresh_group_body,
+// decide_group_body) over a row map: a worklist entry is a row of the
 // adjacency, whose vertex keys T, M and the hash -- the row itself in the
 // padded ELL (kPadded), slab_rows[row] in a slab (kSlab), loaded once by
 // the lane that owns the slot; the unfused passes' map (kCopy) is below.
@@ -116,10 +117,50 @@
 // scratch); decide reads T only at its own row and writes that row.  The
 // slabs of the hybrid layout hold disjoint rows, and every refresh of a
 // round is enqueued before the first decide on the same stream.
+//
+// The resident fixed point (resident_fixed_point_kernel) replaces the
+// reference's one jitted lax.while_loop (repro/core/mis2.py:
+// _resident_ell_fixed_point with use_pallas: the two fused Pallas passes a
+// round and compact_worklist on the device), which the port ran as ~35
+// launches and one blocking read of the live count a round.  It is one
+// cooperative launch of the blocks that fit on the card at once: every
+// round runs the wide rows' per-vertex hash pass, the fused refresh over
+// the M worklist, the fused decide over the undecided worklist and the
+// compaction of both lists, a grid sync between phases, until no row is
+// undecided or max_iters rounds ran; the round lives in a register, and
+// the host reads nothing until the solve ends (the rounds run and the last
+// live count go to a two-word output).  The passes are the bodies above,
+// instantiated with coherent loads (ld.global.cg) of the state other blocks
+// write inside the launch -- T, M, the scratch, the worklists and their
+// counts -- where the standalone kernels may take the read-only path; the
+// ELL ids and the mask keep it.  Every body strides over warps and returns
+// early nowhere, so every block reaches every grid sync.
+//
+// The compaction needs no [V] scan.  A round's undecided rows are a subset
+// of its undecided worklist (a decided row stays decided), and its rows
+// with M != OUT a subset of its M worklist (refresh writes only those rows;
+// every other row's M was OUT already).  So each block filters a contiguous
+// chunk of the previous list, in order, and counts what it keeps; after a
+// grid sync each block sums the counts of the blocks before it and writes
+// its survivors from there, then the slots from the new count up to the old
+// list's take the sentinel V: the new list is compact_worklist's over [V],
+// slot for slot.  Two buffers a list, swapped each round.
+//
+// Bound: memory, the bytes of the passes at the rounds run (chip_smoke.py
+// counts them from the twin's live counts), against which a solve also pays
+// its grid syncs, four a round at short rows and five at wide ones.  One
+// instance per (G, C, priority) the width picks: G = 1 and the hash inline
+// below kHashOnceMinD, the group shape with chunks of kChunk and the
+// per-vertex pass (its kind read at run time) from there.  The register
+// cap is 4 blocks an SM for every instance: on an H100 a whole solve took
+// 0.416 ms on Laplace3D_100 and 1.321 ms on Elasticity3D_60 there, against
+// 0.677 / 1.610 ms at 8 blocks (32 registers: every instance spilled) and
+// 0.476 / 2.911 ms at 2 (tools/bench_resident.py).
 
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
@@ -127,6 +168,8 @@
 
 namespace repro_torch {
 namespace {
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // the round passes: a group of G lanes per worklist row
@@ -183,6 +226,26 @@ int chunk_slots(int g, int d) {
   return c;
 }
 
+// How a body reads the round state (T, M, the scratch, worklists, counts):
+// plainly in a standalone pass, where nothing in the launch writes what it
+// reads, so the compiler may take the read-only path; through L2 in the
+// persistent kernel, where other blocks wrote it before the last grid sync
+// (a volatile asm, so no load is cached or moved across a sync)
+constexpr bool kPlain = false;
+constexpr bool kCoherent = true;
+
+template <bool kCoh, typename T>
+__device__ __forceinline__ T state_load(const T* p) {
+  static_assert(sizeof(T) == 4, "32-bit state words");
+  if constexpr (kCoh) {
+    uint32_t x;
+    asm volatile("ld.global.cg.b32 %0, [%1];" : "=r"(x) : "l"(p));
+    return static_cast<T>(x);
+  } else {
+    return *p;
+  }
+}
+
 __device__ __forceinline__ int64_t live_slots(const int32_t* count,
                                               int64_t w) {
   const int64_t n = *count;
@@ -212,17 +275,18 @@ __device__ __forceinline__ uint32_t round_of(const uint32_t* it_ptr) {
 }
 
 // the row of worklist slot `slot`, or -1 for a dead or sentinel slot
+template <bool kCoh>
 __device__ __forceinline__ int32_t slot_row(const int32_t* __restrict__ wl,
                                             int64_t slot, int64_t n,
                                             int64_t rows) {
   if (slot >= n) return -1;
-  const int32_t row = wl[slot];
+  const int32_t row = state_load<kCoh>(wl + slot);
   return row >= 0 && row < rows ? row : -1;
 }
 
 // the row of a warp's batch slot `lane` (B slots a batch), or -1; in a
 // copy the slot itself, live below `rows` (there the host's count)
-template <int B, int Map>
+template <int B, int Map, bool kCoh>
 __device__ __forceinline__ int32_t batch_row(const int32_t* __restrict__ wl,
                                              int64_t base, int lane,
                                              int64_t n, int64_t rows) {
@@ -233,7 +297,7 @@ __device__ __forceinline__ int32_t batch_row(const int32_t* __restrict__ wl,
     const int64_t slot = base + lane;
     return slot < n && slot < rows ? static_cast<int32_t>(slot) : -1;
   } else {
-    return slot_row(wl, base + lane, n, rows);
+    return slot_row<kCoh>(wl, base + lane, n, rows);
   }
 }
 
@@ -300,41 +364,45 @@ __device__ __forceinline__ void load_ids(int32_t (&nb)[C],
 
 // One round's refreshed tuple of every vertex: h[i] = T[i], or T[i]'s fresh
 // tuple where it is undecided
+template <int Kind, bool kCoh>
+__device__ __forceinline__ void refreshed_tuples_body(
+    const uint32_t* __restrict__ t, uint32_t* __restrict__ h, uint32_t it,
+    int64_t v, int b) {
+  const RoundPriority<Kind> prio(it);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < v; i += stride) {
+    uint32_t x = state_load<kCoh>(t + i);
+    if (is_undecided(x)) x = prio.tuple(static_cast<uint32_t>(i), b);
+    h[i] = x;
+  }
+}
+
 template <int Kind>
 __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
     const uint32_t* __restrict__ t, uint32_t* __restrict__ h,
     const uint32_t* __restrict__ it_ptr, int64_t v, int b) {
-  const RoundPriority<Kind> prio(*it_ptr);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < v; i += stride) {
-    uint32_t x = t[i];
-    if (is_undecided(x)) x = prio.tuple(static_cast<uint32_t>(i), b);
-    h[i] = x;
-  }
+  refreshed_tuples_body<Kind, kPlain>(t, h, *it_ptr, v, b);
 }
 
 // M at the vertex of every live worklist row: the min over the row's ids
 // of the refreshed tuples, IN -> OUT.  `src` holds them already (kOnce) or
 // is T, refreshed here per slot.  A warp takes B = S * 32 / G worklist
 // slots a batch: S = G (32 slots) in the padded ELL and a copy, S = 1 in a
-// slab.  `rows`: the adjacency's rows, or a copy's live count; a copy's
-// M goes to m[slot], OUT at a dead slot.
-template <int G, int S, int C, bool kOnce, int Kind, int Map>
-__global__ void __launch_bounds__(kThreads, min_blocks<C>())
-refresh_group_kernel(
+// slab.  `n`: the slots visited; `rows`: the adjacency's rows, or a copy's
+// live count; a copy's M goes to m[slot], OUT at a dead slot.
+template <int G, int S, int C, bool kOnce, int Kind, int Map, bool kCoh>
+__device__ __forceinline__ void refresh_group_body(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
-    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
-    int64_t rows, int64_t w, int d, int b,
+    int64_t n, uint32_t it, int64_t rows, int64_t w, int d, int b,
     const int32_t* __restrict__ slab_rows) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
   const int grp = lane / G;
   const int turns = (d + G - 1) / G;
-  const int64_t n = visited_slots<Map>(count, w);
-  const RoundPriority<Kind> prio(kOnce ? 0u : *it_ptr);
+  const RoundPriority<Kind> prio(it);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
@@ -345,7 +413,7 @@ refresh_group_kernel(
         continue;
       }
     }
-    const int32_t row = batch_row<kBatch, Map>(wl, base, lane, n, rows);
+    const int32_t row = batch_row<kBatch, Map, kCoh>(wl, base, lane, n, rows);
     const int32_t vid = vertex_of<Map>(row, slab_rows);
     uint32_t res = kOut;
     for (int s = 0; s < kBatch; s += 32 / G) {
@@ -357,7 +425,7 @@ refresh_group_kernel(
         load_ids<G, C>(nb, nbrs, r, k0, sub, d);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          x[c] = nb[c] >= 0 ? src[nb[c]] : kOut;
+          x[c] = nb[c] >= 0 ? state_load<kCoh>(src + nb[c]) : kOut;
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
@@ -377,22 +445,34 @@ refresh_group_kernel(
   }
 }
 
+template <int G, int S, int C, bool kOnce, int Kind, int Map>
+__global__ void __launch_bounds__(kThreads, min_blocks<C>())
+refresh_group_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
+    const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
+    const int32_t* __restrict__ count, const uint32_t* __restrict__ it_ptr,
+    int64_t rows, int64_t w, int d, int b,
+    const int32_t* __restrict__ slab_rows) {
+  refresh_group_body<G, S, C, kOnce, Kind, Map, kPlain>(
+      src, m, nbrs, wl, visited_slots<Map>(count, w), kOnce ? 0u : *it_ptr,
+      rows, w, d, b, slab_rows);
+}
+
 // T at the vertex of every live undecided worklist row <- OUT if an active
 // neighbour's M is OUT, else IN if every active neighbour's M equals the
 // row's refreshed tuple, else that tuple; decided rows are left as they
 // are.  Reads T only at its own vertex.  Without `active` (kGated false) a
 // neighbour is active where its M is not IN, one gather a slot.  Batches
-// as refresh_group_kernel.  A copy takes each row's tuple from t_rows[slot]
+// as refresh_group_body.  A copy takes each row's tuple from t_rows[slot]
 // as it is, and writes the result to t[slot]: the tuple itself at a dead
 // slot or a decided row.
-template <int G, int S, int C, bool kGated, int Map>
-__global__ void __launch_bounds__(kThreads, min_blocks<C>())
-decide_group_kernel(
+template <int G, int S, int C, bool kGated, int Map, bool kCoh>
+__device__ __forceinline__ void decide_group_body(
     uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
-    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
-    const uint32_t* __restrict__ it_ptr, int64_t rows, int64_t w, int d,
-    int b, int kind, const int32_t* __restrict__ slab_rows,
+    const int32_t* __restrict__ wl, int64_t n, uint32_t it, int64_t rows,
+    int64_t w, int d, int b, int kind,
+    const int32_t* __restrict__ slab_rows,
     const uint32_t* __restrict__ t_rows) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
@@ -400,8 +480,6 @@ decide_group_kernel(
   const int grp = lane / G;
   const int turns = (d + G - 1) / G;
   const uint32_t gbits = group_bits<G>(grp);
-  const int64_t n = visited_slots<Map>(count, w);
-  const uint32_t it = round_of<Map>(it_ptr);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
@@ -412,7 +490,7 @@ decide_group_kernel(
         continue;
       }
     }
-    int32_t row = batch_row<kBatch, Map>(wl, base, lane, n, rows);
+    int32_t row = batch_row<kBatch, Map, kCoh>(wl, base, lane, n, rows);
     const int32_t vid = vertex_of<Map>(row, slab_rows);
     uint32_t tv = 0;
     if constexpr (Map == kCopy) {
@@ -421,7 +499,7 @@ decide_group_kernel(
     } else {
       // in the padded ELL a row is its vertex: `row` alone keys T there
       if (row >= 0) {
-        if (is_undecided(t[Map == kSlab ? vid : row])) {
+        if (is_undecided(state_load<kCoh>(t + (Map == kSlab ? vid : row)))) {
           tv = fresh_tuple(kind, it,
                            static_cast<uint32_t>(Map == kSlab ? vid : row), b);
         } else {
@@ -441,10 +519,10 @@ decide_group_kernel(
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if constexpr (kGated) {
-            mv[c] = nb[c] >= 0 ? m[nb[c]] : 0u;
+            mv[c] = nb[c] >= 0 ? state_load<kCoh>(m + nb[c]) : 0u;
             av[c] = nb[c] >= 0 ? active[nb[c]] : 0u;
           } else {
-            mv[c] = nb[c] >= 0 ? m[nb[c]] : kIn;
+            mv[c] = nb[c] >= 0 ? state_load<kCoh>(m + nb[c]) : kIn;
           }
         }
 #pragma unroll
@@ -469,6 +547,20 @@ decide_group_kernel(
       if (row >= 0) t[Map == kSlab ? vid : row] = res;
     }
   }
+}
+
+template <int G, int S, int C, bool kGated, int Map>
+__global__ void __launch_bounds__(kThreads, min_blocks<C>())
+decide_group_kernel(
+    uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
+    const int32_t* __restrict__ wl, const int32_t* __restrict__ count,
+    const uint32_t* __restrict__ it_ptr, int64_t rows, int64_t w, int d,
+    int b, int kind, const int32_t* __restrict__ slab_rows,
+    const uint32_t* __restrict__ t_rows) {
+  decide_group_body<G, S, C, kGated, Map, kPlain>(
+      t, m, active, nbrs, wl, visited_slots<Map>(count, w),
+      round_of<Map>(it_ptr), rows, w, d, b, kind, slab_rows, t_rows);
 }
 
 template <int N>
@@ -574,6 +666,267 @@ void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the resident fixed point: every round in one cooperative launch
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+// blocks an SM must hold for the persistent kernel (a register cap over
+// both passes and the compaction, and the grid each sync waits for)
+constexpr int kResidentMinBlocks = 4;
+constexpr int kUndecided = 0;  // the lists: undecided rows (wl1) ...
+constexpr int kLiveM = 1;      // ... and rows whose M is not OUT (wl2)
+
+// The solve's buffers.  wl[l][k]: list l's buffer k, [V] int32 each;
+// counts[2 * l + k]: its live slots; block_counts[l * grid + block]: what
+// a block keeps of list l in a round's compaction; out: the rounds run
+// and the last live count of wl1.
+struct Resident {
+  uint32_t* t;
+  uint32_t* m;
+  uint32_t* h;                 // the wide rows' refreshed tuples
+  const uint8_t* active;
+  const int32_t* nbrs;
+  int32_t* wl[2][2];
+  int32_t* counts;
+  int32_t* block_counts;
+  int32_t* out;
+  int64_t v;
+  int d;
+  int b;
+  int kind;
+  int max_iters;
+};
+
+// buffer k of list L (a select, so the parameter struct is never indexed
+// at run time)
+template <int L>
+__device__ __forceinline__ int32_t* list_buffer(const Resident& r, int k) {
+  return k != 0 ? r.wl[L][1] : r.wl[L][0];
+}
+
+// x summed over the block's threads, on every thread; `words` is the
+// block's shared [kWarps], free on entry and on return
+__device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* words) {
+  x = __reduce_add_sync(kFull, x);
+  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) s += words[k];
+  __syncthreads();
+  return s;
+}
+
+// this block's contiguous chunk [lo, hi) of n list slots
+__device__ __forceinline__ void block_chunk(int64_t n, int64_t& lo,
+                                            int64_t& hi) {
+  const int64_t per = (n + gridDim.x - 1) / gridDim.x;
+  lo = per * blockIdx.x < n ? per * blockIdx.x : n;
+  hi = lo + per < n ? lo + per : n;
+}
+
+// the row at slot i of a previous list (`prev` null: the identity, row i)
+// and whether list `l` keeps it: undecided T (kUndecided, or the active
+// mask when `prev` is null, round 0's list), or M not OUT (kLiveM)
+template <int L>
+__device__ __forceinline__ bool kept(const Resident& r, const int32_t* prev,
+                                     int64_t i, int32_t& row) {
+  row = prev != nullptr ? state_load<kCoherent>(prev + i)
+                        : static_cast<int32_t>(i);
+  if constexpr (L == kUndecided) {
+    return prev != nullptr ? is_undecided(state_load<kCoherent>(r.t + row))
+                           : r.active[row] != 0;
+  } else {
+    return state_load<kCoherent>(r.m + row) != kOut;
+  }
+}
+
+// Compaction, first half: the rows this block keeps of its chunk of the
+// previous list's n slots, to block_counts
+template <int L>
+__device__ __forceinline__ void count_kept(const Resident& r,
+                                           const int32_t* prev, int64_t n,
+                                           int32_t* words) {
+  int64_t lo, hi;
+  block_chunk(n, lo, hi);
+  int32_t c = 0;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+    int32_t row;
+    c += kept<L>(r, prev, i, row) ? 1 : 0;
+  }
+  c = block_sum(c, words);
+  if (threadIdx.x == 0) r.block_counts[L * gridDim.x + blockIdx.x] = c;
+}
+
+// Compaction, second half (after a grid sync): this block's kept rows, in
+// order, at the sum of the earlier blocks' counts in `next`; the sentinel V
+// from the new count up to `stale`, the slots `next` held live before; the
+// new count to counts[2 * L + k]
+template <int L>
+__device__ __forceinline__ void write_kept(const Resident& r,
+                                           const int32_t* prev, int64_t n,
+                                           int32_t* next, int k,
+                                           int64_t stale, int32_t* words) {
+  const int32_t* bc = r.block_counts + L * gridDim.x;
+  int32_t before = 0, total = 0;
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads) {
+    const int32_t c = state_load<kCoherent>(bc + j);
+    total += c;
+    before += j < static_cast<int>(blockIdx.x) ? c : 0;
+  }
+  int64_t pos = block_sum(before, words);
+  total = block_sum(total, words);
+  int64_t lo, hi;
+  block_chunk(n, lo, hi);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int64_t base = lo; base < hi; base += kThreads) {  // block-uniform
+    const int64_t i = base + threadIdx.x;
+    int32_t row = 0;
+    const bool keep = i < hi && kept<L>(r, prev, i, row);
+    const uint32_t bits = __ballot_sync(kFull, keep);
+    if (lane == 0) words[warp] = __popc(bits);
+    __syncthreads();
+    int32_t at = 0, tile = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? words[w] : 0;
+      tile += words[w];
+    }
+    __syncthreads();
+    if (keep) next[pos + at + __popc(bits & ((1u << lane) - 1u))] = row;
+    pos += tile;
+  }
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = total + static_cast<int64_t>(blockIdx.x) * kThreads +
+                   threadIdx.x;
+       i < stale; i += stride) {
+    next[i] = static_cast<int32_t>(r.v);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) r.counts[2 * L + k] = total;
+}
+
+// the per-vertex pass of a wide round, its kind read at run time
+__device__ __forceinline__ void refreshed_tuples_any(const Resident& r,
+                                                     uint32_t it) {
+  switch (r.kind) {
+    case kXorshift:
+      return refreshed_tuples_body<kXorshift, kCoherent>(r.t, r.h, it, r.v,
+                                                         r.b);
+    case kFixed:
+      return refreshed_tuples_body<kFixed, kCoherent>(r.t, r.h, it, r.v, r.b);
+    default:
+      return refreshed_tuples_body<kXorshiftStar, kCoherent>(r.t, r.h, it,
+                                                             r.v, r.b);
+  }
+}
+
+// The §V-B fixed point over padded ELL, from `active`: round 0's state is
+// T = 1 on the active rows and OUT elsewhere, M = OUT, wl1 the active rows
+// and wl2 every row.  Each round: (a) at wide rows (kOnce) the per-vertex
+// pass into h, (b) the fused refresh over wl2, (c) the fused decide over
+// wl1, (d) both lists compacted over themselves; a grid sync after each.
+template <int G, int C, bool kOnce, int Kind>
+__global__ void __launch_bounds__(kThreads, kResidentMinBlocks)
+resident_fixed_point_kernel(const __grid_constant__ Resident r) {
+  __shared__ int32_t words[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int64_t v = r.v;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  for (int64_t i = tid; i < v; i += stride) {
+    r.t[i] = r.active[i] != 0 ? 1u : kOut;
+    r.m[i] = kOut;
+    list_buffer<kLiveM>(r, 0)[i] = static_cast<int32_t>(i);
+  }
+  count_kept<kUndecided>(r, nullptr, v, words);
+  if (tid == 0) {
+    r.counts[2 * kLiveM] = static_cast<int32_t>(v);
+    // buffer 1 of each list holds nothing yet: every slot is stale
+    r.counts[2 * kUndecided + 1] = r.counts[2 * kLiveM + 1] =
+        static_cast<int32_t>(v);
+  }
+  grid.sync();
+  write_kept<kUndecided>(r, nullptr, v, list_buffer<kUndecided>(r, 0), 0, v,
+                         words);
+  grid.sync();
+  int cur = 0;
+  uint32_t it = 0;
+  int64_t n1 = 0;
+  for (;;) {
+    n1 = state_load<kCoherent>(r.counts + 2 * kUndecided + cur);
+    const int64_t n2 = state_load<kCoherent>(r.counts + 2 * kLiveM + cur);
+    if (n1 == 0 || it >= static_cast<uint32_t>(r.max_iters)) break;
+    const int nxt = cur ^ 1;
+    const int32_t* wl1 = list_buffer<kUndecided>(r, cur);
+    const int32_t* wl2 = list_buffer<kLiveM>(r, cur);
+    if constexpr (kOnce) {
+      refreshed_tuples_any(r, it);
+      grid.sync();
+    }
+    refresh_group_body<G, G, C, kOnce, Kind, kPadded, kCoherent>(
+        kOnce ? r.h : r.t, r.m, r.nbrs, wl2, n2, it, v, v, r.d, r.b,
+        nullptr);
+    grid.sync();
+    decide_group_body<G, G, C, true, kPadded, kCoherent>(
+        r.t, r.m, r.active, r.nbrs, wl1, n1, it, v, v, r.d, r.b, r.kind,
+        nullptr, nullptr);
+    grid.sync();
+    // the slots each next buffer held live (written two rounds ago)
+    const int64_t stale1 =
+        state_load<kCoherent>(r.counts + 2 * kUndecided + nxt);
+    const int64_t stale2 = state_load<kCoherent>(r.counts + 2 * kLiveM + nxt);
+    count_kept<kUndecided>(r, wl1, n1, words);
+    count_kept<kLiveM>(r, wl2, n2, words);
+    grid.sync();
+    write_kept<kUndecided>(r, wl1, n1, list_buffer<kUndecided>(r, nxt), nxt,
+                           stale1, words);
+    write_kept<kLiveM>(r, wl2, n2, list_buffer<kLiveM>(r, nxt), nxt, stale2,
+                       words);
+    grid.sync();
+    cur = nxt;
+    ++it;
+  }
+  if (tid == 0) {
+    r.out[0] = static_cast<int32_t>(it);
+    r.out[1] = static_cast<int32_t>(n1);
+  }
+}
+
+// f(Int<G>, Int<C>, Int<kOnce>, Int<Kind>) for the one instance width d
+// takes: below kHashOnceMinD G = 1 (group_lanes) with the hash inline, C
+// from d and the kind a template; from there the group shape, whose lanes
+// then hold over half of kLaneSlots of a row (or all of it at G = 1), so
+// C = kChunk, and the per-vertex pass, which reads the kind at run time.
+// Returns false where that C is not the one chunk_slots picks.
+template <typename F>
+bool with_resident_shape(int d, int kind, F&& f) {
+  const int g = group_lanes(d);
+  if (d < kHashOnceMinD) {
+    with_kind(kind, [&](auto k) {
+      with_chunk<1>(chunk_slots(1, d), [&](auto gg, auto cc) {
+        f(gg, cc, Int<0>{}, k);
+      });
+    });
+    return true;
+  }
+  if (chunk_slots(g, d) != kChunk) return false;
+  switch (g) {
+    case 1: f(Int<1>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{}); break;
+    case 2: f(Int<2>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{}); break;
+    case 4: f(Int<4>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{}); break;
+    case 8: f(Int<8>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{}); break;
+    case 16:
+      f(Int<16>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{});
+      break;
+    default:
+      f(Int<32>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{});
+  }
+  return true;
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -657,6 +1010,53 @@ int sliced_decide(void* t, const void* m, const void* active,
                                  kind, sr, nullptr, s);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident fixed point in one cooperative launch.  t, m, scratch: [V]
+// words (written; nothing in them is read before the kernel writes it);
+// active: [V] bytes; nbrs: [V * D] ids; wl: [4 * V] int32, the two lists'
+// two buffers; aux: aux_len int32 words, 4 counts, 2 outputs (the rounds
+// run, then the last live count of the undecided list) and 2 per block.
+// Returns cudaErrorNotSupported where the card has no cooperative launch,
+// cudaErrorInvalidValue where aux is short or the width has no instance,
+// and the launch's error (cudaErrorCooperativeLaunchTooLarge among them).
+int resident_fixed_point(void* t, void* m, void* scratch, const void* active,
+                         const void* nbrs, void* wl, void* aux,
+                         int64_t aux_len, int64_t v, int d, int b, int kind,
+                         int max_iters, void* stream) {
+  using namespace repro_torch;
+  int dev = 0, coop = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
+  auto* w = static_cast<int32_t*>(wl);
+  auto* x = static_cast<int32_t*>(aux);
+  Resident r{static_cast<uint32_t*>(t), static_cast<uint32_t*>(m),
+             static_cast<uint32_t*>(scratch),
+             static_cast<const uint8_t*>(active),
+             static_cast<const int32_t*>(nbrs),
+             {{w, w + v}, {w + 2 * v, w + 3 * v}}, x, x + 6, x + 4, v, d, b,
+             kind, max_iters};
+  cudaError_t status = cudaSuccess;
+  const bool shaped = with_resident_shape(d, kind, [&](auto gg, auto cc,
+                                                       auto once, auto k) {
+    auto fn = resident_fixed_point_kernel<decltype(gg)::value,
+                                          decltype(cc)::value,
+                                          decltype(once)::value != 0,
+                                          decltype(k)::value>;
+    const int grid = resident_blocks(fn);
+    if (6 + 2 * static_cast<int64_t>(grid) > aux_len) {
+      status = cudaErrorInvalidValue;
+      return;
+    }
+    void* args[] = {&r};
+    status = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                         dim3(grid), dim3(kThreads), args, 0,
+                                         static_cast<cudaStream_t>(stream));
+  });
+  if (!shaped) return static_cast<int>(cudaErrorInvalidValue);
+  if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 

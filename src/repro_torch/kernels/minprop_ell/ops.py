@@ -1,6 +1,7 @@
 """Wrappers for the MIS-2 round passes: the fused ones over padded ELL and
 over one slab of the hybrid layout, the hybrid layout's spill passes, and
-the unfused ones of the host-driven round.
+the unfused ones of the host-driven round; and for the whole resident fixed
+point over padded ELL in one launch (``resident_fixed_point``).
 
 ``fused_*`` and ``sliced_*`` take the resident drivers' state as it lies
 on the device and update it in place.  ``refresh_columns_rows`` /
@@ -34,7 +35,7 @@ from .ref import set_drop
 
 LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0,
             "sliced_refresh_columns": 0, "sliced_decide": 0,
-            "refresh_columns": 0, "decide": 0}
+            "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
 
 _TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p)
@@ -46,7 +47,14 @@ _SIGNATURES = {
     "sliced_decide": (ctypes.c_void_p,) * 8 + _TAIL,
     "refresh_columns": (ctypes.c_void_p,) * 3 + _ROWS_TAIL,
     "decide": (ctypes.c_void_p,) * 5 + _ROWS_TAIL,
+    "resident_fixed_point": (ctypes.c_void_p,) * 7 + (
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
+
+#: the most blocks a Hopper SM holds at once, which bounds the persistent
+#: kernel's grid and so the per-block counts of its compaction
+MAX_BLOCKS_PER_SM = 32
 
 # ---------------------------------------------------------------------------
 # adjacency row traffic of one live worklist row per pass: the host-driven
@@ -95,14 +103,27 @@ def _check_args(t, nbrs_flat, wl, count, it, state, b: int, priority: str,
     """Validate device, dtype, shape and contiguity; returns (V, R, D),
     with ``R = V`` for the padded ELL and ``R = len(slab_rows)`` for a
     hybrid slab.  A ``state`` entry that is None is not checked."""
+    named = {"wl": wl, "count": count, "it": it}
+    if slab_rows is not None:
+        named["slab_rows"] = slab_rows
+    v, d = _check_state(t, nbrs_flat, state, b, priority, named,
+                        rows=None if slab_rows is None
+                        else slab_rows.shape[0])
+    if count.shape[0] != 1 or it.shape[0] != 1:
+        raise ValueError("count and it must hold one element each")
+    return v, v if slab_rows is None else slab_rows.shape[0], d
+
+
+def _check_state(t, nbrs_flat, state, b: int, priority: str, others,
+                 rows=None) -> tuple[int, int]:
+    """Validate the ``[V]`` state (``t`` and the ``state`` entries that are
+    not None), the flat ELL of ``rows`` rows (V if None) and ``others``:
+    device, dtype, 1-D, contiguity; returns (V, D)."""
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     state = {k: x for k, x in state.items() if x is not None}
-    named = {"t": t, "nbrs_flat": nbrs_flat, "wl": wl, "count": count,
-             "it": it, **state}
-    if slab_rows is not None:
-        named["slab_rows"] = slab_rows
+    named = {"t": t, "nbrs_flat": nbrs_flat, **others, **state}
     for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, t on {dev}")
@@ -117,17 +138,15 @@ def _check_args(t, nbrs_flat, wl, count, it, state, b: int, priority: str,
     for name, x in state.items():
         if x.shape[0] != v:
             raise ValueError(f"{name} has {x.shape[0]} rows, t has {v}")
-    r = v if slab_rows is None else slab_rows.shape[0]
+    r = v if rows is None else rows
     if r == 0 or nbrs_flat.shape[0] % r:
         raise ValueError(f"nbrs_flat length {nbrs_flat.shape[0]} is not a "
                          f"multiple of the {r} rows")
-    if count.shape[0] != 1 or it.shape[0] != 1:
-        raise ValueError("count and it must hold one element each")
     if not 0 < b < 32:
         raise ValueError(f"id bits b={b} out of range")
     if priority not in PRIORITY_CODES:
         raise ValueError(f"unknown priority {priority!r}")
-    return v, r, nbrs_flat.shape[0] // r
+    return v, nbrs_flat.shape[0] // r
 
 
 def _launch(name: str, t, *ptrs_and_sizes) -> None:
@@ -179,6 +198,40 @@ def fused_decide(t, m, active, nbrs_flat, wl, count, it, *, priority: str,
             nbrs_flat.data_ptr(), wl.data_ptr(), count.data_ptr(),
             it.data_ptr(), v, wl.shape[0], d, b, PRIORITY_CODES[priority])
     return t
+
+
+def resident_fixed_point(t, m, active, nbrs_flat, *, priority: str, b: int,
+                         max_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The §V-B fixed point over the self-padded ELL ``nbrs_flat`` (int32
+    ``[V*D]``) from the mask ``active`` (bool ``[V]``), as
+    ``ref.resident_fixed_point_ref`` defines it.  ``t``, ``m``: int32
+    ``[V]``, written (T and M at the end; nothing in them is read).
+    Returns ``(t, int32 [2])``, the rounds run and the undecided
+    worklist's last count, on t's device.
+
+    On the card one cooperative launch runs every round and reads no
+    value from the host; the worklists and their counts live in scratch
+    allocated here.  It raises (``KernelLaunchError``) where the card has
+    no cooperative launch or the launch is refused: there is no per-round
+    fallback."""
+    v, d = _check_state(t, nbrs_flat, {"m": m, "active": active}, b,
+                        priority, {})
+    if max_iters < 0:
+        raise ValueError(f"max_iters={max_iters} is negative")
+    if t.device.type == "cpu":
+        return ref.resident_fixed_point_ref(t, m, active, nbrs_flat,
+                                            priority=priority, b=b,
+                                            max_iters=max_iters)
+    scratch = torch.empty_like(t)
+    wl = torch.empty(4 * v, dtype=torch.int32, device=t.device)
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    aux = torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * sms, dtype=torch.int32,
+                      device=t.device)
+    _launch("resident_fixed_point", t, t.data_ptr(), m.data_ptr(),
+            scratch.data_ptr(), active.data_ptr(), nbrs_flat.data_ptr(),
+            wl.data_ptr(), aux.data_ptr(), aux.shape[0], v, d, b,
+            PRIORITY_CODES[priority], max_iters)
+    return t, aux[4:6]
 
 
 # ---------------------------------------------------------------------------

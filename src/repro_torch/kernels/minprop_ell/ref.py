@@ -8,6 +8,11 @@ past ``count`` and sentinel slots (``wl[i] == V``, or ``R`` for a hybrid
 slab of ``R`` rows) write nothing.  The sliced decide also takes
 ``active=None``: then a neighbour is active exactly when its M is not IN.
 
+``resident_fixed_point_ref`` is the twin of the persistent kernel: the
+resident fixed point, round after round of the fused twins and the ordered
+compaction of both worklists over themselves (``compact_over_ref``); it
+reads the live count on the host each round.
+
 ``refresh_columns_ref`` / ``decide_ref`` are the twins of the host-driven
 round's kernels: they take pre-gathered worklist rows ``[W, D]`` and return
 a ``[W]`` output, exactly as ``repro.kernels.minprop_ell.ref``'s functions
@@ -132,6 +137,64 @@ def sliced_decide_ref(t, m, active, slab_rows, nbrs_flat, wl, count, it, *,
     newt = _decide(t, m, active, rows, nb, it, priority, b)
     _scatter_drop(t, torch.where(live, rows, t.shape[0]), narrow(newt))
     return t
+
+
+# ---------------------------------------------------------------------------
+# the resident fixed point (the persistent kernel's twin)
+# ---------------------------------------------------------------------------
+
+def compact_over_ref(prev: torch.Tensor, count: int,
+                     keep: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The rows of the worklist ``prev[:count]`` that ``keep`` (bool
+    ``[V]``) holds, in their order, then the sentinel ``V``: ``(int32 [V],
+    their count)``.  ``prev`` ascending and every kept row in
+    ``prev[:count]``, this is ``core.mis2.compact_worklist(keep)`` slot for
+    slot, as the kernel's compaction of a list over itself computes it."""
+    v = keep.shape[0]
+    rows = prev[:count]
+    kept = rows[keep[rows.to(torch.int64)]]
+    out = torch.full((v,), v, dtype=torch.int32, device=prev.device)
+    out[:kept.shape[0]] = kept
+    return out, int(kept.shape[0])
+
+
+def resident_fixed_point_ref(t, m, active, nbrs_flat, *, priority: str,
+                             b: int, max_iters: int, trace=None):
+    """The §V-B fixed point over padded ELL from ``active``: T = 1 on the
+    active rows and OUT elsewhere, M = OUT, the undecided worklist the
+    active rows and the M worklist every row; each round the fused refresh
+    over the M worklist, the fused decide over the undecided one, and both
+    compacted over themselves, while a row is undecided and fewer than
+    ``max_iters`` rounds ran.  ``t``, ``m`` (int32 ``[V]``) are written in
+    place, whatever they held.  Returns ``(t, int32 [2])``: the rounds run
+    and the undecided worklist's last count.  ``trace`` (a list) gets each
+    round's live counts ``(M worklist, undecided worklist)``."""
+    v, dev = t.shape[0], t.device
+    t.copy_(torch.where(active, 1, OUT_I32).to(torch.int32))
+    m.fill_(OUT_I32)
+    every = torch.arange(v, dtype=torch.int32, device=dev)
+    wl1, n1 = compact_over_ref(every, v, active)
+    wl2, n2 = every, v
+    kw = dict(priority=priority, b=b)
+    it = 0
+    while it < max_iters:
+        if n1 == 0:                   # the twin's host read a round
+            break
+        if trace is not None:
+            trace.append((n2, n1))
+        it_t = torch.full((1,), it, dtype=torch.int32, device=dev)
+        fused_refresh_columns_ref(t, m, nbrs_flat, wl2, _count(n2, dev),
+                                  it_t, **kw)
+        fused_decide_ref(t, m, active, nbrs_flat, wl1, _count(n1, dev), it_t,
+                         **kw)
+        wl1, n1 = compact_over_ref(wl1, n1, is_undecided(t))
+        wl2, n2 = compact_over_ref(wl2, n2, m != OUT_I32)
+        it += 1
+    return t, torch.tensor([it, n1], dtype=torch.int32, device=dev)
+
+
+def _count(n: int, device) -> torch.Tensor:
+    return torch.full((1,), n, dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------

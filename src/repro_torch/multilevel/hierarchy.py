@@ -20,10 +20,10 @@ does: ``multilevel.host_syncs`` (the host engine's matrix-sized round-trips,
 ``multilevel.resident_dispatches`` (the resident engine's stage calls, 7 a
 level, and 2 for each cluster-GS coarse graph and packing).
 
-The aggregation inside (MIS-2 coarsening on the fused kernels), the
-coloring, every level matrix and the whole solve phase live on the
-graph's device; the ``float32`` coarsest-level LU factors and solves there
-too.
+The aggregation inside (MIS-2 coarsening, one persistent kernel a MIS-2
+solve), the coloring, every level matrix and the whole solve phase live on
+the graph's device; the ``float32`` coarsest-level LU factors and solves
+there too.
 
 ``hierarchy_from_arrays`` builds a hierarchy from given per-level arrays
 (for instance the reference's), so the solve phase can be held against

@@ -15,7 +15,10 @@ against the reference's ``pallas_hybrid`` / ``luby_hybrid`` results.  The
 slice-4 cases hold the unfused ``refresh_columns`` / ``decide`` kernels
 against their twins on pre-gathered rows (at every group shape of the
 fused kernels and at the worklist's edges) and drive the host-driven
-``cuda_compacted`` engine against the plain ``compacted`` one.
+``cuda_compacted`` engine against the plain ``compacted`` one.  The
+slice-14 cases hold the persistent kernel of ``cuda_resident`` against its
+twin (capped rounds, a half mask) and count one launch and no host sync a
+solve.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -112,7 +115,7 @@ def test_kernels_match_twins(cuda_device, name, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 1, "fused_decide": 1,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
 
 
 # the fused kernels at the group shapes the host picks from D: G = 1 to 32
@@ -204,7 +207,7 @@ def test_fused_kernels_match_twins_at_every_width(cuda_device, d, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 1, "fused_decide": 2,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
 
 
 # (worklist slots, live count, it): no live slot; a count past the
@@ -226,6 +229,56 @@ def test_fused_kernels_at_the_worklist_edges(cuda_device, case, d):
     if case == "count-0":
         assert torch.equal(pairs[0][0], x["m"])
         assert torch.equal(pairs[1][0], x["t"])
+
+
+# the persistent kernel's cases: (max_iters, fraction of rows active);
+# a mask of about half the rows is phase 2 of a coarsening
+RESIDENT_CASES = [(1, 1.0), (2, 1.0), (4, 1.0), (128, 1.0), (128, 0.5),
+                  (2, 0.5)]
+
+
+@pytest.mark.parametrize("max_iters,frac", RESIDENT_CASES)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_resident_fixed_point_kernel_matches_twin(cuda_device, name,
+                                                  max_iters, frac):
+    ell = rt.Graph(GRAPHS[name](), device=cuda_device).ell
+    v = ell.num_vertices
+    rng = np.random.default_rng(v)
+    active = torch.from_numpy(rng.random(v) < frac).to(cuda_device)
+    nbrs_flat = ell.neighbors.reshape(-1)
+    kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=max_iters)
+    before = ops.LAUNCHES["resident_fixed_point"]
+    tk, sk = ops.resident_fixed_point(
+        torch.empty(v, dtype=torch.int32, device=cuda_device),
+        torch.empty(v, dtype=torch.int32, device=cuda_device), active,
+        nbrs_flat, **kw)
+    tr, sr = ref.resident_fixed_point_ref(
+        torch.empty(v, dtype=torch.int32, device=cuda_device),
+        torch.empty(v, dtype=torch.int32, device=cuda_device), active,
+        nbrs_flat, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["resident_fixed_point"] - before == 1
+    assert torch.equal(tk, tr) and sk.tolist() == sr.tolist()
+    assert sk.tolist()[0] <= max_iters
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_cuda_resident_is_one_launch_and_no_host_sync(cuda_device,
+                                                     no_twins_on_cuda, name):
+    g = rt.Graph(GRAPHS[name]())
+    want = rt.mis2(rt.Graph(GRAPHS[name](), device="cpu"), engine="dense",
+                   backend=rt.Backend(device="cpu"))
+    for opts in (rt.Mis2Options(), rt.Mis2Options(max_iters=2)):
+        before = ops.LAUNCHES["resident_fixed_point"]
+        with rt.obs.capture() as cap:
+            r = rt.mis2(g, options=opts)
+        assert ops.LAUNCHES["resident_fixed_point"] - before == 1
+        assert r.host_syncs == 0 and cap.value("mis2.host_syncs") == 0
+        assert cap.value("mis2.resident_dispatches") == 1
+        if opts.max_iters == 2:
+            assert r.iterations == 2 and not r.converged
+        else:
+            assert (r.digest, r.iterations) == (want.digest, want.iterations)
 
 
 def test_wrapper_on_cuda_raises_instead_of_falling_back(cuda_device):
@@ -254,10 +307,12 @@ def test_main_path_matches_reference_digests(cuda_device, name):
     r = rt.mis2(g)
     assert (r.engine, r.size, r.iterations, r.digest) == (
         "cuda_resident", size, iters, digest)
+    # one cooperative launch a solve, no host read inside it
+    assert r.host_syncs == 0
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_refresh_columns": iters, "fused_decide": iters,
+        "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 1}
     assert rt.mis2(g, engine="dense").digest == digest
     a = rt.coarsen(g, method="two_phase")
     assert (a.num_aggregates, a.iterations, a.digest) == (
@@ -478,7 +533,7 @@ def no_twins_on_cuda(monkeypatch):
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
                               "sliced_decide_ref", "refresh_columns_ref",
-                              "decide_ref"))):
+                              "decide_ref", "resident_fixed_point_ref"))):
         for n in names:
             monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
 
@@ -631,7 +686,7 @@ def test_sliced_kernels_match_twins(cuda_device, slab, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 1, "sliced_decide": 2,
-        "refresh_columns": 0, "decide": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
 
 
 # the reference's pallas_hybrid / luby_hybrid on powerlaw_graph(900, 8, 4)
@@ -776,7 +831,7 @@ def test_unfused_kernels_match_twins(cuda_device, name):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 1, "decide": 1}
+        "refresh_columns": 1, "decide": 1, "resident_fixed_point": 0}
     live = min(x["count"], t_rows.shape[0])
     und = (t_rows[:live] != 0) & (t_rows[:live] != -1)
     if live == 0:
@@ -841,7 +896,7 @@ def test_partition_on_the_card_equals_the_cpu(cuda_device, no_twins_on_cuda,
     before = dict(ops.LAUNCHES)
     r = rt.partition(rt.Graph(GRAPHS[name]()), parts)
     launched = {k: ops.LAUNCHES[k] - before[k]
-                for k in ("fused_refresh_columns", "fused_decide")}
+                for k in ("resident_fixed_point",)}
     want = rt.partition(rt.Graph(GRAPHS[name](), device="cpu"), parts,
                         backend=rt.Backend(device="cpu"))
     assert (r.digest, r.edge_cut, r.levels, r.history, r.converged) == (
@@ -954,7 +1009,7 @@ def test_server_on_the_card_never_falls_back_on_a_real_error(
         raise err
 
     with monkeypatch.context() as m:
-        m.setattr(ops, "fused_refresh_columns", oom)
+        m.setattr(ops, "resident_fixed_point", oom)
         srv = Server(ServerConfig(cache_bytes=0))
         fut = srv.submit("mis2", g)
         srv.flush()

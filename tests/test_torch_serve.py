@@ -1115,7 +1115,7 @@ def test_submit_not_blocked_by_slow_dispatch():
 
 @pytest.mark.parametrize("err", [
     KernelBuildError("nvcc failed on minprop_ell.cu"),
-    KernelLaunchError("fused_refresh_columns: CUDA error 700"),
+    KernelLaunchError("resident_fixed_point: CUDA error 700"),
     RuntimeError("CUDA error: an illegal memory access was encountered"),
     torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
 ], ids=["build", "launch", "cuda_runtime", "oom"])
@@ -1129,7 +1129,7 @@ def test_kernel_error_resolves_engine_failure_without_fallback(
     def broken(*a, **k):
         raise err
 
-    monkeypatch.setattr(ops, "fused_refresh_columns", broken)
+    monkeypatch.setattr(ops, "resident_fixed_point", broken)
     srv = srv_()
     with obs.capture() as cap:
         fut = srv.submit("mis2", _graph(80))
@@ -1147,7 +1147,7 @@ def test_other_engine_errors_still_fall_back(monkeypatch):
     def broken(*a, **k):
         raise RuntimeError("not a device fault")
 
-    monkeypatch.setattr(ops, "fused_refresh_columns", broken)
+    monkeypatch.setattr(ops, "resident_fixed_point", broken)
     g = _graph(81)
     srv = srv_()
     res = srv.request("mis2", g)
@@ -1167,7 +1167,7 @@ def test_engine_error_on_card_resolves_engine_failure(monkeypatch):
     def broken(*a, **k):
         raise err
 
-    monkeypatch.setattr(ops, "fused_refresh_columns", broken)
+    monkeypatch.setattr(ops, "resident_fixed_point", broken)
     monkeypatch.setattr(server_mod, "_on_card", lambda req: True)
     srv = srv_()
     fut = srv.submit("mis2", _graph(82))

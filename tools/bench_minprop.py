@@ -426,7 +426,8 @@ def _round0(torch, ell, id_bits):
 def _capture_solve(torch, ell, ref, compact, is_undecided, b: int,
                    max_rounds: int = 128) -> list[dict]:
     """Every round's inputs and outputs of one resident solve, from the
-    twins (the loop of ``core.mis2.resident_ell_fixed_point``)."""
+    twins (the rounds of ``ref.resident_fixed_point_ref``, the worklists
+    compacted over ``[V]``, which gives the same lists)."""
     st = _round0(torch, ell, None)
     nbrs = ell.neighbors.reshape(-1)
     kw = dict(priority="xorshift_star", b=b)

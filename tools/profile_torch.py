@@ -22,7 +22,7 @@ and ``color(engine="luby_hybrid")`` too; the setups themselves, with
 ``amg_setup`` on both paper graphs and ``gs_setup`` (``cluster_gs_setup``)
 on Elasticity3D_60; and, on the two paper graphs, ``misk`` (k = 2, the
 ``dense`` engine ``engine=None`` takes) and ``partition(g, 8)`` (the
-multilevel partition, its coarsening on the fused kernels).  The two
+multilevel partition, its coarsening on the persistent MIS-2 kernel).  The two
 batch fleets of ``chip_smoke.py`` (``Fleet_A``, the reference's batch
 benchmark; ``Fleet_B``, 128 subdomains) are profiled through
 ``mis2_batch``, ``coarsen_batch`` (``two_phase``) and ``color_batch`` on
