@@ -48,17 +48,18 @@ Phases (any failure raises, and the script exits non-zero):
    1e-6, ``b = default_rng(0).standard_normal(V)``, one SpMV launch per
    iteration plus one) within one iteration of the reference's, the
    device-to-host copies of a traced resident setup's coarse-graph and
-   pack phases, ``color(laplace3d(8))``, and one hash-pack launch per
-   Luby round;
+   pack phases, ``color(laplace3d(8))``, and one launch of the Luby
+   persistent kernel a coloring;
 7. the hybrid path on Powerlaw_1M (``powerlaw_graph(1_000_000, 8.0,
    exponent=2.5, seed=42)``, whose padded ELL would take 120 GB): the
    graph digest and the layout, ``Graph.ell`` raising
    ``LayoutOverflowError``, ``mis2`` with ``engine=None`` taking
    ``cuda_hybrid`` (size, rounds, digest and traffic integers against the
    reference's ``pallas_hybrid``), ``coarsen`` two-phase and basic,
-   ``color(engine="luby_hybrid")``, one launch of each sliced kernel per
-   slab per MIS-2 round; then ``cuda_hybrid`` on Laplace3D_100 and
-   Elasticity3D_60 against the ``mis2`` anchors;
+   ``color(engine="luby_hybrid")``, one launch of the hybrid persistent
+   kernel a MIS-2 solve and of the Luby one a coloring; then
+   ``cuda_hybrid`` on Laplace3D_100 and Elasticity3D_60 against the
+   ``mis2`` anchors;
 8. the host-driven path and the Fig. 2 chain: ``mis2`` with the
    ``compacted`` and ``cuda_compacted`` engines on laplace3d(8),
    Laplace3D_100 and Elasticity3D_60 against the ``mis2`` anchors (two
@@ -139,7 +140,17 @@ Phases (any failure raises, and the script exits non-zero):
    launch) a solve; a profiled solve whose only kernel is the persistent
    one and whose device-to-host copies follow it; five warm calls of the
    paper graphs' ``mis2`` and ``coarsen`` beside the times before the
-   kernel; and ``tools/check_shape_torch.py``'s five gates on the card.
+   kernel; and ``tools/check_shape_torch.py``'s five gates on the card;
+15. the hybrid MIS-2 fixed point and the Luby loops as one dispatch each:
+   the hybrid persistent kernel against its twin on the hybrid layouts of
+   Powerlaw_1M, Laplace3D_100 and Elasticity3D_60 (capped at 1, 2 and 4
+   rounds, uncapped, and under the phase-2 mask of a two-phase coarsening),
+   bitwise T, equal rounds, live count and per-slab rows; the Luby kernel
+   against its twins on the same graphs (padded ELL and hybrid layout) and
+   on the two cluster-GS coarse graphs, capped at 1-3 rounds and uncapped,
+   bitwise colors and equal rounds; the anchors through the facade, each
+   with no host sync and one launch a solve; each kernel timed beside its
+   bound and its twin, and the walls beside the times before the kernels.
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -300,13 +311,33 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
         "none (the lax.while_loop of src/repro/core/mis2.py:641 over "
         "src/repro/kernels/minprop_ell/kernel.py:216 and :254)",
         "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    # likewise around the sliced kernels 3-4 and the spill's segment passes
+    "hybrid_fixed_point": (
+        "none (the lax.while_loop of src/repro/core/mis2_hybrid.py:51-113 "
+        "over src/repro/kernels/minprop_ell/kernel.py:375 and :409 and the "
+        "spill's XLA segment reductions)",
+        "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    # the Luby round loops (XLA), with kernel 9's hash inside
+    "luby_fixed_point": (
+        "none (the lax.while_loops of src/repro/core/coloring.py:107-128 "
+        "and :163-194; its priorities are "
+        "src/repro/kernels/hash_priority/kernel.py:31's arithmetic)",
+        "src/repro_torch/kernels/csrc/luby.cu"),
 }
-# the standalone kernels the main path no longer launches: their bodies run
-# inside resident_fixed_point; each is still held against its twin (phase
-# 3) and timed (phase 11); fused_refresh_columns stays on phase 12's
-# single-gather path
+# the standalone kernels the main path no longer launches: their bodies (or,
+# for hash_pack, its arithmetic) run inside a persistent kernel; each is
+# still held against its twin (phase 3) and timed (phase 11);
+# fused_refresh_columns stays on phase 12's single-gather path and the
+# sliced kernels on its distributed rounds
 CARRIED_BY = {"fused_refresh_columns": "resident_fixed_point",
-              "fused_decide": "resident_fixed_point"}
+              "fused_decide": "resident_fixed_point",
+              "sliced_refresh_columns": "hybrid_fixed_point",
+              "sliced_decide": "hybrid_fixed_point",
+              "hash_pack": "luby_fixed_point"}
+# the standalone kernels a later phase still launches, and where
+STILL_LAUNCHED = {"fused_refresh_columns": "phase 12's single-gather rounds",
+                  "sliced_refresh_columns": "phase 12's distributed rounds",
+                  "sliced_decide": "phase 12's distributed rounds"}
 # wall ms of five warm calls before the persistent kernel (PERF.md section
 # 5, tools/profile_torch.py; NVIDIA H100 80GB HBM3, 700 W)
 WALL_BEFORE_MS = {
@@ -316,6 +347,17 @@ WALL_BEFORE_MS = {
                         "coarsen": [75.45, 75.67, 76.41, 79.17, 80.58]},
 }
 RESIDENT = "resident_fixed_point"
+HYBRID = "hybrid_fixed_point"
+LUBY = "luby_fixed_point"
+# wall ms of five warm calls before the hybrid and Luby persistent kernels
+# (PERF.md section 5, tools/profile_torch.py; NVIDIA H100 80GB HBM3, 700 W)
+WALL_BEFORE_ONE_DISPATCH_MS = {
+    "Powerlaw_1M mis2": [43.80, 49.21, 50.76, 50.93, 59.62],
+    "Powerlaw_1M coarsen_two_phase": [176.98, 177.38, 188.39, 189.61, 193.63],
+    "Powerlaw_1M coarsen_basic": [64.86, 72.08, 72.91, 73.54, 75.06],
+    "Powerlaw_1M color": [364.46, 370.92, 371.44, 376.46, 514.90],
+    "Elasticity3D_60 cluster_gs_setup": [585.7, 591.0, 592.4, 607.6, 705.8],
+}
 SLICED = ("sliced_refresh_columns", "sliced_decide")
 UNFUSED = ("refresh_columns", "decide")
 # run-sum launches a resident AMG level: A P0 and the two Galerkin stages
@@ -369,13 +411,15 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.hash_priority import ops as hash_ops
     from repro_torch.kernels.hash_priority import ref as hash_ref
+    from repro_torch.kernels.luby import ops as luby_ops
+    from repro_torch.kernels.luby import ref as luby_ref
     from repro_torch.kernels.minprop_ell import ops, ref
     from repro_torch.kernels.run_sums import ops as run_ops
     from repro_torch.kernels.run_sums import ref as run_ref
     from repro_torch.kernels.spmv_ell import ops as spmv_ops
     from repro_torch.kernels.spmv_ell import ref as spmv_ref
 
-    launches = Launches(ops, spmv_ops, hash_ops, run_ops)
+    launches = Launches(ops, spmv_ops, hash_ops, run_ops, luby_ops)
     provenance_checked = checking_provenance(rt)
     path_launches = {k: 0 for k in KERNELS}
 
@@ -714,10 +758,9 @@ def main() -> int:
                   f"{label}: cluster GS engine {c.engine}")
             check(all(got[k] == want[k] for k in got),
                   f"{label}: cluster GS ({c.engine}) {got} != {want}")
-            check(after["hash_pack"] - before["hash_pack"] == c.color_rounds,
-                  f"{label}: hash_pack launched "
-                  f"{after['hash_pack'] - before['hash_pack']} times in "
-                  f"{c.color_rounds} Luby rounds")
+            check(after[LUBY] - before[LUBY] == 1,
+                  f"{label}: {LUBY} launched {after[LUBY] - before[LUBY]} "
+                  f"times in a coloring of {c.color_rounds} rounds")
             out[label] = {**got, "engine": c.engine,
                           "color_rounds": c.color_rounds,
                           "setup_s": c.wall_time_s, "timings": c.timings,
@@ -764,7 +807,7 @@ def main() -> int:
           f"color(laplace3d(8)): {(c8.num_colors, c8.digest)}")
     counts = launches.read()
     add_path(counts)
-    check(counts["hash_pack"] > 0, "hash_pack never launched")
+    check(counts[LUBY] > 0, f"{LUBY} never launched")
     emit({"phase": "cluster_gs_path", "launches": counts, "cg": gs_cg,
           "dtoh_Elasticity3D_60": gs_copies,
           "color_laplace3d(8)": {"colors": c8.num_colors,
@@ -778,8 +821,11 @@ def main() -> int:
     hybrid = _hybrid_path(torch, rt, pl, graphs, launches)
     counts = launches.read()
     add_path(counts)
-    for k in SLICED:
+    for k in (HYBRID, LUBY):
         check(counts[k] > 0, f"{k} was never launched on the hybrid path")
+    for k in (*SLICED, "hash_pack"):
+        check(counts[k] == 0, f"the standalone {k} was launched on the "
+              "hybrid path")
     emit({"phase": "hybrid_path", "launches": counts, **hybrid})
 
     # -- 8. the host-driven path and the Fig. 2 chain -------------------------------
@@ -909,7 +955,7 @@ def main() -> int:
     serving = _serving_path(torch, np, rt, dev, graphs, pl, launches)
     serve_counts = serving.pop("launches")
     add_path(serve_counts)
-    for k in (RESIDENT, *SLICED, "round_priorities_batched", "run_sums"):
+    for k in (RESIDENT, HYBRID, "round_priorities_batched", "run_sums"):
         check(serve_counts[k] > 0, f"{k} was never launched by the server")
     emit({"phase": "serving_path", "card": smi, "launches": serve_counts,
           **serving})
@@ -923,9 +969,21 @@ def main() -> int:
           "phase 14")
     emit({"phase": "resident_one_dispatch", "card": smi,
           "launches": one_counts, "seconds": time.perf_counter() - t0, **one})
+    # -- 15. the hybrid MIS-2 and Luby fixed points as one dispatch each -----
+    t0 = time.perf_counter()
+    two = _hybrid_luby_one_dispatch(torch, rt, ops, ref, luby_ops, luby_ref,
+                                    id_bits, graphs, pl, gs, launches, errs)
+    two_counts = two.pop("launches")
+    add_path(two_counts)
+    for k in (HYBRID, LUBY):
+        check(two_counts[k] > 0, f"{k} was never launched in phase 15")
+    emit({"phase": "hybrid_luby_one_dispatch", "card": smi,
+          "launches": two_counts, "seconds": time.perf_counter() - t0,
+          **two})
     new_sites = {"distributed (phase 12)": dist_counts,
                  "serving (phase 13)": serve_counts,
-                 "one dispatch (phase 14)": one_counts}
+                 "one dispatch (phase 14)": one_counts,
+                 "one dispatch (phase 15)": two_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -947,6 +1005,12 @@ def main() -> int:
         RESIDENT: ("Elasticity3D_60, a whole mis2 solve ("
                    f"{timing['Elasticity3D_60'][RESIDENT]['rounds']} "
                    "rounds)", timing["Elasticity3D_60"][RESIDENT]),
+        HYBRID: ("Powerlaw_1M, a whole mis2 solve ("
+                 f"{two['timing'][HYBRID]['Powerlaw_1M']['rounds']} rounds)",
+                 two["timing"][HYBRID]["Powerlaw_1M"]),
+        LUBY: ("Powerlaw_1M hybrid layout, a whole color loop ("
+               f"{two['timing'][LUBY]['Powerlaw_1M hybrid']['rounds']} "
+               "rounds)", two["timing"][LUBY]["Powerlaw_1M hybrid"]),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -962,14 +1026,16 @@ def main() -> int:
         if k in ("fused_refresh_columns", "fused_decide", "spmv", *UNFUSED,
                  RESIDENT):
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
+        if k in (HYBRID, LUBY):
+            entry["by_graph"] = two["timing"][k]
         if k in CARRIED_BY:
             entry["carried_by"] = CARRIED_BY[k]
             entry["note"] = (
                 f"the main path runs this body inside {CARRIED_BY[k]} (one "
                 "launch a solve), so the standalone kernel's launches fell: "
-                "it is held against its twin in phase 3 and timed at round "
-                "0 here" + (", and phase 12's single-gather rounds launch "
-                            "it" if k == "fused_refresh_columns" else ""))
+                "it is held against its twin in phase 3 and timed in phase "
+                "11" + (f", and {STILL_LAUNCHED[k]} launch it"
+                        if k in STILL_LAUNCHED else ""))
         if k == "hash_pack":
             entry.update(by_form=hash_time["by_form"],
                          ms_read_flush=hash_time["ms_read_flush"],
@@ -1764,10 +1830,10 @@ def _time_resident(torch, g, ops, ref, id_bits, reps: int = 20,
         "live_counts": [list(x) for x in trace]}
 
 
-def _phase2_masks(rt, graphs) -> dict:
+def _phase2_masks(rt, graphs, mis2_engine=None) -> dict:
     """The active mask of each graph's second MIS-2 solve in a two-phase
-    coarsening (the rows phase 1 left unaggregated), caught at the
-    aggregation's ``run_mis2``."""
+    coarsening (the rows phase 1 left unaggregated) on ``mis2_engine``,
+    caught at the aggregation's ``run_mis2``."""
     from repro_torch.core import aggregation
 
     inner = aggregation.run_mis2
@@ -1781,7 +1847,7 @@ def _phase2_masks(rt, graphs) -> dict:
 
         aggregation.run_mis2 = spy
         try:
-            rt.coarsen(g, method="two_phase")
+            rt.coarsen(g, method="two_phase", mis2_engine=mis2_engine)
         finally:
             aggregation.run_mis2 = inner
         check(len(seen) == 2 and seen[1] is not None,
@@ -1973,6 +2039,282 @@ def _resident_one_dispatch(torch, rt, ops, ref, id_bits, graphs,
     return out
 
 
+def _hybrid_bytes(hyb, trace) -> tuple[int, int]:
+    """Bytes and §V-A hashes of a hybrid solve at the rounds run
+    (``trace``: each round's per-slab lists, ``((M list, n2), (undecided
+    list, n1))``, and the heavy rows its spill passes visit, from the twin):
+    round 0's state written (T, M, both lists of every slab) from the mask;
+    a round's sliced refresh over each M list (its list, the rows' global
+    ids and ids, the words they point at, at most V of them, M written), the
+    sliced decide over each undecided list (its list, global ids and ids,
+    own T, M at the neighbours (no mask), at most V, T written), the spill's
+    refresh over its live heavy rows (each row's id and own T, its entries'
+    segments and columns, the words they point at, at most V, M written),
+    its decide over its undecided heavy rows (each row's id, own T and M,
+    its entries' segments and columns, M at them, at most V, T written), and
+    each list's survivors written by the compaction (the slots and words it
+    keys on were read by the passes); the hashes: the undecided rows, slab
+    and heavy, twice a round (refresh and decide)."""
+    v = hyb.num_vertices
+    widths = hyb.slice_widths
+    entries = hyb.spill_seg.long().bincount(minlength=hyb.num_spill_rows)
+    nbytes = v + 8 * v + 8 * sum(hyb.slice_num_rows)
+    hashes = 0
+    for i, (lists, heavy_live, heavy_und) in enumerate(trace):
+        nxt = trace[i + 1][0] if i + 1 < len(trace) else None
+        for s, (d, ((_, n2), (_, n1))) in enumerate(zip(widths, lists)):
+            nbytes += 8 * n2 + 4 * n2 * d + 4 * min(n2 * d, v) + 4 * n2
+            nbytes += 12 * n1 + 4 * n1 * d + 4 * min(n1 * d, v) + 4 * n1
+            if nxt is not None:
+                nbytes += 4 * (nxt[s][0][1] + nxt[s][1][1])
+            hashes += 2 * n1
+        hl, hu = int(heavy_live.sum()), int(heavy_und.sum())
+        el, eu = int(entries[heavy_live].sum()), int(entries[heavy_und].sum())
+        nbytes += 12 * hl + 8 * el + 4 * min(el, v)
+        nbytes += 16 * hu + 8 * eu + 4 * min(eu, v)
+        hashes += 2 * hu
+    return nbytes, hashes
+
+
+def _luby_bytes(maps, spill, trace) -> tuple[int, int]:
+    """Bytes and §V-A hashes of a Luby loop at the rounds run (``trace``:
+    each round's starting colors, from the twin): both color buffers
+    written once; a round, at each row map's rows still uncolored (the
+    least a round must visit), the row's own color, its D ids and mask
+    bytes, the colors they point at (at most V) and its new color (and
+    its global id in a slab), and at the spill's heavy rows still
+    uncolored, the row's id, own color and new color, its entries'
+    segments and columns and the colors they point at; one hash a row
+    still uncolored."""
+    v = trace[0].shape[0] if trace else 0
+    nbytes, hashes = 8 * v, 0
+    seg_rows = heavy = None
+    if spill[0].shape[0]:
+        heavy = spill[0].to(spill[1].device).long()
+        seg_rows = heavy[spill[1].long()]
+    for colors in trace:
+        unc = colors < 0
+        for rows, d in maps:
+            u = int(unc.sum() if rows is None else unc[rows.long()].sum())
+            nbytes += u * (8 + 4 * d + d) + 4 * min(u * d, v)
+            nbytes += 0 if rows is None else 4 * u
+        if seg_rows is not None:
+            eu = int(unc[seg_rows].sum())
+            nbytes += 8 * eu + 4 * min(eu, v) + 12 * int(unc[heavy].sum())
+        hashes += int(unc.sum())
+    return nbytes, hashes
+
+
+def _hybrid_luby_one_dispatch(torch, rt, ops, ref, luby_ops, luby_ref,
+                              id_bits, graphs, pl, gs, launches, errs) -> dict:
+    """Phase 15: the hybrid and Luby persistent kernels against their twins,
+    the anchors through the facade (one launch and no host sync a solve;
+    the phase's ``launches``), each kernel timed beside its bound and its
+    twin, and the walls beside the times before the kernels."""
+    from repro_torch.graphs.ops import coarse_graph_from_labels
+
+    dev = pl.device
+    out = {"hybrid_vs_twin": {}, "luby_vs_twin": {}}
+    hybrid_graphs = {"Powerlaw_1M": pl,
+                     **{label: graphs[label] for label in PAPER_GRAPHS}}
+    masks = _phase2_masks(rt, hybrid_graphs, mis2_engine="cuda_hybrid")
+
+    def hybrid_args(g):
+        hyb = g.hybrid()
+        return hyb, [(sl.rows, sl.neighbors.reshape(-1))
+                     for sl in hyb.slices], (
+            hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+
+    def empty(v):
+        return (torch.empty(v, dtype=torch.int32, device=dev),
+                torch.empty(v, dtype=torch.int32, device=dev))
+
+    for label, g in hybrid_graphs.items():
+        hyb, slabs, spill = hybrid_args(g)
+        v = hyb.num_vertices
+        for mi, act, case in ((1, None, "1 round"), (2, None, "2 rounds"),
+                              (4, None, "4 rounds"), (128, None, "all"),
+                              (128, masks[label], "phase-2 mask")):
+            kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=mi)
+            tk, sk, ak = ops.hybrid_fixed_point(*empty(v), act, slabs, spill,
+                                                **kw)
+            tr, sr, ar = ref.hybrid_fixed_point_ref(*empty(v), act, slabs,
+                                                    spill, **kw)
+            torch.cuda.synchronize()
+            got = [sk.tolist(), ak.tolist()]
+            want = [sr.tolist(), ar.tolist()]
+            errs[HYBRID] = max(errs[HYBRID], _max_abs_err_u32(tk, tr))
+            check(torch.equal(tk, tr) and got == want,
+                  f"{label} ({case}): {HYBRID} {got} != twin {want}, "
+                  f"{int((tk != tr).sum())} words differ")
+            out["hybrid_vs_twin"][f"{label} {case}"] = {
+                "rows_active": v if act is None else int(act.sum()),
+                "rounds": got[0][0], "live": got[0][1],
+                "slice_rows_processed": got[1], "bitwise": True}
+    coarse = {}
+    for label in CLUSTER_GS:
+        setup = gs[label]["setup"]
+        coarse[f"{label} cluster-GS coarse"] = rt.Graph(
+            coarse_graph_from_labels(graphs[label].csr, setup.labels,
+                                     setup.num_clusters), device=dev)
+    layouts = {"Powerlaw_1M hybrid": (pl, True),
+               **{label: (graphs[label], False) for label in PAPER_GRAPHS},
+               **{f"{label} hybrid": (graphs[label], True)
+                  for label in PAPER_GRAPHS},
+               **{label: (g, False) for label, g in coarse.items()}}
+
+    def luby_args(g, hybrid):
+        if hybrid:
+            hyb = g.hybrid()
+            return "hybrid", ([(sl.rows, sl.neighbors, sl.mask)
+                               for sl in hyb.slices],
+                              (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols),
+                              hyb.num_vertices)
+        return "ell", (g.ell.neighbors, g.ell.mask)
+
+    def luby(form, args, twin=False, **kw):
+        if form == "hybrid":
+            fn = (luby_ref.luby_fixed_point_hybrid_ref if twin
+                  else luby_ops.luby_fixed_point_hybrid)
+        else:
+            fn = (luby_ref.luby_fixed_point_ref if twin
+                  else luby_ops.luby_fixed_point)
+        return fn(*args, **kw)
+
+    for label, (g, hybrid) in layouts.items():
+        form, args = luby_args(g, hybrid)
+        for mr in (1, 2, 3, 256):
+            ck, rk = luby(form, args, max_rounds=mr)
+            cr, rr = luby(form, args, twin=True, max_rounds=mr)
+            torch.cuda.synchronize()
+            errs[LUBY] = max(errs[LUBY], _max_abs_err(ck, cr))
+            check(torch.equal(ck, cr) and torch.equal(rk, rr),
+                  f"{label} (max_rounds {mr}): {LUBY} rounds {rk.tolist()} "
+                  f"!= twin {rr.tolist()}, {int((ck != cr).sum())} colors "
+                  "differ")
+            out["luby_vs_twin"][f"{label} max_rounds={mr}"] = {
+                "rounds": int(rk.item()), "colors": int(ck.max().item()) + 1,
+                "uncolored": int((ck < 0).sum()), "bitwise": True}
+    # the anchors through the facade: one launch and no host sync a solve
+    launches.reset()
+    anchors = {}
+    want = POWERLAW_1M
+
+    def solve(call):
+        before = launches.read()
+        with rt.obs.capture() as cap:
+            res = call()
+        after = launches.read()
+        got = {k: after[k] - before[k] for k in (HYBRID, LUBY)}
+        return res, got, cap
+
+    r, got, cap = solve(lambda: rt.mis2(pl))
+    check((r.engine, r.size, r.iterations, r.digest) == (
+        "cuda_hybrid", *want["mis2"]) and r.host_syncs == 0
+        and cap.value("mis2.host_syncs") == 0 and got == {HYBRID: 1, LUBY: 0},
+        f"Powerlaw_1M mis2: {r.engine} {r.digest} syncs {r.host_syncs} "
+        f"launches {got}")
+    for k in ("slice_rows_processed", "spill_passes", "row_bytes_total"):
+        check(r.collectives[k] == want[k], f"Powerlaw_1M mis2: {k}")
+    anchors["Powerlaw_1M mis2"] = [r.size, r.iterations, r.digest,
+                                   r.host_syncs, got]
+    for method in ("two_phase", "basic"):
+        a, got, cap = solve(lambda m=method: rt.coarsen(pl, method=m))
+        solves = cap.value("mis2.resident_dispatches")
+        check((a.num_aggregates, a.iterations, a.digest) == want[method]
+              and cap.value("mis2.host_syncs") == 0
+              and got == {HYBRID: solves, LUBY: 0} and solves >= 1,
+              f"Powerlaw_1M coarsen({method}): {a.digest} launches {got} "
+              f"for {solves} solves")
+        anchors[f"Powerlaw_1M coarsen({method})"] = [
+            a.num_aggregates, a.iterations, a.digest, solves, got]
+    c, got, _ = solve(lambda: rt.color(pl, engine="luby_hybrid"))
+    check((c.num_colors, c.rounds, c.digest) == want["color"]
+          and c.host_syncs == 0 and got == {HYBRID: 0, LUBY: 1},
+          f"Powerlaw_1M color: {c.digest} syncs {c.host_syncs} launches {got}")
+    anchors["Powerlaw_1M color"] = [c.num_colors, c.rounds, c.digest,
+                                    c.host_syncs, got]
+    for label in PAPER_GRAPHS:
+        rh, got, cap = solve(lambda g=graphs[label]: rt.mis2(
+            g, engine="cuda_hybrid"))
+        check((rh.size, rh.iterations, rh.digest) == ANCHORS[label]["mis2"]
+              and rh.host_syncs == 0 and cap.value("mis2.host_syncs") == 0
+              and got == {HYBRID: 1, LUBY: 0},
+              f"{label} cuda_hybrid: {rh.digest} launches {got}")
+        anchors[f"{label} cuda_hybrid"] = [rh.size, rh.iterations, rh.digest,
+                                           rh.host_syncs, got]
+    c8, got, _ = solve(lambda: rt.color(graphs["laplace3d(8)"]))
+    check((c8.num_colors, c8.digest) == COLOR_L8 and c8.host_syncs == 0
+          and got == {HYBRID: 0, LUBY: 1},
+          f"color(laplace3d(8)): {c8.digest} launches {got}")
+    anchors["color(laplace3d(8))"] = [c8.num_colors, c8.digest, c8.rounds,
+                                      c8.host_syncs, got]
+    for label, w in CLUSTER_GS.items():
+        cg, got, _ = solve(lambda g=graphs[label]: rt.cluster_gs_setup(
+            g, aggregation="two_phase"))
+        check((cg.num_colors, cg.colors_digest) == (w["colors"],
+                                                    w["colors_digest"])
+              and got[LUBY] == 1,
+              f"{label} cluster GS: colors {cg.colors_digest} launches {got}")
+        anchors[f"{label} cluster_gs_setup"] = [cg.num_colors,
+                                                cg.colors_digest,
+                                                cg.color_rounds, got]
+    out["anchors"] = anchors
+    out["launches"] = launches.read()
+    # each kernel beside its bound and its twin
+    timing = {HYBRID: {}, LUBY: {}}
+    for label, g in hybrid_graphs.items():
+        hyb, slabs, spill = hybrid_args(g)
+        v = hyb.num_vertices
+        kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=128)
+        trace = []
+        ref.hybrid_fixed_point_ref(*empty(v), None, slabs, spill, trace=trace,
+                                   **kw)
+        nbytes, hashes = _hybrid_bytes(hyb, trace)
+        state, twin_state = empty(v), empty(v)
+        timing[HYBRID][label] = {**_timed(
+            torch, lambda: ops.hybrid_fixed_point(*state, None, slabs, spill,
+                                                  **kw),
+            lambda: ref.hybrid_fixed_point_ref(*twin_state, None, slabs,
+                                               spill, **kw),
+            None, nbytes, hashes=hashes, reps=20, plain_reps=3),
+            "V": v, "widths": list(hyb.slice_widths),
+            "spill_entries": hyb.num_spill_entries, "rounds": len(trace)}
+    for label in ("Powerlaw_1M hybrid", *PAPER_GRAPHS):
+        g, hybrid = layouts[label]
+        form, args = luby_args(g, hybrid)
+        trace = []
+        luby(form, args, twin=True, max_rounds=256, trace=trace)
+        if form == "hybrid":
+            maps = [(rows, nb.shape[1]) for rows, nb, _ in args[0]]
+            nbytes, hashes = _luby_bytes(maps, args[1], trace)
+        else:
+            nbytes, hashes = _luby_bytes(
+                [(None, args[0].shape[1])],
+                (torch.empty(0, dtype=torch.int32, device=dev),) * 3, trace)
+        timing[LUBY][label] = {**_timed(
+            torch, lambda: luby(form, args, max_rounds=256),
+            lambda: luby(form, args, twin=True, max_rounds=256), None,
+            nbytes, hashes=hashes, reps=20, plain_reps=3),
+            "rounds": len(trace)}
+        del trace
+    out["timing"] = timing
+    out["wall_ms"] = {
+        what: {"now": _wall_ms(torch, call, reps=5),
+               "before": WALL_BEFORE_ONE_DISPATCH_MS.get(what)}
+        for what, call in (
+            ("Powerlaw_1M mis2", lambda: rt.mis2(pl)),
+            ("Powerlaw_1M coarsen_two_phase",
+             lambda: rt.coarsen(pl, method="two_phase")),
+            ("Powerlaw_1M coarsen_basic",
+             lambda: rt.coarsen(pl, method="basic")),
+            ("Powerlaw_1M color", lambda: rt.color(pl, engine="luby_hybrid")),
+            *((f"{label} cluster_gs_setup",
+               lambda g=graphs[label]: rt.cluster_gs_setup(
+                   g, aggregation="two_phase")) for label in CLUSTER_GS))}
+    return out
+
+
 def _time_unfused(torch, g, ops, ref, id_bits, reps: int = 50,
                   plain_reps: int = 5) -> dict:
     """The unfused kernels and their twins at the host-driven round 0:
@@ -2123,15 +2465,16 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     check("csr_to_ell" not in pl.conversions, "Powerlaw_1M built an ELL")
     out = {}
 
-    def sliced_launches(g, before, after, rounds, what):
-        slices = g.hybrid().num_slices
-        for k in SLICED:
-            got = after[k] - before[k]
-            check(got == slices * rounds, f"{what}: {k} launched {got} times "
-                  f"in {rounds} rounds over {slices} slabs")
+    def one_launch_a_solve(cap, before, after, what):
+        got = after[HYBRID] - before[HYBRID]
+        solves = cap.value("mis2.resident_dispatches")
+        check(got == solves >= 1 and cap.value("mis2.host_syncs") == 0,
+              f"{what}: {HYBRID} launched {got} times in {solves} solves, "
+              f"{cap.value('mis2.host_syncs')} host syncs")
 
     before = launches.read()
-    r = rt.mis2(pl)
+    with rt.obs.capture() as cap:
+        r = rt.mis2(pl)
     after = launches.read()
     check(r.engine == "cuda_hybrid", f"Powerlaw_1M: engine {r.engine}")
     check((r.size, r.iterations, r.digest) == want["mis2"],
@@ -2142,7 +2485,7 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     for k in ("slice_rows_processed", "spill_passes", "row_bytes_total",
               "spill_entries"):
         check(col[k] == want[k], f"Powerlaw_1M: {k} {col[k]} != {want[k]}")
-    sliced_launches(pl, before, after, r.iterations, "Powerlaw_1M mis2")
+    one_launch_a_solve(cap, before, after, "Powerlaw_1M mis2")
     check(after["fused_decide"] == before["fused_decide"],
           "Powerlaw_1M mis2 launched a fused kernel")
     out["mis2"] = {"engine": r.engine, "size": r.size,
@@ -2152,14 +2495,14 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
                    "launches": {k: after[k] - before[k] for k in after}}
     for method in ("two_phase", "basic"):
         before = launches.read()
-        a = rt.coarsen(pl, method=method)
+        with rt.obs.capture() as cap:
+            a = rt.coarsen(pl, method=method)
         after = launches.read()
         got = (a.num_aggregates, a.iterations, a.digest)
         check(a.engine == "cuda_hybrid", f"Powerlaw_1M coarsen: {a.engine}")
         check(got == want[method],
               f"Powerlaw_1M: coarsen({method}) {got} != {want[method]}")
-        sliced_launches(pl, before, after, a.iterations,
-                        f"Powerlaw_1M coarsen({method})")
+        one_launch_a_solve(cap, before, after, f"Powerlaw_1M coarsen({method})")
         out[f"coarsen_{method}"] = {
             "aggregates": a.num_aggregates, "mis2_iterations": a.iterations,
             "digest": a.digest, "first_call_s": a.wall_time_s}
@@ -2168,8 +2511,9 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     after = launches.read()
     got = (c.num_colors, c.rounds, c.digest)
     check(got == want["color"], f"Powerlaw_1M: color {got} != {want['color']}")
-    check(after["hash_pack"] - before["hash_pack"] == c.rounds,
-          "Powerlaw_1M color: one hash_pack launch per Luby round expected")
+    check(after[LUBY] - before[LUBY] == 1 and c.host_syncs == 0,
+          f"Powerlaw_1M color: {after[LUBY] - before[LUBY]} launches of "
+          f"{LUBY}, {c.host_syncs} host syncs (one and none expected)")
     out["color"] = {"colors": c.num_colors, "rounds": c.rounds,
                     "digest": c.digest, "host_syncs": c.host_syncs,
                     "first_call_s": c.wall_time_s}
@@ -2177,13 +2521,13 @@ def _hybrid_path(torch, rt, pl, graphs, launches) -> dict:
     for label in PAPER_GRAPHS:
         g = graphs[label]
         before = launches.read()
-        rh = rt.mis2(g, engine="cuda_hybrid")
+        with rt.obs.capture() as cap:
+            rh = rt.mis2(g, engine="cuda_hybrid")
         after = launches.read()
         got = (rh.size, rh.iterations, rh.digest)
         check(got == ANCHORS[label]["mis2"],
               f"{label}: cuda_hybrid {got} != {ANCHORS[label]['mis2']}")
-        sliced_launches(g, before, after, rh.iterations,
-                        f"{label} cuda_hybrid")
+        one_launch_a_solve(cap, before, after, f"{label} cuda_hybrid")
         out[f"cuda_hybrid_{label}"] = {
             "size": rh.size, "iterations": rh.iterations,
             "digest": rh.digest, "slice_widths": list(
@@ -2213,7 +2557,7 @@ def _time_sliced(torch, hyb, ops, ref, id_bits, reps: int = 50,
             t0, m_ready, sl.rows, sl.neighbors.reshape(-1),
             torch.arange(r, dtype=torch.int32, device=dev),
             torch.full((1,), r, dtype=torch.int32, device=dev), it, **kw)
-    ops.spill_refresh_columns(t0, m_ready, hyb.spill_rows, hyb.spill_seg,
+    ref.spill_refresh_columns(t0, m_ready, hyb.spill_rows, hyb.spill_seg,
                               hyb.spill_cols, active, it, **kw)
     out = {}
     for sl in hyb.slices:

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..graphs.handle import as_graph
-from ..kernels.minprop_ell.ops import segment_reduce
 from .mis2 import Mis2Options, run_mis2
+from .segments import segment_reduce
 
 INT32_MAX = 2**31 - 1
 _JOIN_ROUNDS = 4

@@ -6,13 +6,16 @@ point multicolor GS to color the fine graph.  Luby-style rounds with the
 same xorshift* packed priorities as MIS-2: in each round, every uncolored
 vertex whose priority is below that of every uncolored real neighbor picks
 its smallest color not taken by a colored neighbor (64-color forbidden
-mask).  The round's priorities come from the hash-pack kernel
-(``kernels.hash_priority.ops.round_priorities``: the ids 0..V-1 hashed,
-packed and widened in one launch) with the round number on the device; the
-rowwise round is plain torch over the ELL adjacency.  The loop reads one
-flag per round on the host to decide whether to go on (``host_syncs``).
-``luby_hybrid`` runs the same rounds over the degree-aware hybrid layout
-(slab rows as above, the spill's heavy rows by segment reductions).
+mask).  The reference's jitted round loop is one call of
+``kernels.luby.ops.luby_fixed_point``: on the card one cooperative launch
+of a persistent kernel that hashes the round's priorities itself and reads
+nothing from the host until the loop ends (``host_syncs`` 0); on the CPU
+its plain-torch twin, which reads one flag a round.  ``luby_hybrid`` runs
+the same rounds over the degree-aware hybrid layout
+(``luby_fixed_point_hybrid``: slab rows as above, the spill's heavy rows
+by segment reductions).  The batched coloring keeps a loop of rounds
+here, one launch of the batched hash-pack kernel and a plain-torch round
+each.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ import torch
 
 from ..graphs.handle import as_graph
 from ..kernels.hash_priority import ops as hash_ops
-from ..kernels.minprop_ell.ops import segment_reduce
+from ..kernels.luby import ops as luby_ops
+from ..kernels.luby.ref import color_round_rows
 from .mis2 import record_loop
-from .tuples import U32_MASK, id_bits
 
 MAX_COLORS = 64
 MAX_ROUNDS_DEFAULT = 256
@@ -40,84 +43,28 @@ class ColoringResult:
     host_syncs: int = 0
 
 
-def _lowest_set_bit(x: torch.Tensor) -> torch.Tensor:
-    """Index of the lowest set bit of widened uint32 words (int64), through
-    the reference's float32 exponent: -127 where ``x == 0``."""
-    isolated = (x & -x).to(torch.float32)        # an exact power of two
-    return (isolated.view(torch.int32) >> 23).to(torch.int64) - 127
-
-
-def _smallest_free_color(forb_lo: torch.Tensor,
-                         forb_hi: torch.Tensor) -> torch.Tensor:
-    """Smallest color whose bit is clear in the 64-bit forbidden mask."""
-    free_lo = ~forb_lo & U32_MASK
-    free_hi = ~forb_hi & U32_MASK
-    low_idx = _lowest_set_bit(free_lo)
-    high_idx = _lowest_set_bit(free_hi) + 32
-    return torch.where(free_lo != 0, low_idx, high_idx).to(torch.int32)
-
-
-def _round_priorities(v: int, rnd: torch.Tensor, b: int) -> torch.Tensor:
-    """Round ``rnd``'s packed priority of each of the ``v`` vertices,
-    widened: one launch of the hash-pack kernel, no ids read."""
-    return hash_ops.round_priorities(v, rnd, b)
-
-
-def _color_round_rows(neighbors, mask, row_ids, colors, prio):
-    """One Luby round over the rows ``row_ids`` of a ``[V]`` coloring:
-    ``colors`` int32 and ``prio`` widened int64, both ``[V]``."""
-    nb = neighbors.to(torch.int64)
-    own = colors[row_ids]
-    real = mask & (neighbors != row_ids[:, None])
-    pn = prio[nb]
-    contender = real & (colors[nb] < 0)
-    is_min = torch.where(contender, prio[row_ids][:, None] < pn,
-                         True).all(dim=1)
-    # forbidden colors bitmask (two 32-bit words -> up to 64 colors)
-    cn = colors[nb].to(torch.int64)
-    has = real & (cn >= 0)
-    lo_bits = torch.where(has & (cn < 32), 1 << cn.clamp(0, 31), 0)
-    hi_bits = torch.where(has & (cn >= 32), 1 << (cn - 32).clamp(0, 31), 0)
-    forb_lo = torch.zeros_like(own, dtype=torch.int64)   # ELL width may be 0
-    forb_hi = torch.zeros_like(forb_lo)
-    for j in range(nb.shape[1]):           # torch has no OR reduction
-        forb_lo = forb_lo | lo_bits[:, j]
-        forb_hi = forb_hi | hi_bits[:, j]
-    chosen = _smallest_free_color(forb_lo, forb_hi)
-    return torch.where((own < 0) & is_min, chosen, own)
-
-
-def _luby_loop(v: int, dev, max_rounds: int, round_fn):
-    """The Luby round loop with the reference's do-while shape (at least
-    one round); ``round_fn(colors, prio)`` is one round over every row.
-    Returns ``(colors int32 [V], rounds, host_syncs)``."""
-    b = id_bits(v)
-    colors = torch.full((v,), -1, dtype=torch.int32, device=dev)
-    rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
-    rnd = syncs = 0
-    while True:
-        if rnd > 0:
-            if rnd >= max_rounds:
-                break
-            syncs += 1
-            if not bool((colors < 0).any()):    # the one host read a round
-                break
-        colors = round_fn(colors, _round_priorities(v, rnd_dev, b))
-        rnd_dev += 1
-        rnd += 1
+def _loop_result(colors, stats, max_rounds: int):
+    """``(colors, rounds, host_syncs)`` of one Luby loop call: the rounds
+    read once, after the loop; the host syncs inside it 0 on the card and,
+    on the CPU, the twin's reads (one a round past the first, none where the
+    round cap stopped it)."""
+    rounds = int(stats.item())
+    if colors.device.type == "cuda":
+        syncs = 0
+    else:
+        syncs = rounds if rounds < max_rounds else rounds - 1
     record_loop(syncs)
-    return colors, rnd, syncs
+    return colors, rounds, syncs
 
 
 def color_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
                       max_rounds: int):
-    """The Luby round loop over the padded ELL.  Returns ``(colors int32
-    [V], rounds, host_syncs)``."""
-    v = neighbors.shape[0]
-    vids = torch.arange(v, dtype=torch.int32, device=neighbors.device)
-    return _luby_loop(v, neighbors.device, max_rounds,
-                      lambda colors, prio: _color_round_rows(
-                          neighbors, mask, vids, colors, prio))
+    """The Luby round loop over the padded ELL, one call of
+    ``luby_ops.luby_fixed_point``.  Returns ``(colors int32 [V], rounds,
+    host_syncs)``."""
+    colors, stats = luby_ops.luby_fixed_point(neighbors, mask,
+                                              max_rounds=max_rounds)
+    return _loop_result(colors, stats, max_rounds)
 
 
 def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
@@ -130,7 +77,7 @@ def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
     ``neighbors`` (int64 ``[B * rows, width]``) is the bucket as one
     block-diagonal graph, as :func:`~repro_torch.core.mis2.
     mis2_dense_batched_fixed_point` takes it, so each round is
-    :func:`_color_round_rows` over every row, with the priorities of one
+    :func:`color_round_rows` over every row, with the priorities of one
     launch of the batched hash-pack kernel (each member's local ids and its
     own ``bits``, int32 ``[B]`` on the device).  Padded rows
     (``row_valid`` False) enter pre-colored 0: never contenders, nobody's
@@ -147,7 +94,7 @@ def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
     rnd = syncs = 0
     while True:
         prio = hash_ops.round_priorities_batched(rows, rnd_dev, bits)
-        colors = _color_round_rows(neighbors, mask, vids, colors, prio)
+        colors = color_round_rows(neighbors, mask, vids, colors, prio)
         rnd_dev += 1
         rnd += 1
         finished = ((colors >= 0) | ~row_valid).view(-1, rows).all(dim=1)
@@ -160,59 +107,17 @@ def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
     return colors, done_round, rnd, syncs
 
 
-def _spill_color_round(spill_rows, spill_seg, spill_cols, colors, prio):
-    """One Luby round over the heavy rows of the COO spill, equal to
-    :func:`_color_round_rows` on the same rows: ``all(own < pn)`` over the
-    contenders is ``own < segment min(pn)``, the segment holding 2**32 - 1
-    where there is no contender (a packed priority never equals it: its
-    low ``b`` bits are ``id + 1 <= V < 2**b - 1``), and the forbidden-color
-    OR is a ``[H*64]`` one-hot ``amax`` scatter summed against distinct
-    powers of two (sum == OR for distinct bits)."""
-    h = spill_rows.shape[0]
-    rows = spill_rows.to(torch.int64)
-    cols = spill_cols.to(torch.int64)
-    seg = spill_seg.to(torch.int64)
-    own = colors[rows]
-    cn = colors[cols].to(torch.int64)
-    pn = prio[cols]
-    real = cols != rows[seg]
-    contender = real & (cn < 0)
-    min_pn = segment_reduce(torch.where(contender, pn, U32_MASK), seg, h,
-                            "amin", U32_MASK)
-    is_min = prio[rows] < min_pn
-    has = real & (cn >= 0)
-    onehot = segment_reduce(has.to(torch.int64),
-                            seg * MAX_COLORS + cn.clamp(0, MAX_COLORS - 1),
-                            h * MAX_COLORS, "amax", 0).view(h, MAX_COLORS)
-    weights = 1 << torch.arange(32, dtype=torch.int64, device=colors.device)
-    forb_lo = (onehot[:, :32] * weights).sum(dim=1)
-    forb_hi = (onehot[:, 32:] * weights).sum(dim=1)
-    chosen = _smallest_free_color(forb_lo, forb_hi)
-    return torch.where((own < 0) & is_min, chosen, own)
-
-
 def color_fixed_point_hybrid(hyb, max_rounds: int):
-    """The Luby round loop over the hybrid layout: each round runs
-    :func:`_color_round_rows` on every slab and :func:`_spill_color_round`
-    on the spill, all reading the round-start colors and writing a fresh
-    buffer (the slabs and the spill partition the rows), so every round is
-    the monolithic round evaluated piecewise.  Returns ``(colors int32
-    [V], rounds, host_syncs)``."""
-    slabs = [(sl.neighbors, sl.mask, sl.rows, sl.rows.to(torch.int64))
-             for sl in hyb.slices]
-    spill_rows = hyb.spill_rows.to(torch.int64)
-
-    def round_fn(colors, prio):
-        new = colors.clone()
-        for nbrs, mask, rows, rows64 in slabs:
-            new[rows64] = _color_round_rows(nbrs, mask, rows, colors, prio)
-        if hyb.num_spill_rows:
-            new[spill_rows] = _spill_color_round(
-                hyb.spill_rows, hyb.spill_seg, hyb.spill_cols, colors, prio)
-        return new
-
-    return _luby_loop(hyb.num_vertices, hyb.spill_rows.device, max_rounds,
-                      round_fn)
+    """The Luby round loop over the hybrid layout, one call of
+    ``luby_ops.luby_fixed_point_hybrid``: every round over every slab and
+    the spill, all reading the round-start colors (the slabs and the spill
+    partition the rows), so every round is the monolithic round evaluated
+    piecewise.  Returns ``(colors int32 [V], rounds, host_syncs)``."""
+    slabs = [(sl.rows, sl.neighbors, sl.mask) for sl in hyb.slices]
+    colors, stats = luby_ops.luby_fixed_point_hybrid(
+        slabs, (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols),
+        hyb.num_vertices, max_rounds=max_rounds)
+    return _loop_result(colors, stats, max_rounds)
 
 
 def _coloring_result(c: np.ndarray, rounds: int,

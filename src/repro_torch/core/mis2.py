@@ -59,6 +59,7 @@ from ..kernels.minprop_ell import ops, ref
 from ..obs import metrics as _obs
 from ..obs import span as _obs_span
 from .hashing import PRIORITY_FNS
+from .segments import segment_reduce
 from .tuples import (
     IN,
     OUT,
@@ -432,8 +433,8 @@ def _rows(wl: torch.Tensor, v: int) -> torch.Tensor:
 def _any_by_row(flags: torch.Tensor, seg: torch.Tensor, v: int):
     """Per row: does any of its entries' ``flags`` hold (``segment_max`` of
     the int32 flags ``> 0``)."""
-    return ops.segment_reduce(flags.to(torch.int64), seg, v, "amax",
-                              _I32_MIN) > 0
+    return segment_reduce(flags.to(torch.int64), seg, v, "amax",
+                          _I32_MIN) > 0
 
 
 # ---- packed representation ----
@@ -464,7 +465,7 @@ def _decide_packed_ell(t, m, wl1, neighbors, active):
 def _refresh_cols_packed_csr(t, m, wl2_mask, edges, v: int):
     edge_rows, edge_cols = edges
     tw = widen(t)
-    mv = ops.segment_reduce(tw[edge_cols], edge_rows, v, "amin", U32MAX)
+    mv = segment_reduce(tw[edge_cols], edge_rows, v, "amin", U32MAX)
     mv = torch.minimum(mv, tw)                 # closed neighborhood
     mv = torch.where(mv == IN, OUT, mv)
     return torch.where(wl2_mask, narrow(mv), m)
@@ -522,21 +523,21 @@ def _refresh_cols_unpacked_csr(ts, tr, ti, ms, mr, mi, wl2_mask, edges,
     edge_rows, edge_cols = edges
     ts_w = ts.to(torch.int64)
     es = ts_w[edge_cols]
-    smin = ops.segment_reduce(es, edge_rows, v, "amin", 255)
+    smin = segment_reduce(es, edge_rows, v, "amin", 255)
     smin = torch.minimum(smin, ts_w)
     on_s = es == smin[edge_rows]
     del es
     er = widen(tr[edge_cols])
-    rmin = ops.segment_reduce(torch.where(on_s, er, U32MAX), edge_rows, v,
-                              "amin", U32MAX)
+    rmin = segment_reduce(torch.where(on_s, er, U32MAX), edge_rows, v,
+                          "amin", U32MAX)
     tr_w = widen(tr)
     s_self = ts_w == smin
     rmin = torch.where(s_self, torch.minimum(rmin, tr_w), rmin)
     on_r = on_s & (er == rmin[edge_rows])
     del on_s, er
     ei = widen(ti[edge_cols])
-    imin = ops.segment_reduce(torch.where(on_r, ei, U32MAX), edge_rows, v,
-                              "amin", U32MAX)
+    imin = segment_reduce(torch.where(on_r, ei, U32MAX), edge_rows, v,
+                          "amin", U32MAX)
     del on_r, ei
     imin = torch.where(s_self & (tr_w == rmin),
                        torch.minimum(imin, widen(ti)), imin)

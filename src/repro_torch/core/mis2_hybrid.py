@@ -2,28 +2,29 @@
 PyTorch port of ``repro.core.mis2_hybrid`` (the ``cuda_hybrid`` engine,
 counterpart of the JAX package's ``pallas_hybrid``).
 
-The resident loop of ``core.mis2`` re-plumbed for ``graphs.hybrid``: each
-round runs the refresh pass over every slab (``sliced_refresh_columns``, a
-CUDA kernel on the card), then the spill refresh, then the decide pass
-over every slab (``sliced_decide``), then the spill decide.  Without an
-``active`` mask the slab decide reads M alone: M never holds IN, so the
-mask's gather is left out (with a mask it stays: building the word
-``active ? M : IN`` each round costs more than the gather it saves,
-``tools/bench_minprop.py``).  Slab
-worklists are compacted on the device from the global ``[V]`` live and
-undecided masks (sentinel ``R_i``).  Every vertex lies in exactly one slab
-or in the spill, so the in-place writes into the global T / M are
-disjoint, and a row's refresh and decide read only global state and that
-row's adjacency: the final T is bit-identical to the ``dense`` and
-``cuda_resident`` engines' for equal options.
+The reference's one jitted ``lax.while_loop`` is one call of
+``kernels.minprop_ell.ops.hybrid_fixed_point``: on the card one cooperative
+launch of a persistent kernel that runs every round -- the refresh pass
+over every slab (the sliced kernels' body) and the spill's segment
+reduction, then the decide pass over every slab and the spill's, then each
+slab's two worklists compacted over themselves (sentinel ``R_i``) -- and
+reads nothing from the host until the solve ends.  Without an ``active``
+mask the slab decide reads M alone: M never holds IN, so the mask's
+gather is left out.  Every vertex lies in exactly one slab or in the
+spill, so the in-place writes into the global T / M are disjoint, and a
+row's refresh and decide read only global state and that row's adjacency:
+the final T is bit-identical to the ``dense`` and ``cuda_resident``
+engines' for equal options.  On the CPU the kernel's plain-torch twin
+runs the same rounds and reads the live count each round.
 
 Traffic accounting: one device counter per slab (live worklist rows
 processed, both passes), read once at the end; the spill adds two segment
 sweeps a round.  ``kernels.minprop_ell.ops.hybrid_row_traffic_bytes``
 turns them into bytes; the result's ``collectives`` carries all of it, in
 the reference's keys, and the ``repro_torch.obs`` counter
-``mis2.hybrid_row_bytes`` adds the bytes up.  The loop's only host
-involvement is one read of the live count per round (``host_syncs``).
+``mis2.hybrid_row_bytes`` adds the bytes up.  ``host_syncs`` is 0 on the
+card (one pull of the results after the launch, the reference's final
+result pull) and the twin's reads on the CPU.
 """
 from __future__ import annotations
 
@@ -32,16 +33,16 @@ import torch
 from ..graphs.handle import as_graph
 from ..kernels.minprop_ell import ops
 from ..obs import metrics as _obs
+from ..obs import span as _obs_span
 from .mis2 import (
     Mis2Options,
     Mis2Result,
     _active_mask,
     _require_kernel_layout,
     _require_worklists,
-    compact_worklist,
     record_loop,
 )
-from .tuples import IN, OUT_I32, id_bits, is_undecided
+from .tuples import IN, id_bits
 
 #: the ``obs`` counter of a hybrid solve's adjacency bytes (the reference's)
 HYBRID_ROW_BYTES = "mis2.hybrid_row_bytes"
@@ -50,51 +51,25 @@ HYBRID_ROW_BYTES = "mis2.hybrid_row_bytes"
 def hybrid_fixed_point(hyb, active: torch.Tensor | None, *, priority: str,
                        max_iters: int, b: int):
     """The compacted fixed point over ``[V]`` device state and the hybrid
-    layout ``hyb``; ``active`` None: every vertex, no mask.  Returns ``(T
+    layout ``hyb``; ``active`` None: every vertex, no mask.  One call of
+    ``ops.hybrid_fixed_point`` (one launch on the card).  Returns ``(T
     stored int32 [V], iterations, live count int32 [1], slab rows
     processed int64 [num_slices], host_syncs)``."""
     v = hyb.num_vertices
     dev = hyb.spill_rows.device
-    gate = active
-    if active is None:
-        active = torch.ones(v, dtype=torch.bool, device=dev)
+    t = torch.empty(v, dtype=torch.int32, device=dev)
+    m = torch.empty(v, dtype=torch.int32, device=dev)
     slabs = [(sl.rows, sl.neighbors.reshape(-1)) for sl in hyb.slices]
-    has_spill = hyb.num_spill_rows > 0
     spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
-    kw = dict(priority=priority, b=b)
-    t = torch.where(active, 1, OUT_I32).to(torch.int32)
-    m = torch.full((v,), OUT_I32, dtype=torch.int32, device=dev)
-    und = active
-    live = torch.ones(v, dtype=torch.bool, device=dev)   # round 0: every M
-    n1 = active.sum(dtype=torch.int32).reshape(1)
-    acc = torch.zeros(max(len(slabs), 1), dtype=torch.int64, device=dev)
-    it_dev = torch.zeros(1, dtype=torch.int32, device=dev)
-    it = syncs = 0
-    while it < max_iters:
-        syncs += 1
-        if int(n1.item()) == 0:       # the one host read per round
-            break
-        # refresh: only M is written, every pass reads the round-start T
-        for i, (rows, nbrs) in enumerate(slabs):
-            wl2, n2 = compact_worklist(live[rows])
-            ops.sliced_refresh_columns(t, m, rows, nbrs, wl2, n2, it_dev, **kw)
-            acc[i:i + 1] += n2
-        if has_spill:
-            ops.spill_refresh_columns(t, m, *spill, live, it_dev, **kw)
-        # decide: each pass reads and writes T only at its own rows
-        for i, (rows, nbrs) in enumerate(slabs):
-            wl1, n1_i = compact_worklist(und[rows])
-            ops.sliced_decide(t, m, gate, rows, nbrs, wl1, n1_i, it_dev, **kw)
-            acc[i:i + 1] += n1_i
-        if has_spill:
-            ops.spill_decide(t, m, active, *spill, it_dev, **kw)
-        und = is_undecided(t)
-        live = m != OUT_I32
-        n1 = und.sum(dtype=torch.int32).reshape(1)
-        it_dev += 1
-        it += 1
-    record_loop(syncs, resident=True)
-    return t, it, n1, acc[:len(slabs)], syncs
+    with _obs_span("mis2.hybrid_fixed_point", layout="hybrid", v=v) as sp:
+        t, stats, acc = ops.hybrid_fixed_point(
+            t, m, active, slabs, spill, priority=priority, b=b,
+            max_iters=max_iters)
+        iters = int(stats[0].item())        # read once, after the solve
+        syncs = 0 if dev.type == "cuda" else min(iters + 1, max_iters)
+        record_loop(syncs, resident=True)
+        sp.annotate(iterations=iters)
+    return t, iters, stats[1:2], acc, syncs
 
 
 def _mis2_hybrid_impl(graph, active=None,

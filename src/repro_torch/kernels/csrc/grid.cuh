@@ -1,9 +1,12 @@
 // Grids sized to the card, for the kernels that stride over their work:
-// at most the blocks of a kernel that fit on the card at once.
+// at most the blocks of a kernel that fit on the card at once; and the
+// helpers the persistent kernels share (coherent state loads, a block sum,
+// the lanes a row takes).
 #pragma once
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 #include <cuda_runtime.h>
@@ -11,6 +14,74 @@
 namespace repro_torch {
 
 constexpr int kThreads = 256;  // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr uint32_t kFull = 0xFFFFFFFFu;  // every lane of a warp
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// How a body reads the round state (T, M, the scratch, worklists, counts):
+// plainly in a standalone pass, where nothing in the launch writes what it
+// reads, so the compiler may take the read-only path; through L2 in a
+// persistent kernel, where other blocks wrote it before the last grid sync
+// (a volatile asm, so no load is cached or moved across a sync)
+constexpr bool kPlain = false;
+constexpr bool kCoherent = true;
+
+template <bool kCoh, typename T>
+__device__ __forceinline__ T state_load(const T* p) {
+  static_assert(sizeof(T) == 4, "32-bit state words");
+  if constexpr (kCoh) {
+    uint32_t x;
+    asm volatile("ld.global.cg.b32 %0, [%1];" : "=r"(x) : "l"(p));
+    return static_cast<T>(x);
+  } else {
+    return *p;
+  }
+}
+
+// x summed over the block's threads, on every thread; `words` is the
+// block's shared [kWarps], free on entry and on return
+__device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* words) {
+  x = __reduce_add_sync(kFull, x);
+  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) s += words[k];
+  __syncthreads();
+  return s;
+}
+
+// G, the lanes a row of d slots takes: the smallest power of two, at most
+// 32, that leaves a lane at most `lane_slots` of them
+inline int row_lanes(int d, int lane_slots) {
+  int g = 1;
+  while (g < 32 && g * lane_slots < d) g <<= 1;
+  return g;
+}
+
+// G for a map of r such rows: doubled from row_lanes while r * G is short
+// of `fill_lanes` and each lane keeps two slots of a row at least
+inline int filled_row_lanes(int d, int64_t r, int lane_slots,
+                            int64_t fill_lanes) {
+  int g = row_lanes(d, lane_slots);
+  while (g < 32 && 4 * g <= d && r * g < fill_lanes) g <<= 1;
+  return g;
+}
+
+// f(Int<G>{}) for g lanes a row (a power of two, at most 32)
+template <typename F>
+__device__ __forceinline__ void with_lanes(int g, F&& f) {
+  switch (g) {
+    case 1: return f(Int<1>{});
+    case 2: return f(Int<2>{});
+    case 4: return f(Int<4>{});
+    case 8: return f(Int<8>{});
+    case 16: return f(Int<16>{});
+    default: return f(Int<32>{});
+  }
+}
 
 // the blocks of `kernel` that fit on the current card at once, asked once
 template <typename Kernel>

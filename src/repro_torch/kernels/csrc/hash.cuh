@@ -66,16 +66,42 @@ __device__ __forceinline__ uint64_t mix(uint64_t x) {
 
 // One round's §V-A tuples for one priority kind, fixed at compile time:
 // f(it + 1) is computed once, so a tuple costs two f's, not three.
-// tuple(v, b) == pack_tuple(priority_hash(Kind, it, v), v, b).
+// tuple(v, b) == pack_tuple(priority_hash(Kind, it, v), v, b).  The kind
+// argument is read only by the kAnyKind form below.
 template <int Kind>
 struct RoundPriority {
   uint64_t fa;
 
-  __device__ __forceinline__ explicit RoundPriority(uint32_t it)
+  __device__ __forceinline__ explicit RoundPriority(uint32_t it, int = Kind)
       : fa(mix<Kind>(static_cast<uint32_t>((Kind == kFixed ? 0u : it) + 1u))) {}
 
   __device__ __forceinline__ uint32_t tuple(uint32_t v, int b) const {
     const uint64_t h = mix<Kind>(fa ^ mix<Kind>(static_cast<uint32_t>(v + 1u)));
+    return pack_tuple(static_cast<uint32_t>(h >> 32), v, b);
+  }
+};
+
+// The same tuples with the kind read at run time, for a kernel that serves
+// every kind from one instance: each f is a branch on a value every thread
+// shares, so one kind's code runs.
+constexpr int kAnyKind = -1;
+
+__device__ __forceinline__ uint64_t mix_any(int kind, uint64_t x) {
+  return kind == kXorshift ? xorshift64(x) : xorshift64_star(x);
+}
+
+template <>
+struct RoundPriority<kAnyKind> {
+  uint64_t fa;
+  int kind;
+
+  __device__ __forceinline__ RoundPriority(uint32_t it, int k)
+      : fa(mix_any(k, static_cast<uint32_t>((k == kFixed ? 0u : it) + 1u))),
+        kind(k) {}
+
+  __device__ __forceinline__ uint32_t tuple(uint32_t v, int b) const {
+    const uint64_t h =
+        mix_any(kind, fa ^ mix_any(kind, static_cast<uint32_t>(v + 1u)));
     return pack_tuple(static_cast<uint32_t>(h >> 32), v, b);
   }
 };

@@ -165,6 +165,7 @@
 
 #include "grid.cuh"
 #include "hash.cuh"
+#include "spill.cuh"
 
 namespace repro_torch {
 namespace {
@@ -192,8 +193,6 @@ constexpr int min_blocks() {
   return C > 8 ? kMinBlocksWide : kMinBlocks;
 }
 
-constexpr uint32_t kFull = 0xFFFFFFFFu;
-
 // The row maps of the two bodies: what the row of a worklist slot is, and
 // which vertex keys its T, M and hash
 constexpr int kPadded = 0;  // wl[slot], a row of the padded ELL: its vertex
@@ -203,18 +202,12 @@ constexpr int kCopy = 2;    // row `slot` of a pre-gathered copy; the result
 
 // G: the smallest power of two, at most 32, that leaves a lane at most
 // kLaneSlots of a row's d slots
-int group_lanes(int d) {
-  int g = 1;
-  while (g < 32 && g * kLaneSlots < d) g <<= 1;
-  return g;
-}
+int group_lanes(int d) { return row_lanes(d, kLaneSlots); }
 
 // G for a slab of r rows: doubled from group_lanes while R * G is short
 // of kSlabFillLanes and each lane keeps two slots of a row at least
 int slab_group_lanes(int d, int64_t r) {
-  int g = group_lanes(d);
-  while (g < 32 && 4 * g <= d && r * g < kSlabFillLanes) g <<= 1;
-  return g;
+  return filled_row_lanes(d, r, kLaneSlots, kSlabFillLanes);
 }
 
 // C: the slots a lane loads at once, a power of two <= kChunk covering its
@@ -224,26 +217,6 @@ int chunk_slots(int g, int d) {
   int c = 1;
   while (c < kChunk && c < turns) c <<= 1;
   return c;
-}
-
-// How a body reads the round state (T, M, the scratch, worklists, counts):
-// plainly in a standalone pass, where nothing in the launch writes what it
-// reads, so the compiler may take the read-only path; through L2 in the
-// persistent kernel, where other blocks wrote it before the last grid sync
-// (a volatile asm, so no load is cached or moved across a sync)
-constexpr bool kPlain = false;
-constexpr bool kCoherent = true;
-
-template <bool kCoh, typename T>
-__device__ __forceinline__ T state_load(const T* p) {
-  static_assert(sizeof(T) == 4, "32-bit state words");
-  if constexpr (kCoh) {
-    uint32_t x;
-    asm volatile("ld.global.cg.b32 %0, [%1];" : "=r"(x) : "l"(p));
-    return static_cast<T>(x);
-  } else {
-    return *p;
-  }
 }
 
 __device__ __forceinline__ int64_t live_slots(const int32_t* count,
@@ -387,7 +360,8 @@ __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
 
 // M at the vertex of every live worklist row: the min over the row's ids
 // of the refreshed tuples, IN -> OUT.  `src` holds them already (kOnce) or
-// is T, refreshed here per slot.  A warp takes B = S * 32 / G worklist
+// is T, refreshed here per slot (the priority `kind` read at run time where
+// Kind is kAnyKind).  A warp takes B = S * 32 / G worklist
 // slots a batch: S = G (32 slots) in the padded ELL and a copy, S = 1 in a
 // slab.  `n`: the slots visited; `rows`: the adjacency's rows, or a copy's
 // live count; a copy's M goes to m[slot], OUT at a dead slot.
@@ -396,13 +370,13 @@ __device__ __forceinline__ void refresh_group_body(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
     int64_t n, uint32_t it, int64_t rows, int64_t w, int d, int b,
-    const int32_t* __restrict__ slab_rows) {
+    const int32_t* __restrict__ slab_rows, int kind = Kind) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
   const int grp = lane / G;
   const int turns = (d + G - 1) / G;
-  const RoundPriority<Kind> prio(it);
+  const RoundPriority<Kind> prio(it, kind);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
@@ -563,9 +537,6 @@ decide_group_kernel(
       round_of<Map>(it_ptr), rows, w, d, b, kind, slab_rows, t_rows);
 }
 
-template <int N>
-using Int = std::integral_constant<int, N>;
-
 template <int G, typename F>
 void with_chunk(int c, F&& f) {
   if constexpr (kChunk >= 16) {
@@ -670,7 +641,6 @@ void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
 // the resident fixed point: every round in one cooperative launch
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = kThreads / 32;
 // blocks an SM must hold for the persistent kernel (a register cap over
 // both passes and the compaction, and the grid each sync waits for)
 constexpr int kResidentMinBlocks = 4;
@@ -705,19 +675,6 @@ __device__ __forceinline__ int32_t* list_buffer(const Resident& r, int k) {
   return k != 0 ? r.wl[L][1] : r.wl[L][0];
 }
 
-// x summed over the block's threads, on every thread; `words` is the
-// block's shared [kWarps], free on entry and on return
-__device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* words) {
-  x = __reduce_add_sync(kFull, x);
-  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) s += words[k];
-  __syncthreads();
-  return s;
-}
-
 // this block's contiguous chunk [lo, hi) of n list slots
 __device__ __forceinline__ void block_chunk(int64_t n, int64_t& lo,
                                             int64_t& hi) {
@@ -727,48 +684,37 @@ __device__ __forceinline__ void block_chunk(int64_t n, int64_t& lo,
 }
 
 // the row at slot i of a previous list (`prev` null: the identity, row i)
-// and whether list `l` keeps it: undecided T (kUndecided, or the active
-// mask when `prev` is null, round 0's list), or M not OUT (kLiveM)
-template <int L>
-__device__ __forceinline__ bool kept(const Resident& r, const int32_t* prev,
-                                     int64_t i, int32_t& row) {
-  row = prev != nullptr ? state_load<kCoherent>(prev + i)
-                        : static_cast<int32_t>(i);
-  if constexpr (L == kUndecided) {
-    return prev != nullptr ? is_undecided(state_load<kCoherent>(r.t + row))
-                           : r.active[row] != 0;
-  } else {
-    return state_load<kCoherent>(r.m + row) != kOut;
-  }
+__device__ __forceinline__ int32_t list_row(const int32_t* prev, int64_t i) {
+  return prev != nullptr ? state_load<kCoherent>(prev + i)
+                         : static_cast<int32_t>(i);
 }
 
-// Compaction, first half: the rows this block keeps of its chunk of the
-// previous list's n slots, to block_counts
-template <int L>
-__device__ __forceinline__ void count_kept(const Resident& r,
-                                           const int32_t* prev, int64_t n,
+// Compaction, first half: the rows this block keeps (`keep(row)`) of its
+// chunk of the previous list's n slots, to bc[blockIdx.x]
+template <typename Keep>
+__device__ __forceinline__ void count_kept(const int32_t* prev, int64_t n,
+                                           Keep keep, int32_t* bc,
                                            int32_t* words) {
   int64_t lo, hi;
   block_chunk(n, lo, hi);
   int32_t c = 0;
   for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    int32_t row;
-    c += kept<L>(r, prev, i, row) ? 1 : 0;
+    c += keep(list_row(prev, i)) ? 1 : 0;
   }
   c = block_sum(c, words);
-  if (threadIdx.x == 0) r.block_counts[L * gridDim.x + blockIdx.x] = c;
+  if (threadIdx.x == 0) bc[blockIdx.x] = c;
 }
 
 // Compaction, second half (after a grid sync): this block's kept rows, in
-// order, at the sum of the earlier blocks' counts in `next`; the sentinel V
+// order, at the sum of the earlier blocks' counts in `next`; the sentinel
 // from the new count up to `stale`, the slots `next` held live before; the
-// new count to counts[2 * L + k]
-template <int L>
-__device__ __forceinline__ void write_kept(const Resident& r,
-                                           const int32_t* prev, int64_t n,
-                                           int32_t* next, int k,
-                                           int64_t stale, int32_t* words) {
-  const int32_t* bc = r.block_counts + L * gridDim.x;
+// new count to *count
+template <typename Keep>
+__device__ __forceinline__ void write_kept(const int32_t* prev, int64_t n,
+                                           Keep keep, const int32_t* bc,
+                                           int32_t* next, int32_t* count,
+                                           int64_t stale, int32_t sentinel,
+                                           int32_t* words) {
   int32_t before = 0, total = 0;
   for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads) {
     const int32_t c = state_load<kCoherent>(bc + j);
@@ -783,9 +729,9 @@ __device__ __forceinline__ void write_kept(const Resident& r,
   const int warp = threadIdx.x >> 5;
   for (int64_t base = lo; base < hi; base += kThreads) {  // block-uniform
     const int64_t i = base + threadIdx.x;
-    int32_t row = 0;
-    const bool keep = i < hi && kept<L>(r, prev, i, row);
-    const uint32_t bits = __ballot_sync(kFull, keep);
+    const int32_t row = i < hi ? list_row(prev, i) : 0;
+    const bool kp = i < hi && keep(row);
+    const uint32_t bits = __ballot_sync(kFull, kp);
     if (lane == 0) words[warp] = __popc(bits);
     __syncthreads();
     int32_t at = 0, tile = 0;
@@ -795,16 +741,50 @@ __device__ __forceinline__ void write_kept(const Resident& r,
       tile += words[w];
     }
     __syncthreads();
-    if (keep) next[pos + at + __popc(bits & ((1u << lane) - 1u))] = row;
+    if (kp) next[pos + at + __popc(bits & ((1u << lane) - 1u))] = row;
     pos += tile;
   }
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = total + static_cast<int64_t>(blockIdx.x) * kThreads +
                    threadIdx.x;
        i < stale; i += stride) {
-    next[i] = static_cast<int32_t>(r.v);
+    next[i] = sentinel;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) r.counts[2 * L + k] = total;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count = total;
+}
+
+// what list L of the resident fixed point keeps of a previous list: the
+// undecided rows (kUndecided; the active rows of round 0's, `prev` null),
+// or the rows whose M is not OUT (kLiveM)
+template <int L>
+__device__ __forceinline__ auto resident_keep(const Resident& r,
+                                              const int32_t* prev) {
+  return [&r, prev](int32_t row) -> bool {
+    if constexpr (L == kUndecided) {
+      return prev != nullptr ? is_undecided(state_load<kCoherent>(r.t + row))
+                             : r.active[row] != 0;
+    } else {
+      return state_load<kCoherent>(r.m + row) != kOut;
+    }
+  };
+}
+
+template <int L>
+__device__ __forceinline__ void resident_count(const Resident& r,
+                                               const int32_t* prev, int64_t n,
+                                               int32_t* words) {
+  count_kept(prev, n, resident_keep<L>(r, prev),
+             r.block_counts + L * gridDim.x, words);
+}
+
+template <int L>
+__device__ __forceinline__ void resident_write(const Resident& r,
+                                               const int32_t* prev, int64_t n,
+                                               int k, int64_t stale,
+                                               int32_t* words) {
+  write_kept(prev, n, resident_keep<L>(r, prev),
+             r.block_counts + L * gridDim.x, list_buffer<L>(r, k),
+             r.counts + 2 * L + k, stale, static_cast<int32_t>(r.v), words);
 }
 
 // the per-vertex pass of a wide round, its kind read at run time
@@ -841,7 +821,7 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
     r.m[i] = kOut;
     list_buffer<kLiveM>(r, 0)[i] = static_cast<int32_t>(i);
   }
-  count_kept<kUndecided>(r, nullptr, v, words);
+  resident_count<kUndecided>(r, nullptr, v, words);
   if (tid == 0) {
     r.counts[2 * kLiveM] = static_cast<int32_t>(v);
     // buffer 1 of each list holds nothing yet: every slot is stale
@@ -849,8 +829,7 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
         static_cast<int32_t>(v);
   }
   grid.sync();
-  write_kept<kUndecided>(r, nullptr, v, list_buffer<kUndecided>(r, 0), 0, v,
-                         words);
+  resident_write<kUndecided>(r, nullptr, v, 0, v, words);
   grid.sync();
   int cur = 0;
   uint32_t it = 0;
@@ -878,13 +857,11 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
     const int64_t stale1 =
         state_load<kCoherent>(r.counts + 2 * kUndecided + nxt);
     const int64_t stale2 = state_load<kCoherent>(r.counts + 2 * kLiveM + nxt);
-    count_kept<kUndecided>(r, wl1, n1, words);
-    count_kept<kLiveM>(r, wl2, n2, words);
+    resident_count<kUndecided>(r, wl1, n1, words);
+    resident_count<kLiveM>(r, wl2, n2, words);
     grid.sync();
-    write_kept<kUndecided>(r, wl1, n1, list_buffer<kUndecided>(r, nxt), nxt,
-                           stale1, words);
-    write_kept<kLiveM>(r, wl2, n2, list_buffer<kLiveM>(r, nxt), nxt, stale2,
-                       words);
+    resident_write<kUndecided>(r, wl1, n1, nxt, stale1, words);
+    resident_write<kLiveM>(r, wl2, n2, nxt, stale2, words);
     grid.sync();
     cur = nxt;
     ++it;
@@ -925,6 +902,419 @@ bool with_resident_shape(int d, int kind, F&& f) {
       f(Int<32>{}, Int<kChunk>{}, Int<1>{}, Int<kXorshiftStar>{});
   }
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// the hybrid fixed point: every round over the slabs and the spill in one
+// cooperative launch
+// ---------------------------------------------------------------------------
+
+// blocks an SM must hold for the hybrid persistent kernel (its register cap)
+constexpr int kHybridMinBlocks = 4;
+
+// One slab of the hybrid layout, a row of the [S, 7] int64 table the
+// wrapper builds once per layout: its global row ids and its [R * D] ids
+// (device pointers), R, D, the group shape of its passes (G lanes a row, C
+// slots a lane loads at once, as the standalone sliced kernels pick it:
+// hybrid_slab_shape), and the offset of its two lists' two buffers ([R]
+// each, slab-local rows, sentinel R) in the solve's list storage
+struct HybridSlab {
+  int64_t rows;
+  int64_t nbrs;
+  int64_t r;
+  int64_t d;
+  int64_t g;
+  int64_t c;
+  int64_t wl;
+};
+
+// a slab's view in the kernel: its pointers resolved
+struct SlabView {
+  const int32_t* rows;
+  const int32_t* nbrs;
+  int32_t* wl[2][2];
+  int64_t r;
+  int d;
+  int g;
+  int c;
+};
+
+// The hybrid solve's buffers.  counts[6 * s + 2 * l + k]: slab s's list l
+// buffer k's live slots, and counts[6 * s + 4 + l] the slots the buffer a
+// round writes held live before (stashed ahead of the writes);
+// block_counts[(2 * s + l) * grid + block]: what a block keeps of it in a
+// round's compaction; heavy[k]: the undecided heavy rows after a round, by
+// its parity; hmin, hflags, htuple: [H] per heavy row the spill refresh's
+// column min, the spill decide's two flags (bit 0: an active neighbour's M
+// is OUT; bit 1: one differs from the row's tuple) and the row's refreshed
+// tuple; rows_processed: [S] the live list rows each slab's passes
+// visited; out: the rounds run and the last live count.
+struct Hybrid {
+  uint32_t* t;
+  uint32_t* m;
+  const uint8_t* active;        // null: every row active, M alone decides
+  const HybridSlab* slabs;
+  int32_t* lists;               // every slab's list buffers
+  const int32_t* spill_rows;
+  const int32_t* spill_seg;
+  const int32_t* spill_cols;
+  uint32_t* hmin;
+  uint32_t* hflags;
+  uint32_t* htuple;
+  int32_t* counts;
+  int32_t* block_counts;
+  int32_t* heavy;
+  int64_t* rows_processed;
+  int32_t* out;
+  int64_t v;
+  int64_t h;
+  int64_t e;
+  int num_slabs;
+  int b;
+  int kind;
+  int max_iters;
+};
+
+constexpr uint32_t kOutFlag = 1u;   // hflags bit: an active neighbour is OUT
+constexpr uint32_t kNeqFlag = 2u;   // hflags bit: one's M is not the tuple
+
+constexpr int kStale = 4;   // slab_counts(r, s)[kStale + l]
+
+__device__ __forceinline__ int32_t* slab_counts(const Hybrid& r, int s) {
+  return r.counts + 6 * s;
+}
+
+__device__ __forceinline__ int32_t* slab_block_counts(const Hybrid& r, int s,
+                                                      int l) {
+  return r.block_counts + (2 * s + l) * gridDim.x;
+}
+
+__device__ __forceinline__ SlabView slab_view(const Hybrid& r, int s) {
+  const HybridSlab& x = r.slabs[s];
+  SlabView sl;
+  sl.rows = reinterpret_cast<const int32_t*>(x.rows);
+  sl.nbrs = reinterpret_cast<const int32_t*>(x.nbrs);
+  sl.r = x.r;
+  sl.d = static_cast<int>(x.d);
+  sl.g = static_cast<int>(x.g);
+  sl.c = static_cast<int>(x.c);
+  int32_t* base = r.lists + x.wl;
+  sl.wl[0][0] = base;
+  sl.wl[0][1] = base + x.r;
+  sl.wl[1][0] = base + 2 * x.r;
+  sl.wl[1][1] = base + 3 * x.r;
+  return sl;
+}
+
+// buffer k of a slab's list L (selects, so the view is never indexed at
+// run time)
+template <int L>
+__device__ __forceinline__ int32_t* slab_list(const SlabView& sl, int k) {
+  return k != 0 ? sl.wl[L][1] : sl.wl[L][0];
+}
+
+// f(Int<G>, Int<C>) for a slab's group shape: G as picked, C rounded up to
+// 2, 4 or kChunk (one kernel holds every instance it may switch to; a C
+// past a lane's turns only loads nothing at the extra slots)
+template <int G, typename F>
+__device__ __forceinline__ void with_slab_chunk(int c, F&& f) {
+  if (c <= 2) {
+    f(Int<G>{}, Int<2>{});
+  } else if (c <= 4) {
+    f(Int<G>{}, Int<4>{});
+  } else {
+    f(Int<G>{}, Int<kChunk>{});
+  }
+}
+
+template <typename F>
+__device__ __forceinline__ void with_slab_shape(const SlabView& sl, F&& f) {
+  with_lanes(sl.g, [&](auto gg) {
+    with_slab_chunk<decltype(gg)::value>(sl.c, f);
+  });
+}
+
+// Refresh's spill half: hmin[h] <- the min of the refreshed T over heavy row
+// h's entries, for the rows live this round (round 0, or M not OUT; the slab
+// passes beside it write M only at slab rows)
+__device__ __forceinline__ void spill_refresh(const Hybrid& r, uint32_t it) {
+  const RoundPriority<kAnyKind> prio(it, r.kind);
+  segment_reduce_warp(
+      r.spill_seg, r.e, kOut,
+      [](uint32_t a, uint32_t b) { return a < b ? a : b; },
+      [&](int64_t i, int32_t sg) -> uint32_t {
+        const int32_t row = r.spill_rows[sg];
+        if (it > 0 && state_load<kCoherent>(r.m + row) == kOut) return kOut;
+        const int32_t col = r.spill_cols[i];
+        const uint32_t x = state_load<kCoherent>(r.t + col);
+        return is_undecided(x) ? prio.tuple(static_cast<uint32_t>(col), r.b)
+                               : x;
+      },
+      [&](int32_t sg, uint32_t x) {
+        if (x != kOut) atomicMin(r.hmin + sg, x);
+      });
+}
+
+// ... its finish, after a grid sync: M at each live heavy row <- the min
+// with the row's own refreshed tuple, IN -> OUT; the tuple kept for the
+// decide; the scratch reset for the next use
+__device__ __forceinline__ void spill_refresh_finish(const Hybrid& r,
+                                                     uint32_t it) {
+  const RoundPriority<kAnyKind> prio(it, r.kind);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t h = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       h < r.h; h += stride) {
+    const int32_t row = r.spill_rows[h];
+    uint32_t tself = state_load<kCoherent>(r.t + row);
+    if (is_undecided(tself)) {
+      tself = prio.tuple(static_cast<uint32_t>(row), r.b);
+    }
+    const uint32_t hm = state_load<kCoherent>(r.hmin + h);
+    uint32_t x = hm < tself ? hm : tself;
+    x = x == kIn ? kOut : x;
+    if (it == 0 || state_load<kCoherent>(r.m + row) != kOut) r.m[row] = x;
+    r.htuple[h] = tself;
+    r.hmin[h] = kOut;
+    r.hflags[h] = 0u;
+  }
+}
+
+// Decide's spill half: hflags[h] <- the two flags over heavy row h's
+// entries, for the rows still undecided
+__device__ __forceinline__ void spill_decide(const Hybrid& r) {
+  segment_reduce_warp(
+      r.spill_seg, r.e, 0u, [](uint32_t a, uint32_t b) { return a | b; },
+      [&](int64_t i, int32_t sg) -> uint32_t {
+        const uint32_t tv = state_load<kCoherent>(r.htuple + sg);
+        if (!is_undecided(tv)) return 0u;
+        const int32_t col = r.spill_cols[i];
+        const uint32_t mv = state_load<kCoherent>(r.m + col);
+        const bool a = r.active == nullptr || r.active[col] != 0;
+        return (a && mv == kOut ? kOutFlag : 0u) |
+               (a && mv != tv ? kNeqFlag : 0u);
+      },
+      [&](int32_t sg, uint32_t x) {
+        if (x != 0u) atomicOr(r.hflags + sg, x);
+      });
+}
+
+// ... its finish, after a grid sync: T at each undecided heavy row <- OUT,
+// IN or its tuple, the self term folded in; the rows left undecided added
+// to heavy[k]
+__device__ __forceinline__ void spill_decide_finish(const Hybrid& r, int k,
+                                                    int32_t* words) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int32_t und = 0;
+  for (int64_t h = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       h < r.h; h += stride) {
+    const int32_t row = r.spill_rows[h];
+    const uint32_t tv = state_load<kCoherent>(r.htuple + h);
+    if (!is_undecided(tv)) continue;
+    const uint32_t f = state_load<kCoherent>(r.hflags + h);
+    const uint32_t ms = state_load<kCoherent>(r.m + row);
+    const bool a = r.active == nullptr || r.active[row] != 0;
+    const bool out = (f & kOutFlag) != 0u || (a && ms == kOut);
+    const bool neq = (f & kNeqFlag) != 0u || (a && ms != tv);
+    const uint32_t nt = out ? kOut : neq ? tv : kIn;
+    r.t[row] = nt;
+    und += is_undecided(nt) ? 1 : 0;
+  }
+  und = block_sum(und, words);
+  if (threadIdx.x == 0 && und != 0) atomicAdd(r.heavy + k, und);
+}
+
+// the rows a heavy row list starts with: the active ones, counted into
+// heavy[0]
+__device__ __forceinline__ void count_active_heavy(const Hybrid& r,
+                                                   int32_t* words) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int32_t n = 0;
+  for (int64_t h = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       h < r.h; h += stride) {
+    n += r.active == nullptr || r.active[r.spill_rows[h]] != 0 ? 1 : 0;
+  }
+  n = block_sum(n, words);
+  if (threadIdx.x == 0 && n != 0) atomicAdd(r.heavy, n);
+}
+
+// what a slab's list L keeps of its previous list: the rows whose vertex is
+// undecided (kUndecided; active ones for round 0's, `prev` null), or whose
+// vertex's M is not OUT (kLiveM)
+template <int L>
+__device__ __forceinline__ auto slab_keep(const Hybrid& r,
+                                          const SlabView& sl,
+                                          const int32_t* prev) {
+  return [&r, rows = sl.rows, prev](int32_t row) -> bool {
+    const int32_t vid = rows[row];
+    if constexpr (L == kUndecided) {
+      return prev != nullptr ? is_undecided(state_load<kCoherent>(r.t + vid))
+                             : r.active == nullptr || r.active[vid] != 0;
+    } else {
+      return state_load<kCoherent>(r.m + vid) != kOut;
+    }
+  };
+}
+
+// The hybrid layout's §V-B fixed point (repro/core/mis2_hybrid.py:
+// _hybrid_fixed_point), from `active` (null: every row): round 0's state is
+// T = 1 on the active rows and OUT elsewhere, M = OUT, each slab's undecided
+// list its active rows and its M list every row.  Each round, while a row
+// is undecided and fewer than max_iters rounds ran: (a) the refresh of
+// every slab over its M list and the spill's entries, (b) the spill's
+// finish, (c) the decide of every slab over its undecided list and the
+// spill's entries, (d) the spill's finish and each slab's lists counted
+// over themselves, (e) written; a grid sync after each ((b) only with a
+// spill).  Every vertex lies in one slab or the spill, so the writes are
+// disjoint, and the decided rows and M's OUT rows of a round are subsets of
+// its lists: each list is compact_worklist over its slab, slot for slot.
+__global__ void __launch_bounds__(kThreads, kHybridMinBlocks)
+hybrid_fixed_point_kernel(const __grid_constant__ Hybrid r) {
+  __shared__ int32_t words[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int ns = r.num_slabs;
+  for (int64_t i = tid; i < r.v; i += stride) {
+    r.t[i] = r.active == nullptr || r.active[i] != 0 ? 1u : kOut;
+    r.m[i] = kOut;
+  }
+  for (int64_t i = tid; i < r.h; i += stride) {
+    r.hmin[i] = kOut;
+    r.hflags[i] = 0u;
+  }
+  for (int s = 0; s < ns; ++s) {
+    const SlabView sl = slab_view(r, s);
+    for (int64_t i = tid; i < sl.r; i += stride) {
+      sl.wl[kLiveM][0][i] = static_cast<int32_t>(i);
+    }
+    count_kept(nullptr, sl.r, slab_keep<kUndecided>(r, sl, nullptr),
+               slab_block_counts(r, s, kUndecided), words);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      const int32_t rr = static_cast<int32_t>(slab_view(r, s).r);
+      int32_t* c = slab_counts(r, s);
+      c[2 * kLiveM] = rr;
+      // buffer 1 of each list holds nothing yet: every slot is stale
+      c[2 * kUndecided + 1] = c[2 * kLiveM + 1] = rr;
+      r.rows_processed[s] = 0;
+    }
+    r.heavy[0] = r.heavy[1] = 0;
+  }
+  grid.sync();
+  for (int s = 0; s < ns; ++s) {
+    const SlabView sl = slab_view(r, s);
+    write_kept(nullptr, sl.r, slab_keep<kUndecided>(r, sl, nullptr),
+               slab_block_counts(r, s, kUndecided),
+               slab_list<kUndecided>(sl, 0), slab_counts(r, s) + 2 * kUndecided,
+               sl.r, static_cast<int32_t>(sl.r), words);
+  }
+  count_active_heavy(r, words);
+  grid.sync();
+  int cur = 0;
+  uint32_t it = 0;
+  int64_t n1 = 0;
+  for (;;) {
+    n1 = state_load<kCoherent>(r.heavy + cur);
+    for (int s = 0; s < ns; ++s) {
+      n1 += state_load<kCoherent>(slab_counts(r, s) + 2 * kUndecided + cur);
+    }
+    if (n1 == 0 || it >= static_cast<uint32_t>(r.max_iters)) break;
+    const int nxt = cur ^ 1;
+    if (tid == 0) {
+      r.heavy[nxt] = 0;
+      for (int s = 0; s < ns; ++s) {
+        const int32_t* c = slab_counts(r, s);
+        r.rows_processed[s] += state_load<kCoherent>(c + 2 * kUndecided + cur)
+                               + state_load<kCoherent>(c + 2 * kLiveM + cur);
+      }
+    }
+    // (a) refresh: only M is written, every pass reads the round-start T
+    for (int s = 0; s < ns; ++s) {
+      const SlabView sl = slab_view(r, s);
+      const int64_t n2 =
+          state_load<kCoherent>(slab_counts(r, s) + 2 * kLiveM + cur);
+      with_slab_shape(sl, [&](auto gg, auto cc) {
+        constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
+        refresh_group_body<kG, 1, kC, false, kAnyKind, kSlab, kCoherent>(
+            r.t, r.m, sl.nbrs, slab_list<kLiveM>(sl, cur), n2, it, sl.r,
+            sl.r, sl.d, r.b, sl.rows, r.kind);
+      });
+    }
+    if (r.h > 0) {
+      spill_refresh(r, it);
+      grid.sync();
+      spill_refresh_finish(r, it);
+    }
+    grid.sync();
+    // (c) decide: each pass reads and writes T only at its own rows
+    for (int s = 0; s < ns; ++s) {
+      const SlabView sl = slab_view(r, s);
+      const int64_t n1s =
+          state_load<kCoherent>(slab_counts(r, s) + 2 * kUndecided + cur);
+      with_slab_shape(sl, [&](auto gg, auto cc) {
+        constexpr int kG = decltype(gg)::value, kC = decltype(cc)::value;
+        if (r.active != nullptr) {
+          decide_group_body<kG, 1, kC, true, kSlab, kCoherent>(
+              r.t, r.m, r.active, sl.nbrs, slab_list<kUndecided>(sl, cur),
+              n1s, it, sl.r, sl.r, sl.d, r.b, r.kind, sl.rows, nullptr);
+        } else {
+          decide_group_body<kG, 1, kC, false, kSlab, kCoherent>(
+              r.t, r.m, nullptr, sl.nbrs, slab_list<kUndecided>(sl, cur),
+              n1s, it, sl.r, sl.r, sl.d, r.b, r.kind, sl.rows, nullptr);
+        }
+      });
+    }
+    if (r.h > 0) spill_decide(r);
+    grid.sync();
+    // (d) the spill's decision, then each slab's lists counted over
+    // themselves (the spill writes T only at heavy rows)
+    if (r.h > 0) spill_decide_finish(r, nxt, words);
+    for (int s = 0; s < ns; ++s) {
+      const SlabView sl = slab_view(r, s);
+      int32_t* c = slab_counts(r, s);
+      if (tid == 0) {   // the slots each next buffer held live (two rounds ago)
+        c[kStale + kUndecided] = c[2 * kUndecided + nxt];
+        c[kStale + kLiveM] = c[2 * kLiveM + nxt];
+      }
+      const int32_t* wl1 = slab_list<kUndecided>(sl, cur);
+      const int32_t* wl2 = slab_list<kLiveM>(sl, cur);
+      count_kept(wl1, state_load<kCoherent>(c + 2 * kUndecided + cur),
+                 slab_keep<kUndecided>(r, sl, wl1),
+                 slab_block_counts(r, s, kUndecided), words);
+      count_kept(wl2, state_load<kCoherent>(c + 2 * kLiveM + cur),
+                 slab_keep<kLiveM>(r, sl, wl2),
+                 slab_block_counts(r, s, kLiveM), words);
+    }
+    grid.sync();
+    // (e) the survivors written, the sentinel R up to what the buffer held
+    for (int s = 0; s < ns; ++s) {
+      const SlabView sl = slab_view(r, s);
+      int32_t* c = slab_counts(r, s);
+      const int32_t* wl1 = slab_list<kUndecided>(sl, cur);
+      const int32_t* wl2 = slab_list<kLiveM>(sl, cur);
+      const int64_t n1s = state_load<kCoherent>(c + 2 * kUndecided + cur);
+      const int64_t n2s = state_load<kCoherent>(c + 2 * kLiveM + cur);
+      const int64_t stale1 = state_load<kCoherent>(c + kStale + kUndecided);
+      const int64_t stale2 = state_load<kCoherent>(c + kStale + kLiveM);
+      const int32_t sentinel = static_cast<int32_t>(sl.r);
+      write_kept(wl1, n1s, slab_keep<kUndecided>(r, sl, wl1),
+                 slab_block_counts(r, s, kUndecided),
+                 slab_list<kUndecided>(sl, nxt), c + 2 * kUndecided + nxt,
+                 stale1, sentinel, words);
+      write_kept(wl2, n2s, slab_keep<kLiveM>(r, sl, wl2),
+                 slab_block_counts(r, s, kLiveM), slab_list<kLiveM>(sl, nxt),
+                 c + 2 * kLiveM + nxt, stale2, sentinel, words);
+    }
+    grid.sync();
+    cur = nxt;
+    ++it;
+  }
+  if (tid == 0) {
+    r.out[0] = static_cast<int32_t>(it);
+    r.out[1] = static_cast<int32_t>(n1);
+  }
 }
 
 }  // namespace
@@ -1056,6 +1446,60 @@ int resident_fixed_point(void* t, void* m, void* scratch, const void* active,
                                          static_cast<cudaStream_t>(stream));
   });
   if (!shaped) return static_cast<int>(cudaErrorInvalidValue);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The group shape of a slab of r rows of d ids in the hybrid fixed point,
+// as the standalone sliced passes pick it: G << 8 | C
+int hybrid_slab_shape(int d, int64_t r) {
+  using namespace repro_torch;
+  const int g = slab_group_lanes(d, r);
+  return g << 8 | chunk_slots(g, d);
+}
+
+// The hybrid fixed point in one cooperative launch.  t, m: [V] words
+// (written; nothing in them is read); active: [V] bytes, or null for
+// every row with the decide reading M alone; table: the layout's [S, 7]
+// int64 slab table on the card (see HybridSlab); lists: int32 [4 * sum R],
+// each slab's two lists' two buffers at its offset; the spill's rows [H],
+// seg and cols [E]; scratch: [3 * H] words; aux: aux_len int32 words, 2
+// outputs (the rounds run, then the last live count), 2 heavy-row counts, 6
+// a slab and 2 a slab a block; rows_processed: int64 [S], written.  Returns
+// as resident_fixed_point.
+int hybrid_fixed_point(void* t, void* m, const void* active,
+                       const void* table, int num_slabs, void* lists,
+                       const void* spill_rows, const void* spill_seg,
+                       const void* spill_cols, int64_t h, int64_t e,
+                       void* scratch, void* aux, int64_t aux_len,
+                       void* rows_processed, int64_t v, int b, int kind,
+                       int max_iters, void* stream) {
+  using namespace repro_torch;
+  int dev = 0, coop = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
+  const int grid = resident_blocks(hybrid_fixed_point_kernel);
+  if (4 + 6 * static_cast<int64_t>(num_slabs) +
+          2 * static_cast<int64_t>(num_slabs) * grid > aux_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* x = static_cast<int32_t*>(aux);
+  auto* words = static_cast<uint32_t*>(scratch);
+  Hybrid r{static_cast<uint32_t*>(t), static_cast<uint32_t*>(m),
+           static_cast<const uint8_t*>(active),
+           static_cast<const HybridSlab*>(table),
+           static_cast<int32_t*>(lists),
+           static_cast<const int32_t*>(spill_rows),
+           static_cast<const int32_t*>(spill_seg),
+           static_cast<const int32_t*>(spill_cols), words, words + h,
+           words + 2 * h, x + 4, x + 4 + 6 * num_slabs, x + 2,
+           static_cast<int64_t*>(rows_processed), x, v, h, e, num_slabs, b,
+           kind, max_iters};
+  void* args[] = {&r};
+  const cudaError_t status = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(hybrid_fixed_point_kernel), dim3(grid),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Wrappers for the MIS-2 round passes: the fused ones over padded ELL and
-over one slab of the hybrid layout, the hybrid layout's spill passes, and
-the unfused ones of the host-driven round; and for the whole resident fixed
-point over padded ELL in one launch (``resident_fixed_point``).
+over one slab of the hybrid layout, and the unfused ones of the host-driven
+round; and for the whole fixed point in one launch, over padded ELL
+(``resident_fixed_point``) and over the hybrid layout
+(``hybrid_fixed_point``: its slabs and its COO spill).
 
 ``fused_*`` and ``sliced_*`` take the resident drivers' state as it lies
 on the device and update it in place.  ``refresh_columns_rows`` /
@@ -13,10 +14,10 @@ plain-torch twin (``ref``); a tensor on a CUDA device goes to the
 hand-written kernel (``csrc/minprop_ell.cu``), or the call raises — there
 is no fallback from one to the other.
 
-``spill_refresh_columns`` / ``spill_decide`` are plain torch on every
-device, as the JAX package computes them with XLA segment reductions
-outside any Pallas kernel: ``scatter_reduce`` with ``amin`` / ``amax`` on
-widened int64, whose result does not depend on the order of the entries.
+The spill's passes by ``scatter_reduce`` (the reference's XLA segment
+reductions) live with the twins (``ref.spill_refresh_columns`` /
+``ref.spill_decide``): ``hybrid_fixed_point`` runs the spill inside its
+kernel, so only its twin and the tools that time the slab kernels call them.
 
 ``LAUNCHES`` counts kernel launches per wrapper (twin calls are not
 counted), so a run can show that its hot loop went through the kernels.
@@ -28,14 +29,14 @@ import ctypes
 import torch
 
 from ...core.hashing import PRIORITY_CODES
-from ...core.tuples import IN, OUT, is_undecided, narrow, widen
 from .. import _build
 from . import ref
 from .ref import set_drop
 
 LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0,
             "sliced_refresh_columns": 0, "sliced_decide": 0,
-            "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
+            "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+            "hybrid_fixed_point": 0}
 
 _TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p)
@@ -50,10 +51,16 @@ _SIGNATURES = {
     "resident_fixed_point": (ctypes.c_void_p,) * 7 + (
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "hybrid_fixed_point": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (
+        ctypes.c_void_p,) * 4 + (ctypes.c_int64, ctypes.c_int64) + (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p),
+    "hybrid_slab_shape": (ctypes.c_int, ctypes.c_int64),
 }
 
 #: the most blocks a Hopper SM holds at once, which bounds the persistent
-#: kernel's grid and so the per-block counts of its compaction
+#: kernels' grid and so the per-block counts of their compaction
 MAX_BLOCKS_PER_SM = 32
 
 # ---------------------------------------------------------------------------
@@ -157,6 +164,11 @@ def _launch(name: str, t, *ptrs_and_sizes) -> None:
     LAUNCHES[name] += 1
 
 
+def card_sms(device) -> int:
+    """The card's SM count, which sizes a persistent kernel's grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_refresh_columns(t, m, nbrs_flat, wl, count, it, *, priority: str,
                           b: int) -> torch.Tensor:
     """M[wl[i]] <- min over the closed neighborhood of the refreshed T, with
@@ -224,14 +236,136 @@ def resident_fixed_point(t, m, active, nbrs_flat, *, priority: str, b: int,
                                             max_iters=max_iters)
     scratch = torch.empty_like(t)
     wl = torch.empty(4 * v, dtype=torch.int32, device=t.device)
-    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
-    aux = torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * sms, dtype=torch.int32,
-                      device=t.device)
+    aux = torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * card_sms(t.device),
+                      dtype=torch.int32, device=t.device)
     _launch("resident_fixed_point", t, t.data_ptr(), m.data_ptr(),
             scratch.data_ptr(), active.data_ptr(), nbrs_flat.data_ptr(),
             wl.data_ptr(), aux.data_ptr(), aux.shape[0], v, d, b,
             PRIORITY_CODES[priority], max_iters)
     return t, aux[4:6]
+
+
+# ---------------------------------------------------------------------------
+# the hybrid layout's fixed point in one launch
+# ---------------------------------------------------------------------------
+
+def _check_hybrid(t, m, active, slabs, spill, b: int, priority: str,
+                  max_iters: int) -> None:
+    """Validate the hybrid fixed point's arguments: device, dtype, 1-D and
+    contiguity of every tensor, each slab's ids a whole number of rows,
+    the spill's seg and cols of one length."""
+    named = {"t": t, "m": m, "active": active}
+    for i, (rows, nbrs) in enumerate(slabs):
+        named[f"slab {i} rows"] = rows
+        named[f"slab {i} nbrs"] = nbrs
+        if rows.shape[0] == 0 or nbrs.shape[0] % rows.shape[0]:
+            raise ValueError(f"slab {i}: {nbrs.shape[0]} ids are not a "
+                             f"whole number of its {rows.shape[0]} rows")
+    for name, x in zip(("spill_rows", "spill_seg", "spill_cols"), spill):
+        named[name] = x
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for name, x in named.items():
+        if x is None:
+            continue
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, t on {dev}")
+        want = torch.bool if name == "active" else torch.int32
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {x.dtype}")
+        if not x.is_contiguous() or x.dim() != 1:
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    v = t.shape[0]
+    for name in ("m", "active"):
+        if named[name] is not None and named[name].shape[0] != v:
+            raise ValueError(f"{name} has {named[name].shape[0]} rows, t "
+                             f"has {v}")
+    if spill[1].shape != spill[2].shape:
+        raise ValueError("spill_seg and spill_cols differ in length")
+    if not 0 < b < 32:
+        raise ValueError(f"id bits b={b} out of range")
+    if priority not in PRIORITY_CODES:
+        raise ValueError(f"unknown priority {priority!r}")
+    if max_iters < 0:
+        raise ValueError(f"max_iters={max_iters} is negative")
+
+
+_SLAB_TABLES: dict = {}
+
+
+def _slab_table(slabs, device) -> torch.Tensor:
+    """The hybrid kernel's ``[S, 7]`` int64 slab table on the card (the
+    kernel's ``HybridSlab``): each slab's rows and ids pointers, R, D, its
+    passes' group shape and the offset of its list buffers.  A pure
+    function of the slabs' pointers and shapes, so it is built and copied
+    once per layout and kept, keyed by them."""
+    key = (str(device),) + tuple((rows.data_ptr(), nbrs.data_ptr(),
+                                  rows.shape[0], nbrs.shape[0])
+                                 for rows, nbrs in slabs)
+    table = _SLAB_TABLES.get(key)
+    if table is None:
+        words, offset = [], 0
+        for rows, nbrs in slabs:
+            r = rows.shape[0]
+            d = nbrs.shape[0] // r
+            shape = _entry("hybrid_slab_shape")(d, r)
+            words += [rows.data_ptr(), nbrs.data_ptr(), r, d, shape >> 8,
+                      shape & 0xFF, offset]
+            offset += 4 * r
+        table = torch.tensor(words, dtype=torch.int64).to(device)
+        if len(_SLAB_TABLES) >= 64:
+            _SLAB_TABLES.pop(next(iter(_SLAB_TABLES)))
+        _SLAB_TABLES[key] = table
+    return table
+
+
+def hybrid_fixed_point(t, m, active, slabs, spill, *, priority: str, b: int,
+                       max_iters: int):
+    """The §V-B fixed point over the hybrid layout, as
+    ``ref.hybrid_fixed_point_ref`` defines it (the reference's
+    ``_hybrid_fixed_point``).  ``t``, ``m``: int32 ``[V]``, written (T and
+    M at the end; nothing in them is read); ``active``: bool ``[V]``, or
+    None for every vertex (then a neighbour is active where its M is not
+    IN, one gather a slot); ``slabs``: ``(rows int32 [R], ids int32
+    [R*D])`` per slab; ``spill``: ``(rows int32 [H], seg int32 [E], cols
+    int32 [E])``.  Returns ``(t, int32 [2], int64 [S])``: the rounds run
+    and the last live count, and each slab's live list rows processed
+    (both passes, every round), on t's device.
+
+    On the card one cooperative launch runs every round, the spill's
+    segment reductions inside it, and reads no value from the host; the
+    worklists, their counts and the spill's scratch live in buffers
+    allocated here.  It raises (``KernelLaunchError``) where the card has
+    no cooperative launch or the launch is refused: there is no per-round
+    fallback."""
+    _check_hybrid(t, m, active, slabs, spill, b, priority, max_iters)
+    if t.device.type == "cpu":
+        return ref.hybrid_fixed_point_ref(t, m, active, slabs, spill,
+                                          priority=priority, b=b,
+                                          max_iters=max_iters)
+    return _hybrid_on_card(t, m, active, slabs, spill, priority, b,
+                           max_iters, card_sms(t.device))
+
+
+def _hybrid_on_card(t, m, active, slabs, spill, priority: str, b: int,
+                    max_iters: int, sms: int):
+    dev = t.device
+    ns = len(slabs)
+    table = _slab_table(slabs, dev)
+    lists = torch.empty(4 * sum(rows.shape[0] for rows, _ in slabs),
+                        dtype=torch.int32, device=dev)
+    h, e = spill[0].shape[0], spill[2].shape[0]
+    scratch = torch.empty(3 * max(h, 1), dtype=torch.int32, device=dev)
+    aux = torch.empty(4 + 6 * ns + 2 * ns * MAX_BLOCKS_PER_SM * sms,
+                      dtype=torch.int32, device=dev)
+    acc = torch.empty(max(ns, 1), dtype=torch.int64, device=dev)
+    _launch("hybrid_fixed_point", t, t.data_ptr(), m.data_ptr(),
+            None if active is None else active.data_ptr(), table.data_ptr(),
+            ns, lists.data_ptr(), *(x.data_ptr() for x in spill), h, e,
+            scratch.data_ptr(), aux.data_ptr(), aux.shape[0], acc.data_ptr(),
+            t.shape[0], b, PRIORITY_CODES[priority], max_iters)
+    return t, aux[:2], acc[:ns]
 
 
 # ---------------------------------------------------------------------------
@@ -367,54 +501,3 @@ def decide(t, m, wl1, neighbors, active, count: int) -> torch.Tensor:
     newt = decide_rows(t[rows], m, active, neighbors[rows], count)
     return set_drop(t, wl1, newt)
 
-
-def segment_reduce(vals: torch.Tensor, seg: torch.Tensor, num: int,
-                   reduce: str, identity: int) -> torch.Tensor:
-    """``[num]`` per-segment ``amin`` / ``amax`` of int64 ``vals``; an empty
-    segment holds ``identity`` (``jax.ops.segment_min`` / ``_max``)."""
-    out = torch.full((num,), identity, dtype=torch.int64, device=vals.device)
-    return out.scatter_reduce_(0, seg.to(torch.int64), vals, reduce)
-
-
-def spill_refresh_columns(t, m, spill_rows, spill_seg, spill_cols, live, it,
-                          *, priority: str, b: int) -> torch.Tensor:
-    """M over the heavy (spill) rows: the closed min of the refreshed T
-    with IN -> OUT, as the slab kernels; rows off the round's ``live`` mask
-    keep their M (in place; returns ``m``)."""
-    h = spill_rows.shape[0]
-    rows = spill_rows.to(torch.int64)
-    cols = spill_cols.to(torch.int64)
-    te = ref._refresh(widen(t)[cols], cols, it, priority, b)
-    mv = segment_reduce(te, spill_seg, h, "amin", OUT)
-    tself = ref._refresh(widen(t)[rows], rows, it, priority, b)
-    mv = torch.minimum(mv, tself)
-    mv = torch.where(mv == IN, OUT, mv)
-    m[rows] = torch.where(live[rows], narrow(mv), m[rows])
-    return m
-
-
-def spill_decide(t, m, active, spill_rows, spill_seg, spill_cols, it, *,
-                 priority: str, b: int) -> torch.Tensor:
-    """The IN/OUT decision of the heavy rows by segment reductions, equal
-    to the slab decide: neighbour terms gated by ``active``, the self term
-    folded in, still-undecided rows written with their refreshed tuple (in
-    place; returns ``t``)."""
-    h = spill_rows.shape[0]
-    rows = spill_rows.to(torch.int64)
-    cols = spill_cols.to(torch.int64)
-    seg = spill_seg.to(torch.int64)
-    tv_old = widen(t)[rows]
-    tv = ref._refresh(tv_old, rows, it, priority, b)
-    mn = widen(m)[cols]
-    an = active[cols]
-    any_out = segment_reduce((an & (mn == OUT)).to(torch.int64), seg, h,
-                             "amax", 0) > 0
-    neq = segment_reduce((an & (mn != tv[seg])).to(torch.int64), seg, h,
-                         "amax", 0) > 0
-    m_self = widen(m)[rows]
-    a_self = active[rows]
-    any_out = any_out | (a_self & (m_self == OUT))
-    neq = neq | (a_self & (m_self != tv))
-    newt = torch.where(any_out, OUT, torch.where(~neq, IN, tv))
-    t[rows] = narrow(torch.where(is_undecided(tv_old), newt, tv_old))
-    return t

@@ -11,7 +11,12 @@ slab of ``R`` rows) write nothing.  The sliced decide also takes
 ``resident_fixed_point_ref`` is the twin of the persistent kernel: the
 resident fixed point, round after round of the fused twins and the ordered
 compaction of both worklists over themselves (``compact_over_ref``); it
-reads the live count on the host each round.
+reads the live count on the host each round.  ``hybrid_fixed_point_ref``
+is the twin of the hybrid persistent kernel, the same loop over each slab
+of the hybrid layout (the sliced twins, each slab's lists compacted over
+themselves) and the spill's passes by ``scatter_reduce`` (``segment_reduce``
+with ``amin`` / ``amax`` on widened int64, whose result does not depend on
+the order of the entries).
 
 ``refresh_columns_ref`` / ``decide_ref`` are the twins of the host-driven
 round's kernels: they take pre-gathered worklist rows ``[W, D]`` and return
@@ -30,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ...core.hashing import PRIORITY_FNS
+from ...core.segments import segment_reduce
 from ...core.tuples import IN, OUT, OUT_I32, is_undecided, narrow, pack, widen
 
 
@@ -195,6 +201,123 @@ def resident_fixed_point_ref(t, m, active, nbrs_flat, *, priority: str,
 
 def _count(n: int, device) -> torch.Tensor:
     return torch.full((1,), n, dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid layout's spill passes and fixed point (the hybrid persistent
+# kernel's twin)
+# ---------------------------------------------------------------------------
+
+def spill_refresh_columns(t, m, spill_rows, spill_seg, spill_cols, live, it,
+                          *, priority: str, b: int) -> torch.Tensor:
+    """M over the heavy (spill) rows: the closed min of the refreshed T
+    with IN -> OUT, as the slab kernels; rows off the round's ``live`` mask
+    keep their M (in place; returns ``m``)."""
+    h = spill_rows.shape[0]
+    rows = spill_rows.to(torch.int64)
+    cols = spill_cols.to(torch.int64)
+    te = _refresh(widen(t)[cols], cols, it, priority, b)
+    mv = segment_reduce(te, spill_seg, h, "amin", OUT)
+    tself = _refresh(widen(t)[rows], rows, it, priority, b)
+    mv = torch.minimum(mv, tself)
+    mv = torch.where(mv == IN, OUT, mv)
+    m[rows] = torch.where(live[rows], narrow(mv), m[rows])
+    return m
+
+
+def spill_decide(t, m, active, spill_rows, spill_seg, spill_cols, it, *,
+                 priority: str, b: int) -> torch.Tensor:
+    """The IN/OUT decision of the heavy rows by segment reductions, equal
+    to the slab decide: neighbour terms gated by ``active``, the self term
+    folded in, still-undecided rows written with their refreshed tuple (in
+    place; returns ``t``)."""
+    h = spill_rows.shape[0]
+    rows = spill_rows.to(torch.int64)
+    cols = spill_cols.to(torch.int64)
+    seg = spill_seg.to(torch.int64)
+    tv_old = widen(t)[rows]
+    tv = _refresh(tv_old, rows, it, priority, b)
+    mn = widen(m)[cols]
+    an = active[cols]
+    any_out = segment_reduce((an & (mn == OUT)).to(torch.int64), seg, h,
+                             "amax", 0) > 0
+    neq = segment_reduce((an & (mn != tv[seg])).to(torch.int64), seg, h,
+                         "amax", 0) > 0
+    m_self = widen(m)[rows]
+    a_self = active[rows]
+    any_out = any_out | (a_self & (m_self == OUT))
+    neq = neq | (a_self & (m_self != tv))
+    newt = torch.where(any_out, OUT, torch.where(~neq, IN, tv))
+    t[rows] = narrow(torch.where(is_undecided(tv_old), newt, tv_old))
+    return t
+
+
+def hybrid_fixed_point_ref(t, m, active, slabs, spill, *, priority: str,
+                           b: int, max_iters: int, trace=None):
+    """The §V-B fixed point over the hybrid layout (the reference's
+    ``_hybrid_fixed_point``): T = 1 on the active rows (every row when
+    ``active`` is None) and OUT elsewhere, M = OUT; each slab's undecided
+    list its active rows and its M list every row.  Each round, while a
+    row is undecided and fewer than ``max_iters`` rounds ran: the sliced
+    refresh of every slab over its M list, the spill's refresh, the sliced
+    decide of every slab over its undecided list (without a mask when
+    ``active`` is None), the spill's decide, and each slab's two lists
+    compacted over themselves (``compact_over_ref``, sentinel ``R``).
+    ``slabs``: ``(rows int32 [R], ids int32 [R*D])`` each; ``spill``:
+    ``(rows [H], seg [E], cols [E])``.  ``t``, ``m`` (int32 ``[V]``) are
+    written in place.  Returns ``(t, int32 [2], int64 [S])``: the rounds
+    run and the last live count, and each slab's live list rows processed.
+    ``trace`` (a list) gets each round's ``(lists, heavy_live,
+    heavy_undecided)``: per slab ``(M list, undecided list)`` as ``(int32
+    [R] buffer, count)`` pairs, and bool ``[H]`` masks of the heavy rows
+    the round's spill refresh and decide visit (M not OUT, every row in
+    round 0; T undecided), all as the round starts."""
+    v, dev = t.shape[0], t.device
+    act = torch.ones(v, dtype=torch.bool, device=dev) if active is None \
+        else active
+    t.copy_(torch.where(act, 1, OUT_I32).to(torch.int32))
+    m.fill_(OUT_I32)
+    kw = dict(priority=priority, b=b)
+    lists = []
+    for rows, _ in slabs:
+        r = rows.shape[0]
+        every = torch.arange(r, dtype=torch.int32, device=dev)
+        lists.append([(every, r),
+                      compact_over_ref(every, r, act[rows.to(torch.int64)])])
+    acc = torch.zeros(len(slabs), dtype=torch.int64, device=dev)
+    has_spill = spill[0].shape[0] > 0
+    n1 = int(is_undecided(t).sum())
+    it = 0
+    while it < max_iters:
+        if n1 == 0:                   # the twin's host read a round
+            break
+        it_t = torch.full((1,), it, dtype=torch.int32, device=dev)
+        live = m != OUT_I32 if it else torch.ones(v, dtype=torch.bool,
+                                                  device=dev)
+        if trace is not None:
+            heavy = spill[0].to(torch.int64)
+            trace.append(([tuple(x) for x in lists], live[heavy],
+                          is_undecided(t)[heavy]))
+        for (rows, nbrs), ((wl2, n2), _) in zip(slabs, lists):
+            sliced_refresh_columns_ref(t, m, rows, nbrs, wl2, _count(n2, dev),
+                                       it_t, **kw)
+        if has_spill:
+            spill_refresh_columns(t, m, *spill, live, it_t, **kw)
+        for (rows, nbrs), (_, (wl1, n1s)) in zip(slabs, lists):
+            sliced_decide_ref(t, m, active, rows, nbrs, wl1, _count(n1s, dev),
+                              it_t, **kw)
+        if has_spill:
+            spill_decide(t, m, act, *spill, it_t, **kw)
+        und, mlive = is_undecided(t), m != OUT_I32
+        for i, ((rows, _), ((wl2, n2), (wl1, n1s))) in enumerate(
+                zip(slabs, lists)):
+            acc[i] += n1s + n2
+            r64 = rows.to(torch.int64)
+            lists[i] = [compact_over_ref(wl2, n2, mlive[r64]),
+                        compact_over_ref(wl1, n1s, und[r64])]
+        n1 = int(und.sum())
+        it += 1
+    return t, torch.tensor([it, n1], dtype=torch.int32, device=dev), acc
 
 
 # ---------------------------------------------------------------------------

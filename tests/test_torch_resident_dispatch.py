@@ -8,7 +8,8 @@ iterations and ``converged``, at the default round cap, capped at 1, 2 and
 4 rounds, and with an active subset.  The ordered compaction of a worklist
 over itself, which the kernel relies on, against ``compact_worklist`` over
 ``[V]`` round by round.  And ``tools/check_shape_torch.py`` in-process on
-the CPU: four gates pass, the ``resident`` gate fails (it needs the card).
+the CPU: three gates pass, the ``resident`` and ``hybrid_traffic`` gates fail
+(each asks for one launch and no host sync a solve: they need the card).
 """
 from __future__ import annotations
 
@@ -217,16 +218,16 @@ def _tool():
     return mod
 
 
-@pytest.mark.parametrize("gate", ["serve", "serve_dedup", "dist",
-                                  "hybrid_traffic"])
+@pytest.mark.parametrize("gate", ["serve", "serve_dedup", "dist"])
 def test_gate_passes_on_the_cpu(gate, capsys):
     assert _tool().main(["--device", "cpu", "--gates", gate]) == 0
     out = capsys.readouterr().out
     assert out.startswith(f"PASS  {gate} ")
 
 
-def test_resident_gate_fails_on_the_cpu(capsys):
-    assert _tool().main(["--device", "cpu", "--gates", "resident"]) == 1
+@pytest.mark.parametrize("gate", ["resident", "hybrid_traffic"])
+def test_resident_gate_fails_on_the_cpu(gate, capsys):
+    assert _tool().main(["--device", "cpu", "--gates", gate]) == 1
     out = capsys.readouterr().out
-    assert out.startswith("FAIL  resident ")
+    assert out.startswith(f"FAIL  {gate} ")
     assert "needs the card" in out

@@ -276,9 +276,9 @@ def _edited(name: str, src: Path, subs: list[tuple[str, str]]) -> Path:
     return path
 
 
-def _variant(spec: str) -> tuple[str, Path]:
-    """``NAME=kX=value,...``: the default source with constants rewritten;
-    ``NAME`` alone: the named text edit ``EDITS[NAME]``."""
+def _variant(spec: str, src: Path = SRC) -> tuple[str, Path]:
+    """``NAME=kX=value,...``: the source ``src`` with constants rewritten;
+    ``NAME`` alone: the named text edit ``EDITS[NAME]`` of the default."""
     name, _, consts = spec.partition("=")
     if not consts:
         if name not in EDITS:
@@ -287,12 +287,13 @@ def _variant(spec: str) -> tuple[str, Path]:
     subs = []
     for item in consts.split(","):
         const, _, value = item.partition("=")
-        m = re.search(rf"constexpr \w+ {const} = [^;]+;", SRC.read_text())
+        m = re.search(rf"constexpr \w+ {const} = [^;]+;", src.read_text())
         if m is None:
-            raise SystemExit(f"{name}: no constexpr {const} in {SRC.name}")
+            raise SystemExit(f"{name}: no constexpr {const} in {src.name}")
         old = m.group(0)
         subs.append((old, old[:old.index("=") + 2] + value + ";"))
-    return name, _edited(name, SRC, subs)
+    return name, _edited(name if src == SRC else f"{src.stem}_{name}", src,
+                         subs)
 
 
 def _argtypes(src: Path, fn_name: str) -> tuple[list, bool]:
@@ -553,12 +554,12 @@ def _bench_ell(torch, rt, fns, names, probes, label: str, args) -> None:
 def _capture_hybrid(torch, hyb, active, b: int,
                     max_rounds: int = 128) -> list[dict]:
     """Every round's inputs and outputs of one ``cuda_hybrid`` solve, from
-    the twins (the loop of ``core.mis2_hybrid.hybrid_fixed_point``): T and
+    the twins (the loop of ``ref.hybrid_fixed_point_ref``): T and
     M at the round's start, each slab's worklists and counts, M after the
     refreshes and T after the decides.  ``active`` None: no mask."""
     from repro_torch.core.mis2 import compact_worklist
     from repro_torch.core.tuples import is_undecided
-    from repro_torch.kernels.minprop_ell import ops, ref
+    from repro_torch.kernels.minprop_ell import ref
 
     v = hyb.num_vertices
     dev = hyb.spill_rows.device
@@ -584,13 +585,13 @@ def _capture_hybrid(torch, hyb, active, b: int,
                                            sl.neighbors.reshape(-1),
                                            x["wl2"], x["n2"], it, **kw)
         if hyb.num_spill_rows:
-            ops.spill_refresh_columns(t, m, *spill, live, it, **kw)
+            ref.spill_refresh_columns(t, m, *spill, live, it, **kw)
         rec["m_out"] = m.clone()
         for sl, x in zip(hyb.slices, rec["slabs"]):
             ref.sliced_decide_ref(t, m, act, sl.rows, sl.neighbors.reshape(-1),
                                   x["wl1"], x["n1"], it, **kw)
         if hyb.num_spill_rows:
-            ops.spill_decide(t, m, act, *spill, it, **kw)
+            ref.spill_decide(t, m, act, *spill, it, **kw)
         rec["t_out"] = t.clone()
         rec["h"] = _refreshed(torch, rec["t"], it, b)
         rec["mw"] = torch.where(act, rec["m_out"], 0).to(torch.int32)

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Time the persistent resident MIS-2 kernel (``resident_fixed_point`` in
-``src/repro_torch/kernels/csrc/minprop_ell.cu``) against variants of its
-source, on the card.
+"""Time the persistent kernels -- the resident MIS-2 fixed point
+(``resident_fixed_point``) and the hybrid one (``hybrid_fixed_point``) in
+``src/repro_torch/kernels/csrc/minprop_ell.cu``, the Luby coloring loop
+(``luby_fixed_point``) in ``csrc/luby.cu`` -- against variants of their
+sources, on the card.
 
-    python3 tools/bench_resident.py [--variant NAME=kX=value,...] \\
-        [--graphs Laplace3D_100 Elasticity3D_60] [--reps 20]
+    python3 tools/bench_resident.py [--kernels resident hybrid luby] \\
+        [--variant NAME=kX=value,...] \\
+        [--graphs Laplace3D_100 Elasticity3D_60 Powerlaw_1M] [--reps 20]
 
-Every build (the source as it stands, and each variant: a copy with
+Every build (each source as it stands, and each variant: a copy with
 ``constexpr`` constants rewritten, as ``tools/bench_minprop.py`` makes
-them) is compiled at once, one ``nvcc`` each.  On each graph every build
-runs a whole ``mis2`` solve from all rows active, is held bitwise to the
-default build (T, rounds, live count), and is timed between CUDA events
-after an L2 flush (``chip_smoke._event_ms``), the builds in turns (default,
-variants, variants reversed, default), the median of ``--reps`` launches
-a turn.  Prints one JSON line per build (its kernels' registers and
-spills, from ``ptxas``) and per graph, and the card's ``nvidia-smi`` name
-and power limit.
+them, of each selected kernel's source that declares them all; ``NAME``
+alone: its named text edit of ``minprop_ell.cu``) is compiled at once, one
+``nvcc`` each.  On each graph every
+build of a kernel runs a whole solve from all rows active (``resident``:
+the padded ELL; ``hybrid``: the hybrid layout; ``luby``: the hybrid layout
+of Powerlaw_1M, the padded ELL of the others), is held bitwise to the
+default build (T or the colors, and the rounds), and is timed between CUDA
+events after an L2 flush (``chip_smoke._event_ms``), the builds in turns
+(default, variants, variants reversed, default), the median of ``--reps``
+launches a turn.  A variant's slab shapes and lane counts are the default
+build's (its table is built once).  Prints one JSON line per build (the
+persistent kernels' registers and spills, from ``ptxas``) and per kernel
+and graph, and the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -30,8 +38,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "bench_resident"
-GRAPHS = {"Laplace3D_100": ("laplace3d", (100,)),
-          "Elasticity3D_60": ("elasticity3d", (60,))}
+GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
+          "Elasticity3D_60": ("elasticity3d", (60,), {}),
+          "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
+                          {"exponent": 2.5, "seed": 42})}
+KERNELS = ("resident", "hybrid", "luby")
+PERSISTENT = ("resident_fixed_point_kernel", "hybrid_fixed_point_kernel",
+              "luby_fixed_point_kernel")
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
@@ -40,92 +53,203 @@ import bench_minprop  # noqa: E402
 from chip_smoke import _event_ms  # noqa: E402
 
 
-def _build(sources: dict[str, Path]) -> dict:
-    """Compile every source at once; returns name -> bound C entry."""
+def _persistent_registers(log: str) -> list:
+    """``ptxas -v`` of the persistent kernels: registers and spills."""
+    out = []
+    for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                         r"spill loads\n[^\n]*Used (\d+) registers", log):
+        name = m.group(1)
+        kernel = next((k for k in PERSISTENT if k in name), None)
+        if kernel is not None:
+            out.append({"kernel": kernel, "instance": name[-40:],
+                        "spill_stores": int(m.group(3)),
+                        "spill_loads": int(m.group(4)),
+                        "registers": int(m.group(5))})
+    return out
+
+
+def _build(sources: dict[str, tuple[str, Path]]) -> dict:
+    """Compile every source at once; returns name -> (library, loaded)."""
     from repro_torch.kernels import _build as kb
-    from repro_torch.kernels.minprop_ell import ops
 
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
         [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", str(kb.CSRC), "-o",
          str(OUT / f"{name}.so"), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for name, src in sources.items()}
-    fns = {}
+        stderr=subprocess.STDOUT, text=True)
+        for name, (_, src) in sources.items()}
+    libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {name}:\n{log}")
-        regs = re.findall(r"resident_fixed_point_kernelILi(\d+)ELi(\d+)ELb(\d)"
-                          r"ELi(\d)E[^\n]*\n\s+(\d+) bytes stack frame, (\d+) "
-                          r"bytes spill stores, (\d+) bytes spill loads\n"
-                          r"[^\n]*Used (\d+) registers", log)
-        print(json.dumps({"build": name, "resident_instances": [
-            {"G": int(g), "C": int(c), "once": o == "1", "kind": int(k),
-             "spill_stores": int(ss), "spill_loads": int(sl),
-             "registers": int(r)}
-            for g, c, o, k, _, ss, sl, r in regs]}), flush=True)
-        fn = ctypes.CDLL(str(OUT / f"{name}.so")).resident_fixed_point
-        fn.argtypes = list(ops._SIGNATURES["resident_fixed_point"])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        print(json.dumps({"build": name, "source": sources[name][0],
+                          "persistent": _persistent_registers(log)}),
+              flush=True)
+        libs[name] = (sources[name][0], ctypes.CDLL(str(OUT / f"{name}.so")))
+    return libs
 
 
-def _bench(torch, rt, fns: dict, label: str, reps: int) -> dict:
+def _entry(lib, name: str, signature):
+    fn = getattr(lib, name)
+    fn.argtypes = list(signature)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _graph(rt, label: str):
+    fn, args, kw = GRAPHS[label]
+    return rt.Graph(getattr(rt.graphs, fn)(*args, **kw), device="cuda")
+
+
+def _resident_runner(torch, g, lib):
     from repro_torch.core.hashing import PRIORITY_CODES
     from repro_torch.core.tuples import id_bits
-    from repro_torch.kernels.minprop_ell.ops import MAX_BLOCKS_PER_SM
+    from repro_torch.kernels.minprop_ell import ops
 
-    kind, args = GRAPHS[label]
-    ell = rt.Graph(getattr(rt.graphs, kind)(*args), device="cuda").ell
+    ell = g.ell
     v, d = ell.neighbors.shape
     nbrs = ell.neighbors.reshape(-1)
     active = torch.ones(v, dtype=torch.bool, device="cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    state = {name: dict(
-        t=torch.empty(v, dtype=torch.int32, device="cuda"),
-        m=torch.empty(v, dtype=torch.int32, device="cuda"),
-        h=torch.empty(v, dtype=torch.int32, device="cuda"),
-        wl=torch.empty(4 * v, dtype=torch.int32, device="cuda"),
-        aux=torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * sms, dtype=torch.int32,
-                        device="cuda")) for name in fns}
+    fn = _entry(lib, "resident_fixed_point",
+                ops._SIGNATURES["resident_fixed_point"])
+    x = dict(t=torch.empty(v, dtype=torch.int32, device="cuda"),
+             m=torch.empty(v, dtype=torch.int32, device="cuda"),
+             h=torch.empty(v, dtype=torch.int32, device="cuda"),
+             wl=torch.empty(4 * v, dtype=torch.int32, device="cuda"),
+             aux=torch.empty(6 + 2 * ops.MAX_BLOCKS_PER_SM
+                             * ops.card_sms("cuda"), dtype=torch.int32,
+                             device="cuda"))
 
-    def run(name):
-        x = state[name]
-        status = fns[name](
-            x["t"].data_ptr(), x["m"].data_ptr(), x["h"].data_ptr(),
-            active.data_ptr(), nbrs.data_ptr(), x["wl"].data_ptr(),
-            x["aux"].data_ptr(), x["aux"].shape[0], v, d, id_bits(v),
-            PRIORITY_CODES["xorshift_star"], 128,
-            torch.cuda.current_stream().cuda_stream)
+    def run():
+        status = fn(x["t"].data_ptr(), x["m"].data_ptr(), x["h"].data_ptr(),
+                    active.data_ptr(), nbrs.data_ptr(), x["wl"].data_ptr(),
+                    x["aux"].data_ptr(), x["aux"].shape[0], v, d, id_bits(v),
+                    PRIORITY_CODES["xorshift_star"], 128,
+                    torch.cuda.current_stream().cuda_stream)
         if status != 0:
-            raise SystemExit(f"{name}: CUDA error {status}")
+            raise SystemExit(f"resident_fixed_point: CUDA error {status}")
+        return x["t"], x["aux"][4:6]
 
-    for name in fns:
-        run(name)
+    return run
+
+
+def _hybrid_runner(torch, g, lib):
+    from repro_torch.core.hashing import PRIORITY_CODES
+    from repro_torch.core.tuples import id_bits
+    from repro_torch.kernels.minprop_ell import ops
+
+    hyb = g.hybrid()
+    v = hyb.num_vertices
+    slabs = [(sl.rows, sl.neighbors.reshape(-1)) for sl in hyb.slices]
+    spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+    table = ops._slab_table(slabs, spill[0].device)
+    ns, h, e = len(slabs), spill[0].shape[0], spill[2].shape[0]
+    fn = _entry(lib, "hybrid_fixed_point",
+                ops._SIGNATURES["hybrid_fixed_point"])
+
+    def empty(n, dtype=torch.int32):
+        return torch.empty(n, dtype=dtype, device="cuda")
+
+    x = dict(t=empty(v), m=empty(v), lists=empty(4 * sum(hyb.slice_num_rows)),
+             scratch=empty(3 * max(h, 1)),
+             aux=empty(4 + 6 * ns + 2 * ns * ops.MAX_BLOCKS_PER_SM
+                       * ops.card_sms("cuda")),
+             acc=empty(max(ns, 1), torch.int64))
+
+    def run():
+        status = fn(x["t"].data_ptr(), x["m"].data_ptr(), None,
+                    table.data_ptr(), ns, x["lists"].data_ptr(),
+                    *(s.data_ptr() for s in spill), h, e,
+                    x["scratch"].data_ptr(), x["aux"].data_ptr(),
+                    x["aux"].shape[0], x["acc"].data_ptr(), v, id_bits(v),
+                    PRIORITY_CODES["xorshift_star"], 128,
+                    torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise SystemExit(f"hybrid_fixed_point: CUDA error {status}")
+        return x["t"], x["aux"][:2], x["acc"]
+
+    return run
+
+
+def _luby_runner(torch, g, lib, hybrid: bool):
+    from repro_torch.core.tuples import id_bits
+    from repro_torch.kernels.luby import ops as lops
+
+    if hybrid:
+        hyb = g.hybrid()
+        v = hyb.num_vertices
+        maps = [(sl.rows, sl.neighbors.reshape(-1), sl.mask.reshape(-1),
+                 sl.num_rows, sl.width) for sl in hyb.slices]
+        spill = (hyb.spill_rows, hyb.spill_seg, hyb.spill_cols)
+    else:
+        ell = g.ell
+        v = ell.num_vertices
+        maps = [(None, ell.neighbors.reshape(-1), ell.mask.reshape(-1), v,
+                 ell.neighbors.shape[1])]
+        spill = lops._empty_spill(ell.neighbors.device)
+    table = lops._map_table(maps, spill[0].device)
+    h, e = spill[0].shape[0], spill[2].shape[0]
+    fn = _entry(lib, "luby_fixed_point", lops._SIGNATURES["luby_fixed_point"])
+
+    def empty(n):
+        return torch.empty(max(n, 1), dtype=torch.int32, device="cuda")
+
+    x = dict(lists=empty(2 * sum(m[3] for m in maps)), colors=empty(2 * v),
+             heavy=empty(3 * h), aux=empty(4 + 3 * len(maps)))
+
+    def run():
+        status = fn(table.data_ptr(), len(maps), x["lists"].data_ptr(),
+                    *(s.data_ptr() for s in spill), h, e,
+                    x["colors"].data_ptr(), x["heavy"].data_ptr(),
+                    x["aux"].data_ptr(),
+                    x["aux"].shape[0], v, id_bits(v), 256,
+                    torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise SystemExit(f"luby_fixed_point: CUDA error {status}")
+        return x["colors"][:v], x["aux"][:1]
+
+    return run
+
+
+def _bench(torch, kernel: str, label: str, g, libs: dict, reps: int) -> dict:
+    source = "luby" if kernel == "luby" else "minprop_ell"
+    runs = {}
+    for name, (src, lib) in libs.items():
+        if src != source:
+            continue
+        if kernel == "resident":
+            runs[name] = _resident_runner(torch, g, lib)
+        elif kernel == "hybrid":
+            runs[name] = _hybrid_runner(torch, g, lib)
+        else:
+            runs[name] = _luby_runner(torch, g, lib, label == "Powerlaw_1M")
+    results = {name: [x.clone() for x in run()] for name, run in runs.items()}
     torch.cuda.synchronize()
-    base = state["default"]
-    bitwise = {name: torch.equal(x["t"], base["t"])
-               and torch.equal(x["aux"][4:6], base["aux"][4:6])
-               for name, x in state.items()}
-    names = list(fns)
+    base = results[f"{source}:default"]
+    bitwise = {name: all(torch.equal(x, y) for x, y in zip(r, base))
+               for name, r in results.items()}
+    names = list(runs)
     order = names + names[1:][::-1] + names[:1]
     times = {name: [] for name in names}
     for name in order:
-        _event_ms(torch, lambda n=name: run(n), 3)            # warm-up
-        times[name].append(_event_ms(torch, lambda n=name: run(n), reps))
-    return {"graph": label, "V": v, "D": d,
-            "rounds": int(base["aux"][4]), "bitwise": bitwise,
-            "ms": times}
+        _event_ms(torch, runs[name], 3)                       # warm-up
+        times[name].append(_event_ms(torch, runs[name], reps))
+    return {"kernel": kernel, "graph": label, "rounds": int(base[1][0]),
+            "bitwise": bitwise, "ms": times}
 
 
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="*", default=["resident"],
+                    choices=KERNELS)
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=kX=value,...")
-    ap.add_argument("--graphs", nargs="*", default=list(GRAPHS),
+    ap.add_argument("--graphs", nargs="*",
+                    default=["Laplace3D_100", "Elasticity3D_60"],
                     choices=list(GRAPHS))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -134,21 +258,45 @@ def main() -> int:
         return 1
     bench_minprop.OUT = OUT
     OUT.mkdir(parents=True, exist_ok=True)
-    sources = {"default": bench_minprop.SRC}
-    sources.update(bench_minprop._variant(spec) for spec in args.variant)
+    sources = {}
+    if {"resident", "hybrid"} & set(args.kernels):
+        sources["minprop_ell:default"] = ("minprop_ell", bench_minprop.SRC)
+    if "luby" in args.kernels:
+        sources["luby:default"] = ("luby", bench_minprop.CSRC / "luby.cu")
+    defaults = list(sources.values())
+    for spec in args.variant:
+        consts = spec.partition("=")[2]
+        names = [c.partition("=")[0] for c in consts.split(",") if consts]
+        hits = 0
+        for stem, src in defaults:
+            text = src.read_text()
+            if (all(re.search(rf"constexpr \w+ {c} = ", text) for c in names)
+                    if names else src == bench_minprop.SRC):
+                name, path = bench_minprop._variant(spec, src)
+                sources[f"{stem}:{name}"] = (stem, path)
+                hits += 1
+        if not hits:
+            raise SystemExit(f"{spec}: no selected kernel's source declares "
+                             "all of its constants")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    fns = _build(sources)
+    libs = _build({n.replace(":", "-"): s for n, s in sources.items()})
+    libs = {n.replace("-", ":", 1): s for n, s in libs.items()}
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
 
     import repro_torch as rt
 
     for label in args.graphs:
-        print(json.dumps(_bench(torch, rt, fns, label, args.reps)),
-              flush=True)
+        g = _graph(rt, label)
+        for kernel in args.kernels:
+            if kernel == "resident" and label == "Powerlaw_1M":
+                continue            # its padded ELL would take 120 GB
+            print(json.dumps(_bench(torch, kernel, label, g, libs,
+                                    args.reps)), flush=True)
+        del g
     print(smi, flush=True)
     return 0
 

@@ -23,10 +23,11 @@ registry snapshots:
   own ``collectives`` record, on the default process group (one rank when
   none is initialized).
 * ``hybrid_traffic``  the ``cuda_hybrid`` solve's adjacency bytes in the
-  registry equal ``hybrid_row_traffic_bytes`` and the result's record, in
-  one resident dispatch.  Its loop still reads the live count each round,
-  so the gate holds the documented count, ``host_syncs == iterations + 1``
-  (ROADMAP Queue 1, the one-dispatch hybrid loop, will bring it to 0).
+  registry equal ``hybrid_row_traffic_bytes`` and the result's record, and
+  the solve is exactly ONE dispatch (one launch of the hybrid persistent
+  kernel) with ZERO host syncs, as the reference's gate asks.  It needs the
+  card, as ``resident`` does: on the CPU the twin reads the live count each
+  round.
 
 Usage::
 
@@ -245,13 +246,20 @@ def gate_hybrid_traffic(device: str) -> str:
     import repro_torch as rt
     from repro_torch import obs
     from repro_torch.graphs.generators import powerlaw_graph
+    from repro_torch.kernels.minprop_ell import ops
     from repro_torch.kernels.minprop_ell.ops import hybrid_row_traffic_bytes
 
+    if not device.startswith("cuda"):
+        raise GateFailure(
+            f"needs the card (--device cuda): on {device} cuda_hybrid runs "
+            "its plain-torch twin, which reads the live count each round")
     be = _backend(device)
     g = rt.Graph(powerlaw_graph(4000, 8.0, seed=7), device=device)
     rt.mis2(g, engine="cuda_hybrid", backend=be)     # build the kernels
+    before = ops.LAUNCHES["hybrid_fixed_point"]
     with obs.capture() as cap:
         r = rt.mis2(g, engine="cuda_hybrid", backend=be)
+    launches = ops.LAUNCHES["hybrid_fixed_point"] - before
     _expect(r.iterations > 1, "workload too easy: need a multi-round solve")
     c = r.collectives
     _expect(c["variant"] == "hybrid", f"unexpected variant {c['variant']!r}")
@@ -270,15 +278,14 @@ def gate_hybrid_traffic(device: str) -> str:
     syncs = cap.value("mis2.host_syncs")
     _expect(dispatches == 1,
             f"hybrid solve took {dispatches} dispatches, want exactly 1")
-    _expect(syncs == r.iterations + 1,
-            f"hybrid solve paid {syncs} host syncs in {r.iterations} rounds;"
-            " its loop reads the live count once a round and once at the "
-            "end (rounds + 1) until ROADMAP Queue 1's one-dispatch hybrid "
-            "loop brings it to 0")
+    _expect(launches == 1,
+            f"hybrid solve made {launches} kernel launches, want exactly 1")
+    _expect(syncs == 0 and r.host_syncs == 0,
+            f"hybrid solve paid {syncs} in-loop host syncs, want 0")
     return (f"{int(got)} bytes == analytic model == result record "
             f"({len(c['slice_widths'])} slices + {c['spill_entries']} spill "
-            f"entries, {r.iterations} iters, 1 dispatch, {int(syncs)} host "
-            "syncs as documented)")
+            f"entries, {r.iterations} iters), 1 dispatch (1 launch), 0 host "
+            "syncs")
 
 
 GATES = {

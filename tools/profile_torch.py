@@ -19,8 +19,8 @@ the same tol and b); on Powerlaw_1M
 ``engine=None`` takes the hybrid layout) for ``coarsen(method="basic")``
 and ``color(engine="luby_hybrid")`` too; the setups themselves, with
 ``engine=None`` (the ``resident`` multilevel engine on the card), as
-``amg_setup`` on both paper graphs and ``gs_setup`` (``cluster_gs_setup``)
-on Elasticity3D_60; and, on the two paper graphs, ``misk`` (k = 2, the
+``amg_setup`` and ``gs_setup`` (``cluster_gs_setup``) on both paper
+graphs; and, on the two paper graphs, ``misk`` (k = 2, the
 ``dense`` engine ``engine=None`` takes) and ``partition(g, 8)`` (the
 multilevel partition, its coarsening on the persistent MIS-2 kernel).  The two
 batch fleets of ``chip_smoke.py`` (``Fleet_A``, the reference's batch
@@ -36,11 +36,7 @@ keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
 ``coarsen_basic``, ``color``, ``misk``, ``partition``, ``mis2_batch``,
 ``coarsen_batch``, ``color_batch``),
-and skips the setups of the others.  The coloring's per-round priorities
-(``repro_torch.core.coloring._round_priorities``) run inside a profiler
-range, ``hash_step``: a traced call that colors reports its rounds and the
-device time and kernel launches of that step a round (the hash-pack
-kernel's apart too).
+and skips the setups of the others.
 """
 from __future__ import annotations
 
@@ -57,8 +53,6 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
 FLEETS = ("Fleet_A", "Fleet_B")
-HASH_STEP = "hash_step"
-HASH_KERNEL = "hash_pack_kernel"
 # the resident multilevel setup's profiler ranges (multilevel.prolongator,
 # .galerkin, .pack, .coarse_graph): the trace times each on the device too,
 # as a span over its kernels, so it is reported apart, not summed with them
@@ -88,49 +82,6 @@ def _device_us(e) -> float:
                  or getattr(e, "self_cuda_time_total", 0.0))
 
 
-def _range_hash_step(torch) -> None:
-    """Run the coloring's per-round priorities inside a ``HASH_STEP``
-    profiler range."""
-    from repro_torch.core import coloring
-
-    step = coloring._round_priorities
-
-    def ranged(*args, **kw):
-        with torch.profiler.record_function(HASH_STEP):
-            return step(*args, **kw)
-
-    coloring._round_priorities = ranged
-
-
-def _hash_step(prof) -> dict | None:
-    """The traced call's ``HASH_STEP`` ranges: rounds, and the device time
-    and kernels of the step a round.  The profiler links the kernels that
-    torch operators launch to the range, but not the hash-pack kernel,
-    which ctypes launches: those are counted by name over the whole trace
-    (only the step launches them), and left out of the range's sum where
-    the profiler did link one."""
-    from torch.autograd import DeviceType
-
-    def kernels(e) -> list:
-        return e.kernels + [k for c in e.cpu_children for k in kernels(c)]
-
-    steps = [e for e in prof.events()
-             if e.name == HASH_STEP and e.device_type == DeviceType.CPU]
-    if not steps:
-        return None
-    torch_ops = [k for e in steps for k in kernels(e)
-                 if HASH_KERNEL not in k.name]
-    hashes = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and HASH_KERNEL in e.name]
-    n = len(steps)
-    return {"rounds": n,
-            "device_us_a_round": (sum(k.duration for k in torch_ops)
-                                  + sum(hashes)) / n,
-            "launches_a_round": (len(torch_ops) + len(hashes)) / n,
-            "hash_pack_us_a_round": sum(hashes) / n,
-            "hash_pack_launches_a_round": len(hashes) / n}
-
-
 def profile_call(torch, call, top: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,15 +94,13 @@ def profile_call(torch, call, top: int = 10) -> dict:
     peak = torch.cuda.max_memory_allocated()
     averages = [e for e in prof.key_averages() if _device_us(e) > 0]
     rows = sorted(((e.key, _device_us(e), e.count) for e in averages
-                   if e.key != HASH_STEP
-                   and not e.key.startswith(SETUP_RANGE)),
+                   if not e.key.startswith(SETUP_RANGE)),
                   key=lambda r: -r[1])
     ranges = {e.key: _device_us(e) / 1e3 for e in averages
               if e.key.startswith(SETUP_RANGE)}
     device_ms = sum(r[1] for r in rows) / 1e3
     wall_ms = walls[len(walls) // 2]
     return {"wall_ms": walls, "device_ms": device_ms,
-            "hash_step": _hash_step(prof),
             "setup_range_device_ms": ranges or None,
             "device_events": sum(r[2] for r in rows),
             "idle_share": 1.0 - device_ms / wall_ms if rows else None,
@@ -214,8 +163,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
 
-    _range_hash_step(torch)
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -239,8 +186,8 @@ def main() -> int:
             calls["amg_cg"] = lambda: _cg(torch, rt, g, rt.amg_setup)
         if label == "Elasticity3D_60":
             calls["gs_cg"] = lambda: _cg(torch, rt, g, rt.cluster_gs_setup)
-            calls["gs_setup"] = lambda: rt.cluster_gs_setup(g)
         if label != "Powerlaw_1M":
+            calls["gs_setup"] = lambda: rt.cluster_gs_setup(g)
             calls["amg_setup"] = lambda: rt.amg_setup(g)
             calls["misk"] = lambda: rt.misk(g, k=2)
             calls["partition"] = lambda: rt.partition(g, 8)
