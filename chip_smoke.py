@@ -150,7 +150,20 @@ Phases (any failure raises, and the script exits non-zero):
    on the two cluster-GS coarse graphs, capped at 1-3 rounds and uncapped,
    bitwise colors and equal rounds; the anchors through the facade, each
    with no host sync and one launch a solve; each kernel timed beside its
-   bound and its twin, and the walls beside the times before the kernels.
+   bound and its twin, and the walls beside the times before the kernels;
+16. the coarsening's label joins as one dispatch each: ``root_join``,
+   ``phase2_join`` and ``phase3_fixed_point`` against their twins on
+   Laplace3D_100, Elasticity3D_60 (padded ELL) and Powerlaw_1M (hybrid
+   layout), on the label states of a real two-phase and basic coarsening
+   (caught at the wrappers) and on seeded ones (heavy rows of Powerlaw_1M
+   unaggregated), every output bitwise and equal on a second launch, one
+   launch a call and no host sync inside one
+   (``torch.cuda.set_sync_debug_mode("error")``); the coarsening anchors
+   through the facade with one launch of each join; each kernel timed
+   beside its bound and its twin; the walls of five warm calls of
+   ``coarsen`` (both methods) on the three graphs, ``cluster_gs_setup`` on
+   Elasticity3D_60, ``amg_setup`` on Laplace3D_100 and ``partition(·, 8)``
+   on both paper graphs, beside the times before the kernels.
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -323,6 +336,17 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
         "and :163-194; its priorities are "
         "src/repro/kernels/hash_priority/kernel.py:31's arithmetic)",
         "src/repro_torch/kernels/csrc/luby.cu"),
+    # the coarsening's jitted label joins (XLA)
+    "root_join": (
+        "none (the jitted joins of src/repro/core/aggregation.py:64-79, "
+        ":144-158 and :246-278, and the cleanup loops :161-181 and "
+        ":281-301)", "src/repro_torch/kernels/csrc/joins.cu"),
+    "phase2_join": (
+        "none (the jitted src/repro/core/aggregation.py:184-200 and "
+        ":304-329)", "src/repro_torch/kernels/csrc/joins.cu"),
+    "phase3_fixed_point": (
+        "none (the lax.while_loops of src/repro/core/aggregation.py:203-229 "
+        "and :371-402 with :332-368)", "src/repro_torch/kernels/csrc/joins.cu"),
 }
 # the standalone kernels the main path no longer launches: their bodies (or,
 # for hash_pack, its arithmetic) run inside a persistent kernel; each is
@@ -357,6 +381,21 @@ WALL_BEFORE_ONE_DISPATCH_MS = {
     "Powerlaw_1M coarsen_basic": [64.86, 72.08, 72.91, 73.54, 75.06],
     "Powerlaw_1M color": [364.46, 370.92, 371.44, 376.46, 514.90],
     "Elasticity3D_60 cluster_gs_setup": [585.7, 591.0, 592.4, 607.6, 705.8],
+}
+JOINS = ("root_join", "phase2_join", "phase3_fixed_point")
+# wall ms of five warm calls on the tree before the join kernels (PERF.md
+# section 5: tools/profile_torch.py, that tree and this one in one call;
+# NVIDIA H100 80GB HBM3, 700 W)
+WALL_BEFORE_JOINS_MS = {
+    "Laplace3D_100 coarsen_two_phase": [15.40, 15.85, 16.38, 16.64, 16.91],
+    "Elasticity3D_60 coarsen_two_phase": [71.64, 71.88, 72.13, 74.01, 75.56],
+    "Powerlaw_1M coarsen_two_phase": [43.66, 45.55, 46.22, 57.75, 61.89],
+    "Powerlaw_1M coarsen_basic": [10.86, 11.64, 11.88, 11.91, 11.95],
+    "Elasticity3D_60 cluster_gs_setup": [552.21, 565.47, 585.73, 618.17,
+                                         719.03],
+    "Laplace3D_100 amg_setup": [131.80, 133.83, 137.91, 145.13, 153.37],
+    "Laplace3D_100 partition8": [110.02, 115.49, 124.22, 142.73, 143.39],
+    "Elasticity3D_60 partition8": [143.52, 146.33, 160.96, 161.78, 170.38],
 }
 SLICED = ("sliced_refresh_columns", "sliced_decide")
 UNFUSED = ("refresh_columns", "decide")
@@ -411,6 +450,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.hash_priority import ops as hash_ops
     from repro_torch.kernels.hash_priority import ref as hash_ref
+    from repro_torch.kernels.joins import ops as join_ops
+    from repro_torch.kernels.joins import ref as join_ref
     from repro_torch.kernels.luby import ops as luby_ops
     from repro_torch.kernels.luby import ref as luby_ref
     from repro_torch.kernels.minprop_ell import ops, ref
@@ -419,7 +460,7 @@ def main() -> int:
     from repro_torch.kernels.spmv_ell import ops as spmv_ops
     from repro_torch.kernels.spmv_ell import ref as spmv_ref
 
-    launches = Launches(ops, spmv_ops, hash_ops, run_ops, luby_ops)
+    launches = Launches(ops, spmv_ops, hash_ops, run_ops, luby_ops, join_ops)
     provenance_checked = checking_provenance(rt)
     path_launches = {k: 0 for k in KERNELS}
 
@@ -980,10 +1021,22 @@ def main() -> int:
     emit({"phase": "hybrid_luby_one_dispatch", "card": smi,
           "launches": two_counts, "seconds": time.perf_counter() - t0,
           **two})
+    # -- 16. the coarsening's label joins as one dispatch each -------------
+    t0 = time.perf_counter()
+    joins = _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs,
+                                pl, launches, errs)
+    join_counts = joins.pop("launches")
+    add_path(join_counts)
+    for k in JOINS:
+        check(join_counts[k] > 0, f"{k} was never launched in phase 16")
+    emit({"phase": "joins_one_dispatch", "card": smi,
+          "launches": join_counts, "seconds": time.perf_counter() - t0,
+          **joins})
     new_sites = {"distributed (phase 12)": dist_counts,
                  "serving (phase 13)": serve_counts,
                  "one dispatch (phase 14)": one_counts,
-                 "one dispatch (phase 15)": two_counts}
+                 "one dispatch (phase 15)": two_counts,
+                 "one dispatch (phase 16)": join_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -1011,6 +1064,15 @@ def main() -> int:
         LUBY: ("Powerlaw_1M hybrid layout, a whole color loop ("
                f"{two['timing'][LUBY]['Powerlaw_1M hybrid']['rounds']} "
                "rounds)", two["timing"][LUBY]["Powerlaw_1M hybrid"]),
+        "root_join": ("Powerlaw_1M hybrid layout, phase 1 of coarsen("
+                      "two_phase)", joins["timing"]["root_join"][
+                          "Powerlaw_1M root_join"]),
+        "phase2_join": ("Powerlaw_1M hybrid layout, coarsen(two_phase)",
+                        joins["timing"]["phase2_join"][
+                            "Powerlaw_1M phase2_join"]),
+        "phase3_fixed_point": ("Elasticity3D_60, coarsen(two_phase)",
+                               joins["timing"]["phase3_fixed_point"][
+                                   "Elasticity3D_60 phase3_fixed_point"]),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -1028,6 +1090,8 @@ def main() -> int:
             entry["by_graph"] = {g: timing[g][k] for g in PAPER_GRAPHS}
         if k in (HYBRID, LUBY):
             entry["by_graph"] = two["timing"][k]
+        if k in JOINS:
+            entry["by_graph"] = joins["timing"][k]
         if k in CARRIED_BY:
             entry["carried_by"] = CARRIED_BY[k]
             entry["note"] = (
@@ -2312,6 +2376,238 @@ def _hybrid_luby_one_dispatch(torch, rt, ops, ref, luby_ops, luby_ref,
             *((f"{label} cluster_gs_setup",
                lambda g=graphs[label]: rt.cluster_gs_setup(
                    g, aggregation="two_phase")) for label in CLUSTER_GS))}
+    return out
+
+
+JOIN_OF = {"root_join": "root_join", "cleanup_join": "root_join",
+           "phase2_join": "phase2_join",
+           "phase3_fixed_point": "phase3_fixed_point"}
+
+
+def _join_calls(rt, join_ops, g, method: str) -> list:
+    """The join wrapper calls of one ``coarsen(method=...)`` on ``g``, as
+    ``(wrapper, args, kwargs)`` with every tensor cloned: the label states
+    a real coarsening reaches."""
+    inner = {k: getattr(join_ops, k) for k in JOIN_OF}
+    seen = []
+
+    def spy(name):
+        def call(*args, **kw):
+            seen.append((name, tuple(a.clone() if hasattr(a, "clone") else a
+                                     for a in args), dict(kw)))
+            return inner[name](*args, **kw)
+        return call
+
+    for k in JOIN_OF:
+        setattr(join_ops, k, spy(k))
+    try:
+        rt.coarsen(g, method=method)
+    finally:
+        for k, fn in inner.items():
+            setattr(join_ops, k, fn)
+    return seen
+
+
+def _random_join_calls(torch, np, rng, layout, dev) -> list:
+    """Join calls on label states drawn from ``rng``: random roots (with
+    and without the cleanup), random labels for the cleanup and phase 3
+    (a third to nine tenths unlabeled, ids from a fifth of V), a random
+    second set for phase 2; on a layout with a spill, every other heavy
+    row unlabeled, and in one phase-3 state all of them."""
+    v = layout.v
+    heavy = layout.spill[0].long()
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def labels(frac, all_heavy=False):
+        lab = np.where(rng.random(v) < frac,
+                       rng.integers(0, max(v // 5, 1), v), -1)
+        lab = tensor(lab.astype(np.int32))
+        lab[heavy if all_heavy else heavy[::2]] = -1
+        return lab
+
+    def phase():
+        return tensor(rng.integers(0, 3, v).astype(np.uint8))
+
+    roots = tensor(rng.random(v) < 0.05)
+    nagg = torch.tensor([v // 5], dtype=torch.int32, device=dev)
+    return [
+        ("root_join", (layout, roots), {"cleanup_rounds": 0}),
+        ("root_join", (layout, roots), {"cleanup_rounds": 4}),
+        ("cleanup_join", (layout, labels(0.6), phase()), {}),
+        ("phase2_join", (layout, labels(0.5), phase(),
+                         tensor(rng.random(v) < 0.3), nagg),
+         {"min_secondary": 2}),
+        ("phase2_join", (layout, labels(0.7), phase(),
+                         tensor(rng.random(v) < 0.3), nagg),
+         {"min_secondary": 3}),
+        ("phase3_fixed_point", (layout, labels(0.5), phase()), {}),
+        ("phase3_fixed_point", (layout, labels(0.1), phase()), {}),
+        ("phase3_fixed_point", (layout, labels(0.7, all_heavy=True),
+                                phase()), {}),
+    ]
+
+
+def _rows_in(layout, un) -> tuple[list, int, int]:
+    """Per map, its rows where the bool ``[V]`` ``un`` holds, and the heavy
+    rows where it holds and their entries."""
+    per_map = [int(un.sum()) if rows is None else int(un[rows.long()].sum())
+               for rows, _, _ in layout.maps]
+    rows, seg, _ = layout.spill
+    if not rows.shape[0]:
+        return per_map, 0, 0
+    heavy_un = un[rows.long()]
+    return per_map, int(heavy_un.sum()), int(heavy_un[seg.long()].sum())
+
+
+def _join_bytes(join_ref, name: str, args, kw) -> int:
+    """The least bytes a join moves (``_luby_bytes`` counts the same way):
+    its [V] inputs read and outputs written once; a pass over rows reads
+    their D ids (and mask bytes where it tests them), a slab row's global
+    id, and the words its ids point at (at most V a pass); a pass over the
+    spill reads its heavy rows' ids and their entries' segments and
+    columns and the words those point at.  The rounds are the twin's
+    (``trace``), each over the rows unlabeled at its start."""
+    layout = args[0]
+    v = layout.v
+    maps = [(rows is not None, nb.shape[0], nb.shape[1])
+            for rows, nb, _ in layout.maps]
+    h, e = layout.spill[0].shape[0], layout.spill[2].shape[0]
+
+    def rows_pass(counts, heavy, entries, mask: bool, gathers: int = 1):
+        b = 0
+        for (slab, _, d), n in zip(maps, counts):
+            b += n * (4 * d + (d if mask else 0) + (4 if slab else 0))
+            b += gathers * 4 * min(n * d, v)
+        return b + 4 * heavy + 8 * entries + gathers * 4 * min(entries, v)
+
+    every = [r for _, r, _ in maps]
+    trace = []
+    if name in ("root_join", "cleanup_join"):
+        twin = getattr(join_ref, name + "_ref")
+        twin(*args, **kw, trace=trace)
+        nbytes = 5 * v                    # labels and marks written
+        nbytes += v + rows_pass(every, h, e, False) if name == "root_join" \
+            else 5 * v                    # the roots, or labels and marks
+        for labels in trace:
+            nbytes += rows_pass(*_rows_in(layout, labels < 0), False)
+        return nbytes
+    if name == "phase2_join":
+        labels, in_set2 = args[1], args[3]
+        return (12 * v + 8     # in: labels, marks, the set, nagg; out: labels,
+                               # marks, roots2, nagg
+                + rows_pass(*_rows_in(layout, in_set2), True)
+                + rows_pass(*_rows_in(layout, labels < 0), False))
+    join_ref.phase3_fixed_point_ref(*args, **kw, trace=trace)
+    nbytes = 10 * v                       # labels and marks, in and out
+    for labels in trace:                  # the labels and the sizes
+        nbytes += rows_pass(*_rows_in(layout, labels < 0), True, 2)
+    return nbytes
+
+
+def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
+                        launches, errs) -> dict:
+    """Phase 16: each join kernel against its twin on the label states of
+    real coarsenings and on seeded ones, one launch a call and no host sync
+    inside it; the coarsening anchors through the facade with one launch of
+    each join; each kernel timed beside its bound and its twin; the walls
+    of the calls that coarsen beside the times before the kernels."""
+    dev = pl.device
+    rng = np.random.default_rng(2026)
+    cases = {"Laplace3D_100": graphs["Laplace3D_100"],
+             "Elasticity3D_60": graphs["Elasticity3D_60"], "Powerlaw_1M": pl}
+    out = {"vs_twin": {}}
+    timed = {}
+    for label, g in cases.items():
+        calls = [(f"{m} {i}", c) for m in ("two_phase", "basic")
+                 for i, c in enumerate(_join_calls(rt, join_ops, g, m))]
+        layout = calls[0][1][1][0]
+        calls += [(f"seeded {i}", c) for i, c in enumerate(
+            _random_join_calls(torch, np, rng, layout, dev))]
+        for case, (name, args, kw) in calls:
+            kernel = JOIN_OF[name]
+            wrapper = getattr(join_ops, name)
+            torch.cuda.synchronize()
+            before = dict(join_ops.LAUNCHES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = wrapper(*args, **kw)
+                again = wrapper(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            after = dict(join_ops.LAUNCHES)
+            want = getattr(join_ref, name + "_ref")(*args, **kw)
+            torch.cuda.synchronize()
+            check({k: after[k] - before[k] for k in after}
+                  == {k: 2 * (k == kernel) for k in after},
+                  f"{label} {case}: {name} launched {after} from {before}")
+            same = [torch.equal(x, y) and torch.equal(x, z)
+                    for x, y, z in zip(got, again, want)]
+            check(all(same), f"{label} {case} {name}: outputs {same} equal "
+                  "twin and rerun")
+            errs[kernel] = max(errs[kernel], max(
+                _max_abs_err(x, y) for x, y in zip(got, want)))
+            rec = {"kw": kw, "bitwise": True,
+                   "unlabeled_after": int((got[0] < 0).sum())}
+            if name != "root_join":   # per map, heavy rows, their entries
+                rec["unlabeled_before"] = _rows_in(layout, args[1] < 0)
+            out["vs_twin"][f"{label} {case} {name}"] = rec
+            if case.startswith("two_phase") or (
+                    case.startswith("basic") and name == "root_join"):
+                key = f"{kernel} {kw.get('cleanup_rounds', '')}".strip()
+                timed.setdefault(label, {})[key] = (name, args, kw)
+    # the anchors through the facade, one launch of each join
+    launches.reset()
+    anchors = {}
+    for label, method, want in (
+            ("Laplace3D_100", "two_phase", ANCHORS["Laplace3D_100"]["coarsen"]),
+            ("Elasticity3D_60", "two_phase",
+             ANCHORS["Elasticity3D_60"]["coarsen"]),
+            ("Powerlaw_1M", "two_phase", POWERLAW_1M["two_phase"]),
+            ("Powerlaw_1M", "basic", POWERLAW_1M["basic"])):
+        before = launches.read()
+        a = rt.coarsen(cases[label], method=method)
+        after = launches.read()
+        got = {k: after[k] - before[k] for k in join_ops.LAUNCHES}
+        check((a.num_aggregates, a.iterations, a.digest) == want,
+              f"{label} coarsen({method}): {a.digest} != {want}")
+        check(got == ({"root_join": 1, "phase2_join": 1,
+                       "phase3_fixed_point": 1} if method == "two_phase"
+                      else {"root_join": 1, "phase2_join": 0,
+                            "phase3_fixed_point": 0}),
+              f"{label} coarsen({method}): join launches {got}")
+        anchors[f"{label} coarsen({method})"] = [
+            a.num_aggregates, a.iterations, a.digest, got]
+    out["anchors"] = anchors
+    out["launches"] = launches.read()
+    # each kernel beside its bound and its twin, at a real coarsening's state
+    timing = {k: {} for k in JOINS}
+    for label, per in timed.items():
+        for key, (name, args, kw) in per.items():
+            kernel = JOIN_OF[name]
+            timing[kernel][f"{label} {key}".strip()] = _timed(
+                torch, lambda n=name, a=args, k=kw: getattr(join_ops, n)(
+                    *a, **k),
+                lambda n=name, a=args, k=kw: getattr(join_ref, n + "_ref")(
+                    *a, **k),
+                None, _join_bytes(join_ref, name, args, kw), reps=20,
+                plain_reps=3)
+    out["timing"] = timing
+    l100, e60 = graphs["Laplace3D_100"], graphs["Elasticity3D_60"]
+    out["wall_ms"] = {
+        what: {"now": _wall_ms(torch, call, reps=5),
+               "before": WALL_BEFORE_JOINS_MS.get(what)}
+        for what, call in (
+            *((f"{label} coarsen_{m}", lambda g=g, m=m: rt.coarsen(
+                g, method=m)) for label, g in cases.items()
+              for m in ("two_phase", "basic")),
+            ("Elasticity3D_60 cluster_gs_setup",
+             lambda: rt.cluster_gs_setup(e60, aggregation="two_phase")),
+            ("Laplace3D_100 amg_setup",
+             lambda: rt.amg_setup(l100, aggregation="two_phase")),
+            ("Laplace3D_100 partition8", lambda: rt.partition(l100, 8)),
+            ("Elasticity3D_60 partition8", lambda: rt.partition(e60, 8)))}
     return out
 
 

@@ -22,7 +22,9 @@ the coarsening's label joins).  Only what is per graph is per member:
   unpadded slice, exactly as the single-graph aggregation does.
 
 The loops read one flag a round per bucket on the host (``host_syncs``),
-where the reference runs each fixed point as one dispatch.  Every
+where the reference runs each fixed point as one dispatch; the
+coarsening's cleanup and phase-3 loops are one launch each of the join
+kernels (``kernels.joins``) over the bucket's block-diagonal ELL.  Every
 per-graph result is bit-identical to the single-graph call's and to the
 reference's batched call's.  The drivers return *core* result dataclasses
 in batch input order; the facade (``repro_torch.api.facade``) wraps them
@@ -36,14 +38,9 @@ import numpy as np
 import torch
 
 from ..core.aggregation import (
-    INT32_MAX,
     AggregationResult,
     _aggregate_serial_greedy_impl,
-    _cleanup_join_resident,
-    _count_unagg,
     _finalize_singletons,
-    _join_rows,
-    _phase3_resident,
 )
 from ..core.coloring import (
     MAX_ROUNDS_DEFAULT,
@@ -58,6 +55,8 @@ from ..core.mis2 import (
     mis2_dense_batched_fixed_point,
 )
 from ..core.tuples import IN, is_undecided
+from ..kernels.joins import ops as join_ops
+from ..kernels.joins.ref import INT32_MAX, count_unagg, join_rows
 from .container import GraphBatch, GraphBucket
 
 
@@ -184,7 +183,7 @@ def _coarsen_bucket(bucket: GraphBucket, method: str, options: Mis2Options,
     in1 = (t1 == IN) & bucket.row_valid
     undecided = is_undecided(t1).any(dim=1)        # padded rows are OUT
     nagg = in1.sum(dim=1, dtype=torch.int32)
-    labels = _join_rows(nbrs, _member_root_labels(
+    labels = join_rows(nbrs, _member_root_labels(
         in1, torch.zeros(bsz, dtype=torch.int32, device=dev)))
     phase = (labels >= 0).to(torch.uint8)
     roots = in1.view(-1)
@@ -201,11 +200,11 @@ def _coarsen_bucket(bucket: GraphBucket, method: str, options: Mis2Options,
         iters = iters + it2
         undecided |= (is_undecided(t2) & unagg.view_as(t2)).any(dim=1)
         in2 = ((t2 == IN) & bucket.row_valid).view(-1)
-        n_unagg = _count_unagg(nbrs, mask, torch.arange(n, device=dev),
-                               labels)
+        n_unagg = count_unagg(nbrs, mask, torch.arange(n, device=dev),
+                              labels)
         roots2 = in2 & (n_unagg >= min_secondary_neighbors)
         roots = roots | roots2
-        adj2 = _join_rows(nbrs, _member_root_labels(roots2.view(bsz, rows),
+        adj2 = join_rows(nbrs, _member_root_labels(roots2.view(bsz, rows),
                                                     nagg))
         newly = (labels < 0) & (adj2 >= 0)
         labels = torch.where(newly, adj2, labels)
@@ -220,12 +219,14 @@ def _coarsen_bucket(bucket: GraphBucket, method: str, options: Mis2Options,
                 - nagg).repeat_interleave(rows)
         labels = torch.where(labels >= 0, labels + base, labels)
         labels = torch.where(valid, labels, n - 1).to(torch.int32)
-        labels, phase = _phase3_resident(nbrs, mask, labels, phase)
+        labels, phase = join_ops.phase3_fixed_point(
+            join_ops.ell_layout(nbrs.to(torch.int32), mask), labels, phase)
         labels = torch.where(labels >= 0, labels - base, labels)
     else:
         # basic: leftovers join the min adjacent aggregate
         labels = torch.where(valid, labels, n - 1).to(torch.int32)
-        labels, phase = _cleanup_join_resident(nbrs, labels, phase)
+        labels, phase = join_ops.cleanup_join(
+            join_ops.ell_layout(nbrs.to(torch.int32), mask), labels, phase)
 
     labels = labels.view(bsz, rows).cpu().numpy()
     phase = phase.view(bsz, rows).cpu().numpy()

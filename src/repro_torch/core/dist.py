@@ -345,35 +345,35 @@ def _padded_of(graph, backend, padded) -> ShardedEll:
 def join_adjacent_root_distributed(graph, root_label, backend=None,
                                    padded: ShardedEll | None = None
                                    ) -> np.ndarray:
-    """Sharded ``core.aggregation._join_rows`` over the root labels: one
+    """Sharded ``kernels.joins.ref.join_rows`` over the root labels: one
     label all-gather and the local rowwise min."""
-    from .aggregation import INT32_MAX, _join_rows
+    from ..kernels.joins.ref import INT32_MAX, join_rows
 
     sh = _padded_of(graph, backend, padded)
     return _sharded_rows(sh, root_label, INT32_MAX,
-                         lambda rl: _join_rows(sh.neighbors, rl))
+                         lambda rl: join_rows(sh.neighbors, rl))
 
 
 def count_unagg_neighbors_distributed(graph, labels, backend=None,
                                       padded: ShardedEll | None = None
                                       ) -> np.ndarray:
-    """Sharded ``core.aggregation._count_unagg``."""
-    from .aggregation import _count_unagg
+    """Sharded ``kernels.joins.ref.count_unagg``."""
+    from ..kernels.joins.ref import count_unagg
 
     sh = _padded_of(graph, backend, padded)
-    return _sharded_rows(sh, labels, 0, lambda lab: _count_unagg(
+    return _sharded_rows(sh, labels, 0, lambda lab: count_unagg(
         sh.neighbors, sh.mask, sh.rows, lab))
 
 
 def phase3_join_distributed(graph, labels, aggsize, backend=None,
                             padded: ShardedEll | None = None) -> np.ndarray:
-    """Sharded ``core.aggregation._phase3_rows`` (max-coupling leftover
+    """Sharded ``kernels.joins.ref.phase3_rows`` (max-coupling leftover
     join against frozen tentative labels): label all-gather and the local
     rowwise lexicographic argmin; the aggregate sizes ride replicated."""
-    from .aggregation import _phase3_rows
+    from ..kernels.joins.ref import phase3_rows
 
     sh = _padded_of(graph, backend, padded)
     size = torch.as_tensor(np.asarray(aggsize, dtype=np.int32),
                            device=sh.rows.device)
-    return _sharded_rows(sh, labels, 0, lambda lab: _phase3_rows(
+    return _sharded_rows(sh, labels, 0, lambda lab: phase3_rows(
         sh.neighbors, sh.mask, sh.rows, lab, lab[sh.lo:sh.hi], size))

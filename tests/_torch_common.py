@@ -200,3 +200,140 @@ def ref_partition(case: str):
                         engine="compacted_resident")
     return (determinism_digest(r.parts), r.edge_cut, r.levels, r.history,
             r.converged)
+
+
+# ---------------------------------------------------------------------------
+# the coarsening's joins (tests/test_torch_joins_dispatch.py)
+# ---------------------------------------------------------------------------
+
+def _star(leaves: int):
+    from repro.graphs.csr import csr_from_coo
+
+    hub = np.zeros(leaves, dtype=np.int64)
+    tips = np.arange(1, leaves + 1)
+    return csr_from_coo(np.concatenate([hub, tips]),
+                        np.concatenate([tips, hub]), leaves + 1)
+
+
+#: the joins' graphs: the hybrid tests' three and a star of 60 leaves (one
+#: row of 60 slots; the reference's phase 3 stalls on stars past ~185)
+JOIN_GRAPHS = {**HYBRID_GRAPHS, "star60": lambda: _star(60)}
+
+
+@functools.lru_cache(maxsize=None)
+def ref_join_graph(name: str):
+    return repro.Graph(JOIN_GRAPHS[name]())
+
+
+def port_join_graph(name: str, device="cpu") -> Graph:
+    csr = ref_join_graph(name).csr
+    return Graph.from_reference(csr.indptr, csr.indices, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def join_inputs(name: str, state: str) -> dict:
+    """Numpy inputs of every join on graph ``name``: ``state`` ``coarsening``
+    takes the states a two-phase coarsening reaches (the reference's MIS-2
+    roots, its phase-1 labels, the second MIS-2's set, its phase-2
+    labels), ``seeded`` draws them from a seed (random roots and sets,
+    labels a third to nine tenths unlabeled, every other heavy row
+    unlabeled)."""
+    import jax.numpy as jnp
+
+    from repro.core.aggregation import (
+        _join_adjacent_root,
+        _phase2_join_resident,
+    )
+
+    g = ref_join_graph(name)
+    v = g.num_vertices
+    if state == "seeded":
+        rng = np.random.default_rng(sum(map(ord, name)))
+        heavy = np.asarray(g.hybrid().spill_rows)
+
+        def labels(frac):
+            lab = np.where(rng.random(v) < frac,
+                           rng.integers(0, max(v // 5, 1), v), -1)
+            lab[heavy[::2]] = -1
+            return lab.astype(np.int32)
+
+        return dict(roots=rng.random(v) < 0.05, labels1=labels(0.6),
+                    phase1=rng.integers(0, 3, v).astype(np.uint8),
+                    in_set2=rng.random(v) < 0.3, nagg=v // 5,
+                    labels2=labels(0.5),
+                    phase2=rng.integers(0, 3, v).astype(np.uint8))
+    ell = g.ell
+    roots = np.asarray(repro.mis2(g, engine="dense").in_set)
+    ids = np.cumsum(roots) - 1
+    rl = np.where(roots, ids, 2**31 - 1).astype(np.int32)
+    labels1 = np.asarray(_join_adjacent_root(ell.neighbors, jnp.asarray(rl)))
+    phase1 = (labels1 >= 0).astype(np.uint8)
+    in_set2 = np.asarray(repro.mis2(g, active=labels1 < 0,
+                                    engine="dense").in_set)
+    labels2, _, newly = _phase2_join_resident(
+        ell.neighbors, ell.mask, jnp.asarray(labels1), jnp.asarray(in_set2),
+        jnp.int32(int(roots.sum())), 2)
+    phase2 = np.where(np.asarray(newly), 2, phase1).astype(np.uint8)
+    return dict(roots=roots, labels1=labels1, phase1=phase1, in_set2=in_set2,
+                nagg=int(roots.sum()), labels2=np.asarray(labels2),
+                phase2=phase2)
+
+
+@functools.lru_cache(maxsize=None)
+def ref_join(name: str, layout: str, join: str, state: str,
+             min_secondary: int = 2) -> tuple:
+    """The reference's jitted join ``join`` (``root``, ``root_cleanup``,
+    ``cleanup``, ``phase2``, ``phase3``) over the ``ell`` or ``hybrid``
+    layout of graph ``name`` on :func:`join_inputs`, as numpy: labels,
+    phase marks (the driver's: 1 / 0 from the root join, 2 where phase 2
+    joined) and, for ``phase2``, roots2 and the aggregates after."""
+    import jax.numpy as jnp
+
+    from repro.core import aggregation as agg
+
+    g = ref_join_graph(name)
+    x = join_inputs(name, state)
+    ell = g.ell
+    if layout == "ell":
+        head, head_mask = (ell.neighbors,), (ell.neighbors, ell.mask)
+        root_fn, cleanup_fn = agg._join_adjacent_root, agg._cleanup_join_resident
+        phase2_fn, phase3_fn = (agg._phase2_join_resident,
+                                agg._phase3_resident)
+    else:
+        h = g.hybrid()
+        head = head_mask = (tuple(h.slices), h.spill_rows, h.spill_seg,
+                            h.spill_cols)
+        root_fn, cleanup_fn = (agg._hybrid_join_jit,
+                               agg._cleanup_join_resident_hybrid)
+        phase2_fn, phase3_fn = (agg._phase2_join_resident_hybrid,
+                                agg._phase3_resident_hybrid)
+    if join in ("root", "root_cleanup"):
+        ids = np.cumsum(x["roots"]) - 1
+        rl = np.where(x["roots"], ids, 2**31 - 1).astype(np.int32)
+        labels = np.asarray(root_fn(*head, jnp.asarray(rl)))
+        phase = (labels >= 0).astype(np.uint8)
+        if join == "root_cleanup":
+            labels, phase = cleanup_fn(*head, jnp.asarray(labels),
+                                       jnp.asarray(phase))
+        return np.asarray(labels), np.asarray(phase)
+    if join == "cleanup":
+        out = cleanup_fn(*head, jnp.asarray(x["labels1"]),
+                         jnp.asarray(x["phase1"]))
+        return tuple(np.asarray(a) for a in out)
+    if join == "phase2":
+        labels, roots2, newly = phase2_fn(
+            *head_mask, jnp.asarray(x["labels1"]), jnp.asarray(x["in_set2"]),
+            jnp.int32(x["nagg"]), min_secondary)
+        roots2 = np.asarray(roots2)
+        return (np.asarray(labels),
+                np.where(np.asarray(newly), 2, x["phase1"]).astype(np.uint8),
+                roots2, x["nagg"] + int(roots2.sum()))
+    if layout == "ell" and ell.neighbors.shape[1] > 64:
+        # the reference's ELL phase 3 unrolls D^2 compares, which XLA takes
+        # minutes to compile at the power-law graph's D = 199; its hybrid
+        # phase 3, which it holds bit-identical to the ELL one
+        # (tests/test_hybrid.py), stands in
+        return ref_join(name, "hybrid", join, state)
+    out = phase3_fn(*head_mask, jnp.asarray(x["labels2"]),
+                    jnp.asarray(x["phase2"]))
+    return tuple(np.asarray(a) for a in out)

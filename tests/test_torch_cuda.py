@@ -19,7 +19,12 @@ fused kernels and at the worklist's edges) and drive the host-driven
 slice-14 cases hold the persistent kernel of ``cuda_resident`` against its
 twin (capped rounds, a half mask) and count one launch and no host sync a
 solve; the slice-15 cases do the same for the persistent kernels of
-``cuda_hybrid`` and of the Luby loops (``luby``, ``luby_hybrid``).
+``cuda_hybrid`` and of the Luby loops (``luby``, ``luby_hybrid``); the
+slice-16 cases hold the coarsening's join kernels (``root_join``,
+``phase2_join``, ``phase3_fixed_point``) against their twins on the states
+of a real coarsening and on seeded ones, over the padded ELL and the
+hybrid layout, one launch a call, no host sync inside one, and a
+cooperative grid that does not fit refused.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -42,6 +47,8 @@ from repro_torch.graphs.ops import spmv_ell
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_priority import ops as hash_ops
 from repro_torch.kernels.hash_priority import ref as hash_ref
+from repro_torch.kernels.joins import ops as join_ops
+from repro_torch.kernels.joins import ref as join_ref
 from repro_torch.kernels.luby import ops as luby_ops
 from repro_torch.kernels.luby import ref as luby_ref
 from repro_torch.kernels.minprop_ell import ops, ref
@@ -542,7 +549,10 @@ def no_twins_on_cuda(monkeypatch):
                               "decide_ref", "resident_fixed_point_ref",
                               "hybrid_fixed_point_ref")),
                        (luby_ref, ("luby_fixed_point_ref",
-                                   "luby_fixed_point_hybrid_ref"))):
+                                   "luby_fixed_point_hybrid_ref")),
+                       (join_ref, ("root_join_ref", "cleanup_join_ref",
+                                   "phase2_join_ref",
+                                   "phase3_fixed_point_ref"))):
         for n in names:
             monkeypatch.setattr(mod, n, guard(getattr(mod, n)))
 
@@ -1109,3 +1119,142 @@ def test_streaming_repair_on_the_card(cuda_device):
         assert session.last_repair.checked
         assert r.digest == rt.mis2(session.graph, engine="dense",
                                    options=session.options).digest
+
+
+# -- slice 16: the coarsening's joins, one launch each ---------------------
+
+def _join_layout(graph: str, layout: str, device):
+    if graph == "star60":
+        hub = np.zeros(60, dtype=np.int64)
+        tips = np.arange(1, 61)
+        g = rt.Graph(rt.graphs.csr_from_coo(np.concatenate([hub, tips]),
+                                            np.concatenate([tips, hub]), 61),
+                     device=device)
+    else:
+        g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4) if graph ==
+                     "powerlaw" else gen.laplace3d(12), device=device)
+    if layout == "ell":
+        return g, join_ref.ell_layout(*g.ell)
+    return g, join_ref.hybrid_layout(g.hybrid(
+        spill_cap=16 if layout == "hybrid_spill16" else None))
+
+
+def _join_calls(g, layout, device, seed: int) -> list:
+    """``(wrapper, args, kwargs)`` of every join on the states of a real
+    two-phase coarsening (phase 1 from the MIS-2 roots, phase 2 from the
+    second MIS-2's set, phase 3 from phase 2's labels) and on seeded ones
+    (a third to nine tenths unlabeled, every other heavy row unlabeled)."""
+    v = layout.v
+    cpu = rt.Backend(device="cpu")
+    gc = rt.Graph.from_reference(g.csr.indptr, g.csr.indices, device="cpu")
+    roots = torch.from_numpy(np.asarray(rt.mis2(gc, backend=cpu).in_set))
+    lay_cpu = join_ref.Layout(
+        tuple(tuple(None if t is None else t.cpu() for t in m)
+              for m in layout.maps),
+        tuple(t.cpu() for t in layout.spill), v)
+    labels1, phase1, aux = join_ref.root_join_ref(lay_cpu, roots)
+    in_set2 = torch.from_numpy(np.asarray(rt.mis2(
+        gc, active=(labels1 < 0).numpy(), backend=cpu).in_set))
+    labels2, phase2, _, _ = join_ref.phase2_join_ref(
+        lay_cpu, labels1, phase1, in_set2, aux[:1], min_secondary=2)
+    rng = np.random.default_rng(seed)
+    heavy = layout.spill[0].long().cpu()
+
+    def labels(frac):
+        lab = torch.from_numpy(np.where(
+            rng.random(v) < frac, rng.integers(0, max(v // 5, 1), v),
+            -1).astype(np.int32))
+        lab[heavy[::2]] = -1
+        return lab
+
+    def marks():
+        return torch.from_numpy(rng.integers(0, 3, v).astype(np.uint8))
+
+    nagg = torch.tensor([v // 5], dtype=torch.int32)
+    calls = [
+        ("root_join", (roots,), {"cleanup_rounds": 0}),
+        ("root_join", (roots,), {"cleanup_rounds": 4}),
+        ("cleanup_join", (labels1, phase1), {}),
+        ("phase2_join", (labels1, phase1, in_set2, aux[:1].clone()),
+         {"min_secondary": 2}),
+        ("phase3_fixed_point", (labels2, phase2), {}),
+        ("root_join", (torch.from_numpy(rng.random(v) < 0.05),),
+         {"cleanup_rounds": 4}),
+        ("cleanup_join", (labels(0.6), marks()), {}),
+        ("phase2_join", (labels(0.5), marks(),
+                         torch.from_numpy(rng.random(v) < 0.3), nagg),
+         {"min_secondary": 3}),
+        ("phase3_fixed_point", (labels(0.5), marks()), {}),
+        ("phase3_fixed_point", (labels(0.9), marks()), {}),
+    ]
+    return [(name, (layout,) + tuple(a.to(device) for a in args), kw)
+            for name, args, kw in calls]
+
+
+JOIN_KERNEL = {"root_join": "root_join", "cleanup_join": "root_join",
+               "phase2_join": "phase2_join",
+               "phase3_fixed_point": "phase3_fixed_point"}
+
+
+@pytest.mark.parametrize("layout", ["ell", "hybrid", "hybrid_spill16"])
+@pytest.mark.parametrize("graph", ["laplace3d(12)", "powerlaw", "star60"])
+def test_join_kernels_match_twins(cuda_device, graph, layout):
+    """Each join kernel against its twin on the same card: every output
+    bitwise, equal on a second launch, one launch a call, and no host sync
+    inside a call (after the first, which copies the layout's map table)."""
+    g, lay = _join_layout(graph, layout, cuda_device)
+    for i, (name, args, kw) in enumerate(_join_calls(g, lay, cuda_device,
+                                                     seed=7)):
+        wrapper = getattr(join_ops, name)
+        wrapper(*args, **kw)                     # the map table, once
+        torch.cuda.synchronize()
+        before = dict(join_ops.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = wrapper(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        after = dict(join_ops.LAUNCHES)
+        again = wrapper(*args, **kw)
+        want = getattr(join_ref, name + "_ref")(*args, **kw)
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == JOIN_KERNEL[name]) for k in after}, (i, name)
+        for x, y, z in zip(got, again, want):
+            assert torch.equal(x, y) and torch.equal(x, z), (i, name, kw)
+
+
+def test_join_coarsening_on_the_card_equals_the_cpu(cuda_device,
+                                                    no_twins_on_cuda):
+    """Both coarsenings on the card (the join kernels, one launch each)
+    against the CPU twins, on the ELL and the hybrid layout."""
+    for engine in ("cuda_resident", "cuda_hybrid"):
+        for method in ("two_phase", "basic"):
+            g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4))
+            gc = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4), device="cpu")
+            before = dict(join_ops.LAUNCHES)
+            a = rt.coarsen(g, method=method, mis2_engine=engine)
+            after = dict(join_ops.LAUNCHES)
+            b = rt.coarsen(gc, method=method, mis2_engine=engine,
+                           backend=rt.Backend(device="cpu"))
+            assert a.digest == b.digest and a.num_aggregates == \
+                b.num_aggregates
+            want = ({"root_join": 1, "phase2_join": 1,
+                     "phase3_fixed_point": 1} if method == "two_phase"
+                    else {"root_join": 1, "phase2_join": 0,
+                          "phase3_fixed_point": 0})
+            assert {k: after[k] - before[k] for k in after} == want
+
+
+def test_join_grid_that_does_not_fit_raises(cuda_device):
+    """A cooperative grid past what the card holds at once is refused by
+    the launch and raises; the next launch runs."""
+    g, lay = _join_layout("laplace3d(12)", "ell", cuda_device)
+    roots = torch.zeros(lay.v, dtype=torch.bool, device=cuda_device)
+    roots[::9] = True
+    before = dict(join_ops.LAUNCHES)
+    with pytest.raises(_build.KernelLaunchError, match="root_join"):
+        join_ops._root_join_on_card(lay, roots, None, None, 0, blocks=2000)
+    assert join_ops.LAUNCHES == before
+    labels, _, _ = join_ops._root_join_on_card(lay, roots, None, None, 0,
+                                               blocks=4)
+    assert torch.equal(labels, join_ref.root_join_ref(lay, roots)[0])

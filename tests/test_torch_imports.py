@@ -27,7 +27,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.kernels.minprop_ell.ops,"
             "repro_torch.kernels.spmv_ell.ops,"
             "repro_torch.kernels.hash_priority.ops,"
-            "repro_torch.kernels.run_sums.ops, repro_torch.solvers,"
+            "repro_torch.kernels.run_sums.ops,"
+            "repro_torch.kernels.joins.ops, repro_torch.solvers,"
             "repro_torch.multilevel, repro_torch.graphs.ops,"
             "repro_torch.graphs.hybrid, repro_torch.core.mis2_hybrid,"
             "repro_torch.core.mis2, repro_torch.core.misk,"

@@ -2,10 +2,11 @@
 """Time the persistent kernels -- the resident MIS-2 fixed point
 (``resident_fixed_point``) and the hybrid one (``hybrid_fixed_point``) in
 ``src/repro_torch/kernels/csrc/minprop_ell.cu``, the Luby coloring loop
-(``luby_fixed_point``) in ``csrc/luby.cu`` -- against variants of their
-sources, on the card.
+(``luby_fixed_point``) in ``csrc/luby.cu``, the coarsening's joins
+(``root_join``, ``phase2_join``, ``phase3_fixed_point``) in ``csrc/joins.cu``
+-- against variants of their sources, on the card.
 
-    python3 tools/bench_resident.py [--kernels resident hybrid luby] \\
+    python3 tools/bench_resident.py [--kernels resident hybrid luby joins] \\
         [--variant NAME=kX=value,...] \\
         [--graphs Laplace3D_100 Elasticity3D_60 Powerlaw_1M] [--reps 20]
 
@@ -16,7 +17,10 @@ alone: its named text edit of ``minprop_ell.cu``) is compiled at once, one
 ``nvcc`` each.  On each graph every
 build of a kernel runs a whole solve from all rows active (``resident``:
 the padded ELL; ``hybrid``: the hybrid layout; ``luby``: the hybrid layout
-of Powerlaw_1M, the padded ELL of the others), is held bitwise to the
+of Powerlaw_1M, the padded ELL of the others; ``joins``: each join on the
+label state a two-phase (and, for the root join with its cleanup, a basic)
+coarsening gives it, over the layout the coarsening takes), is held bitwise
+to the
 default build (T or the colors, and the rounds), and is timed between CUDA
 events after an L2 flush (``chip_smoke._event_ms``), the builds in turns
 (default, variants, variants reversed, default), the median of ``--reps``
@@ -42,15 +46,18 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Elasticity3D_60": ("elasticity3d", (60,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
-KERNELS = ("resident", "hybrid", "luby")
+KERNELS = ("resident", "hybrid", "luby", "joins")
 PERSISTENT = ("resident_fixed_point_kernel", "hybrid_fixed_point_kernel",
-              "luby_fixed_point_kernel")
+              "luby_fixed_point_kernel", "root_join_kernel",
+              "phase2_join_kernel", "phase3_fixed_point_kernel")
+SOURCE = {"resident": "minprop_ell", "hybrid": "minprop_ell", "luby": "luby",
+          "joins": "joins"}
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
 import bench_minprop  # noqa: E402
-from chip_smoke import _event_ms  # noqa: E402
+from chip_smoke import JOIN_OF, _event_ms, _join_calls  # noqa: E402
 
 
 def _persistent_registers(log: str) -> list:
@@ -213,8 +220,65 @@ def _luby_runner(torch, g, lib, hybrid: bool):
     return run
 
 
+def _join_runner(lib, name: str, args, kw):
+    """One join wrapper's card path with the C entries of ``lib``."""
+    from repro_torch.kernels.joins import ops as jops
+
+    layout, rest = args[0], args[1:]
+    on_card = {
+        "root_join": lambda: jops._root_join_on_card(
+            layout, rest[0], None, None, kw.get("cleanup_rounds", 0)),
+        "phase2_join": lambda: jops._phase2_on_card(
+            layout, *rest, kw["min_secondary"]),
+        "phase3_fixed_point": lambda: jops._phase3_on_card(
+            layout, *rest)}[name]
+
+    def run():
+        entry = jops._entry
+        jops._entry = lambda n: _entry(lib, n, jops._SIGNATURES[n])
+        try:
+            return on_card()
+        finally:
+            jops._entry = entry
+
+    return run
+
+
+def _bench_joins(torch, label: str, g, libs: dict, reps: int) -> list:
+    """Each join at the state a real coarsening gives it, every build."""
+    import repro_torch as rt
+    from repro_torch.kernels.joins import ops as jops
+
+    calls = [c for m in ("two_phase", "basic")
+             for c in _join_calls(rt, jops, g, m)
+             if m == "two_phase" or c[0] == "root_join"]
+    out = []
+    for name, args, kw in calls:
+        runs = {b: _join_runner(lib, JOIN_OF[name], args, kw)
+                for b, (src, lib) in libs.items() if src == "joins"}
+        out.append(_timed_builds(torch, runs, "joins:default", reps) | {
+            "kernel": JOIN_OF[name], "graph": label, "kw": kw})
+    return out
+
+
+def _timed_builds(torch, runs: dict, default: str, reps: int) -> dict:
+    """Every build held bitwise to ``default`` and timed in turns."""
+    results = {name: [x.clone() for x in run()] for name, run in runs.items()}
+    torch.cuda.synchronize()
+    base = results[default]
+    bitwise = {name: all(torch.equal(x, y) for x, y in zip(r, base))
+               for name, r in results.items()}
+    names = list(runs)
+    order = names + names[1:][::-1] + names[:1]
+    times = {name: [] for name in names}
+    for name in order:
+        _event_ms(torch, runs[name], 3)                       # warm-up
+        times[name].append(_event_ms(torch, runs[name], reps))
+    return {"bitwise": bitwise, "ms": times}
+
+
 def _bench(torch, kernel: str, label: str, g, libs: dict, reps: int) -> dict:
-    source = "luby" if kernel == "luby" else "minprop_ell"
+    source = SOURCE[kernel]
     runs = {}
     for name, (src, lib) in libs.items():
         if src != source:
@@ -225,19 +289,9 @@ def _bench(torch, kernel: str, label: str, g, libs: dict, reps: int) -> dict:
             runs[name] = _hybrid_runner(torch, g, lib)
         else:
             runs[name] = _luby_runner(torch, g, lib, label == "Powerlaw_1M")
-    results = {name: [x.clone() for x in run()] for name, run in runs.items()}
-    torch.cuda.synchronize()
-    base = results[f"{source}:default"]
-    bitwise = {name: all(torch.equal(x, y) for x, y in zip(r, base))
-               for name, r in results.items()}
-    names = list(runs)
-    order = names + names[1:][::-1] + names[:1]
-    times = {name: [] for name in names}
-    for name in order:
-        _event_ms(torch, runs[name], 3)                       # warm-up
-        times[name].append(_event_ms(torch, runs[name], reps))
-    return {"kernel": kernel, "graph": label, "rounds": int(base[1][0]),
-            "bitwise": bitwise, "ms": times}
+    rounds = int(runs[f"{source}:default"]()[1][0])
+    return {"kernel": kernel, "graph": label, "rounds": rounds,
+            **_timed_builds(torch, runs, f"{source}:default", reps)}
 
 
 def main() -> int:
@@ -263,6 +317,12 @@ def main() -> int:
         sources["minprop_ell:default"] = ("minprop_ell", bench_minprop.SRC)
     if "luby" in args.kernels:
         sources["luby:default"] = ("luby", bench_minprop.CSRC / "luby.cu")
+    if "joins" in args.kernels:
+        # a copy, as the variants are: a library built from csrc/joins.cu
+        # itself, loaded beside the one the states' coarsening loads from the
+        # same file, stopped the process at its first launch (SIGFPE)
+        sources["joins:default"] = ("joins", bench_minprop._edited(
+            "joins_default", bench_minprop.CSRC / "joins.cu", []))
     defaults = list(sources.values())
     for spec in args.variant:
         consts = spec.partition("=")[2]
@@ -294,6 +354,10 @@ def main() -> int:
         for kernel in args.kernels:
             if kernel == "resident" and label == "Powerlaw_1M":
                 continue            # its padded ELL would take 120 GB
+            if kernel == "joins":
+                for line in _bench_joins(torch, label, g, libs, args.reps):
+                    print(json.dumps(line), flush=True)
+                continue
             print(json.dumps(_bench(torch, kernel, label, g, libs,
                                     args.reps)), flush=True)
         del g
