@@ -71,10 +71,11 @@ Phases (any failure raises, and the script exits non-zero):
    wall times, speed-up over ``baseline_bell``);
 9. distance-k MIS and the multilevel partition on Laplace3D_100:
    ``misk`` with k = 1, 2, 3 on both engines (``dense``, ``resident``;
-   equal digests, ``engine=None`` taking ``dense``) and ``partition(·, 8)``
+   equal digests, ``engine=None`` taking ``dense``; one launch of the misk
+   kernel and no host sync a solve) and ``partition(·, 8)``
    (parts digest, edge cut, levels and per-level history) against the
    reference's (``tools/reference_misk_partition.py``), the partition's
-   coarsening launching the fused kernels;
+   coarsening launching the persistent MIS-2 kernel;
 10. the batched pipelines: fleet A, the reference's own batch benchmark
    (``benchmarks/batch_throughput.py``, full size: ``laplace3d(6, 8, 10,
    12)`` and ``random_uniform_graph(n, 6.0, seed=s)`` for n = 1,000 /
@@ -91,8 +92,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``mis2`` / ``color`` / ``coarsen``; the batched wall time against the
    loop of single-graph calls (graphs/s); every result's ``provenance``
    (its digest the result's, a batch's shared by its members, platform
-   ``gpu``); the batched hash-pack form (``round_priorities_batched``)
-   against its twin on fleet B's two buckets, bitwise;
+   ``gpu``); the batched fixed points launched (the batched MIS-2 and Luby
+   kernels); the batched hash-pack form (``round_priorities_batched``,
+   which no path launches since its arithmetic runs inside the batched
+   Luby kernel) against its twin on fleet B's two buckets, bitwise;
 11. time each kernel (CUDA events, L2 flushed before each launch), its twin
    and, where one exists, the PyTorch library call computing the same
    function, beside its bound (bytes, float32 flops or the integer
@@ -163,7 +166,22 @@ Phases (any failure raises, and the script exits non-zero):
    beside its bound and its twin; the walls of five warm calls of
    ``coarsen`` (both methods) on the three graphs, ``cluster_gs_setup`` on
    Elasticity3D_60, ``amg_setup`` on Laplace3D_100 and ``partition(·, 8)``
-   on both paper graphs, beside the times before the kernels.
+   on both paper graphs, beside the times before the kernels;
+17. ``misk``, the batched MIS-2 and Luby fixed points and the streaming
+   repair as one dispatch each: the misk kernel against both engines'
+   twins on Laplace3D_100 and Elasticity3D_60 (k = 1, 2, 3; capped at 1
+   and 2 rounds and uncapped), the batched resident kernel against its
+   twin on fleet A's ten buckets and fleet B's two (every row, capped at 1
+   and 2 rounds, and the phase-2 mask of a real two-phase coarsening,
+   caught at the pipeline), the seeded resident kernel against its twin on
+   the seeds of Laplace3D_100 streaming deltas (phase 13's stream), the
+   batched Luby kernel against its twin on both fleets' buckets (capped at
+   1 and 2 rounds and uncapped): every output bitwise and equal on a
+   second launch, one launch a call and no host sync inside one
+   (``torch.cuda.set_sync_debug_mode("error")``); ``misk`` and the batched
+   calls through the facade with one launch a solve or a bucket and
+   ``host_syncs`` 0; each kernel timed beside its bound and its twin; the
+   walls of five warm calls beside the times before the kernels.
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -302,8 +320,9 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
                "src/repro_torch/kernels/csrc/spmv_ell.cu"),
     "hash_pack": ("src/repro/kernels/hash_priority/kernel.py:31",
                   "src/repro_torch/kernels/csrc/hash_pack.cu"),
-    # the batched coloring's form of the same kernel, one launch a Luby
-    # round a bucket (the reference vmaps the plain hash there)
+    # the batched coloring's form of the same kernel (the reference vmaps
+    # the plain hash there); its arithmetic runs inside
+    # luby_fixed_point_batched
     "round_priorities_batched": (
         "src/repro/kernels/hash_priority/kernel.py:31",
         "src/repro_torch/kernels/csrc/hash_pack.cu"),
@@ -347,6 +366,24 @@ KERNELS = {   # name -> (TPU kernel replaced, CUDA source)
     "phase3_fixed_point": (
         "none (the lax.while_loops of src/repro/core/aggregation.py:203-229 "
         "and :371-402 with :332-368)", "src/repro_torch/kernels/csrc/joins.cu"),
+    # the distance-k loops (XLA), both engines
+    "misk_fixed_point": (
+        "none (the lax.while_loops of src/repro/core/misk.py:29-59 and "
+        ":81-119)", "src/repro_torch/kernels/csrc/misk.cu"),
+    # the resident fixed point over a bucket, and from a seeded T
+    "resident_fixed_point_batched": (
+        "none (src/repro/batch/pipeline.py:60-65, the vmapped lax.while_loop "
+        "of src/repro/core/mis2.py:106-155)",
+        "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    "resident_fixed_point_seeded": (
+        "none (the lax.while_loop of src/repro/core/mis2.py:192-236)",
+        "src/repro_torch/kernels/csrc/minprop_ell.cu"),
+    # the batched Luby loop, kernel 9's hash inside
+    "luby_fixed_point_batched": (
+        "none (the host loop of src/repro/batch/pipeline.py:123-161 over the "
+        "jitted round :68-71; its priorities are "
+        "src/repro/kernels/hash_priority/kernel.py:31's arithmetic)",
+        "src/repro_torch/kernels/csrc/luby.cu"),
 }
 # the standalone kernels the main path no longer launches: their bodies (or,
 # for hash_pack, its arithmetic) run inside a persistent kernel; each is
@@ -357,7 +394,8 @@ CARRIED_BY = {"fused_refresh_columns": "resident_fixed_point",
               "fused_decide": "resident_fixed_point",
               "sliced_refresh_columns": "hybrid_fixed_point",
               "sliced_decide": "hybrid_fixed_point",
-              "hash_pack": "luby_fixed_point"}
+              "hash_pack": "luby_fixed_point",
+              "round_priorities_batched": "luby_fixed_point_batched"}
 # the standalone kernels a later phase still launches, and where
 STILL_LAUNCHED = {"fused_refresh_columns": "phase 12's single-gather rounds",
                   "sliced_refresh_columns": "phase 12's distributed rounds",
@@ -373,6 +411,10 @@ WALL_BEFORE_MS = {
 RESIDENT = "resident_fixed_point"
 HYBRID = "hybrid_fixed_point"
 LUBY = "luby_fixed_point"
+MISK = "misk_fixed_point"
+BATCHED = "resident_fixed_point_batched"
+SEEDED = "resident_fixed_point_seeded"
+LUBY_BATCHED = "luby_fixed_point_batched"
 # wall ms of five warm calls before the hybrid and Luby persistent kernels
 # (PERF.md section 5, tools/profile_torch.py; NVIDIA H100 80GB HBM3, 700 W)
 WALL_BEFORE_ONE_DISPATCH_MS = {
@@ -455,12 +497,15 @@ def main() -> int:
     from repro_torch.kernels.luby import ops as luby_ops
     from repro_torch.kernels.luby import ref as luby_ref
     from repro_torch.kernels.minprop_ell import ops, ref
+    from repro_torch.kernels.misk import ops as misk_ops
+    from repro_torch.kernels.misk import ref as misk_ref
     from repro_torch.kernels.run_sums import ops as run_ops
     from repro_torch.kernels.run_sums import ref as run_ref
     from repro_torch.kernels.spmv_ell import ops as spmv_ops
     from repro_torch.kernels.spmv_ell import ref as spmv_ref
 
-    launches = Launches(ops, spmv_ops, hash_ops, run_ops, luby_ops, join_ops)
+    launches = Launches(ops, spmv_ops, hash_ops, run_ops, luby_ops, join_ops,
+                        misk_ops)
     provenance_checked = checking_provenance(rt)
     path_launches = {k: 0 for k in KERNELS}
 
@@ -883,8 +928,9 @@ def main() -> int:
     misk_part = _misk_partition_path(rt, np, l100, launches)
     counts = launches.read()
     add_path(counts)
-    check(counts[RESIDENT] > 0, f"{RESIDENT} was never launched by the "
-          "partition")
+    for k in (RESIDENT, MISK):
+        check(counts[k] > 0, f"{k} was never launched on the misk and "
+              "partition path")
     emit({"phase": "misk_partition_path", "launches": counts, **misk_part})
 
     # -- 10. the batched pipelines ---------------------------------------------
@@ -892,15 +938,16 @@ def main() -> int:
     batch = _batch_path(torch, rt, dev, launches)
     counts = batch.pop("launches")
     add_path(counts)
-    for k in ("round_priorities_batched", RESIDENT, "run_sums"):
+    for k in (BATCHED, LUBY_BATCHED, RESIDENT, "run_sums"):
         check(counts[k] > 0, f"{k} was never launched on the batch path")
+    check(counts["round_priorities_batched"] == 0,
+          "the standalone round_priorities_batched was launched on the batch "
+          "path")
+    batch_a = batch.pop("fleet_a")
     batch_b = batch.pop("fleet_b")
     batch["round_priorities_batched_vs_twin"] = _hold_batched_priorities(
         torch, hash_ops, hash_ref, batch_b, errs)
     emit({"phase": "batch_path", "launches": counts, **batch})
-    for k in KERNELS:
-        check(k in CARRIED_BY or path_launches[k] > 0,
-              f"{k} was never launched on a path")
 
     # -- 11. timing -----------------------------------------------------------------
     timing = {}
@@ -971,7 +1018,6 @@ def main() -> int:
           "slabs": sliced_time, "end_to_end_wall_ms": pl_e2e})
     batched_time = _time_batched_priorities(torch, batch_b, hash_ops,
                                             hash_ref)
-    del batch_b
     emit({"phase": "timing_batched_priorities", **batched_time})
     emit({"phase": "timing_misk_partition", "graph": "Laplace3D_100",
           "wall_ms": {
@@ -996,7 +1042,7 @@ def main() -> int:
     serving = _serving_path(torch, np, rt, dev, graphs, pl, launches)
     serve_counts = serving.pop("launches")
     add_path(serve_counts)
-    for k in (RESIDENT, HYBRID, "round_priorities_batched", "run_sums"):
+    for k in (RESIDENT, HYBRID, BATCHED, LUBY_BATCHED, SEEDED, "run_sums"):
         check(serve_counts[k] > 0, f"{k} was never launched by the server")
     emit({"phase": "serving_path", "card": smi, "launches": serve_counts,
           **serving})
@@ -1032,11 +1078,28 @@ def main() -> int:
     emit({"phase": "joins_one_dispatch", "card": smi,
           "launches": join_counts, "seconds": time.perf_counter() - t0,
           **joins})
+    # -- 17. misk, the batched fixed points and the repair as one dispatch --
+    t0 = time.perf_counter()
+    more = _batched_misk_one_dispatch(
+        torch, np, rt, ops, ref, misk_ops, misk_ref, luby_ops, luby_ref,
+        graphs, batch_a, batch_b, launches, errs)
+    more_counts = more.pop("launches")
+    add_path(more_counts)
+    for k in (MISK, BATCHED, LUBY_BATCHED, SEEDED):
+        check(more_counts[k] > 0, f"{k} was never launched in phase 17")
+    emit({"phase": "batched_misk_one_dispatch", "card": smi,
+          "launches": more_counts, "seconds": time.perf_counter() - t0,
+          **more})
+    del batch_a, batch_b
+    for k in KERNELS:
+        check(k in CARRIED_BY or path_launches[k] > 0,
+              f"{k} was never launched on a path")
     new_sites = {"distributed (phase 12)": dist_counts,
                  "serving (phase 13)": serve_counts,
                  "one dispatch (phase 14)": one_counts,
                  "one dispatch (phase 15)": two_counts,
-                 "one dispatch (phase 16)": join_counts}
+                 "one dispatch (phase 16)": join_counts,
+                 "one dispatch (phase 17)": more_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -1073,6 +1136,16 @@ def main() -> int:
         "phase3_fixed_point": ("Elasticity3D_60, coarsen(two_phase)",
                                joins["timing"]["phase3_fixed_point"][
                                    "Elasticity3D_60 phase3_fixed_point"]),
+        MISK: ("Elasticity3D_60, a whole misk(k=2) solve ("
+               f"{more['timing'][MISK]['Elasticity3D_60 k=2']['rounds']} "
+               "rounds)", more["timing"][MISK]["Elasticity3D_60 k=2"]),
+        BATCHED: (f"fleet B bucket {more['timing'][BATCHED]['shape']}, a "
+                  "whole mis2_batch solve", more["timing"][BATCHED]),
+        SEEDED: ("Laplace3D_100, a streaming delta's repair", more[
+            "timing"][SEEDED]),
+        LUBY_BATCHED: (f"fleet B bucket "
+                       f"{more['timing'][LUBY_BATCHED]['shape']}, a whole "
+                       "color_batch loop", more["timing"][LUBY_BATCHED]),
     }
     kernels_line = []
     for k, (replaces, source) in KERNELS.items():
@@ -1092,6 +1165,8 @@ def main() -> int:
             entry["by_graph"] = two["timing"][k]
         if k in JOINS:
             entry["by_graph"] = joins["timing"][k]
+        if k == MISK:
+            entry["by_graph"] = more["timing"][MISK]
         if k in CARRIED_BY:
             entry["carried_by"] = CARRIED_BY[k]
             entry["note"] = (
@@ -1120,20 +1195,25 @@ def main() -> int:
 
 
 def _misk_partition_path(rt, np, g, launches) -> dict:
-    """``misk`` (k = 1, 2, 3, both engines and ``engine=None``) and
-    ``partition(g, 8)`` against the reference's Laplace3D_100 anchors; the
-    partition's coarsening must launch the persistent MIS-2 kernel."""
+    """``misk`` (k = 1, 2, 3, both engines and ``engine=None``; one launch
+    of the misk kernel and no host sync a solve) and ``partition(g, 8)``
+    against the reference's Laplace3D_100 anchors; the partition's
+    coarsening must launch the persistent MIS-2 kernel."""
     out = {"numpy": np.__version__, "misk": {}}
     for k, want in MISK_L100.items():
         for engine in ("dense", "resident", None):
+            before = launches.read()[MISK]
             r = rt.misk(g, k=k, engine=engine)
+            check(launches.read()[MISK] - before == 1,
+                  f"misk k={k} {engine}: {launches.read()[MISK] - before} "
+                  "launches")
             name = engine or "dense"
             got = (r.size, r.iterations, r.digest)
             check(got == want, f"misk k={k} {engine}: {got} != {want}")
             check(r.converged and r.engine == f"misk{k}_{name}",
                   f"misk k={k} {engine}: converged {r.converged}, engine "
                   f"{r.engine}")
-            check(r.host_syncs == r.iterations + 1,
+            check(r.host_syncs == 0,
                   f"misk k={k} {engine}: {r.host_syncs} host syncs in "
                   f"{r.iterations} rounds")
             if engine is not None:
@@ -1250,7 +1330,8 @@ def _batch_path(torch, rt, dev, launches) -> dict:
     these calls alone are the path's), then every member against the
     single-graph call on the card, and the batched against the looped wall
     time.  Returns the phase's record, with ``launches`` and the stacked
-    fleet B (``fleet_b``, for the kernel's twin check and timing)."""
+    fleets (``fleet_a``, ``fleet_b``, for the kernels' twin checks and
+    timing)."""
     t0 = time.perf_counter()
     ga, ma = fleet_a(rt, dev)
     gb = fleet_b(rt, dev)
@@ -1326,7 +1407,7 @@ def _batch_path(torch, rt, dev, launches) -> dict:
                 "iterations": [r.iterations for r in br][:8]}
         out["fleets"][fleet] = rec
     out["launches"] = counts
-    out["fleet_b"] = batch_b
+    out["fleet_a"], out["fleet_b"] = batch_a, batch_b
     return out
 
 
@@ -2608,6 +2689,342 @@ def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
              lambda: rt.amg_setup(l100, aggregation="two_phase")),
             ("Laplace3D_100 partition8", lambda: rt.partition(l100, 8)),
             ("Elasticity3D_60 partition8", lambda: rt.partition(e60, 8)))}
+    return out
+
+
+# wall ms of five warm calls before the one-dispatch misk and batched loops
+# (PERF.md section 5, tools/profile_torch.py; NVIDIA H100 80GB HBM3, 700 W)
+WALL_BEFORE_BATCHED_MS = {
+    "Laplace3D_100 misk2": [8.13, 8.30, 8.49, 8.51, 8.73],
+    "Elasticity3D_60 misk2": [20.60, 20.60, 20.63, 20.95, 21.01],
+    "fleet A mis2_batch": [56.67, 59.26, 74.88, 81.76, 82.87],
+    "fleet A coarsen_batch": [151.69, 156.91, 189.39, 190.06, 198.31],
+    "fleet A color_batch": [164.16, 171.28, 173.82, 175.56, 188.21],
+    "fleet B mis2_batch": [62.22, 62.52, 63.71, 64.12, 65.25],
+    "fleet B coarsen_batch": [171.42, 171.82, 172.04, 177.68, 178.18],
+    "fleet B color_batch": [214.78, 215.30, 216.55, 219.62, 220.04],
+}
+MISK_UNCAPPED = 256
+# the streaming deltas of phase 13 whose repair seeds phase 17 holds
+REPAIR_SEEDS = 3
+
+
+def _hold_one_dispatch(torch, kernel, twin, key: str, counters: dict,
+                       what: str, errs: dict) -> list:
+    """``kernel()`` twice with ``torch.cuda.set_sync_debug_mode("error")``
+    (no host sync inside a call), each exactly one launch of ``key`` among
+    ``counters``, its outputs bitwise equal to each other's and to
+    ``twin()``'s.  Returns the first call's outputs."""
+    torch.cuda.synchronize()
+    before = dict(counters)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernel()
+        again = kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = dict(counters)
+    want = twin()
+    torch.cuda.synchronize()
+    check({k: after[k] - before[k] for k in after}
+          == {k: 2 * (k == key) for k in after},
+          f"{what}: launches {after} from {before}")
+    same = [torch.equal(x, y) and torch.equal(x, z)
+            for x, y, z in zip(got, again, want)]
+    check(all(same), f"{what}: {key} outputs {same} equal twin and rerun")
+    errs[key] = max(errs[key], max(_max_abs_err_u32(x, z)
+                                   for x, z in zip(got, want)))
+    return got
+
+
+def _misk_bytes(v: int, d: int, k: int, trace, live: int) -> int:
+    """Bytes of a misk solve at the rounds run (``trace``: each round's
+    undecided count, from the twin; ``live``: the count left): T and the
+    first list written; a round's refresh (the list read, T written at its
+    rows), k min hops (the ``[V, D]`` ids, the words they point at, at
+    most V of them, M written), k near hops (the ids; the first reads T and
+    M^k at them, the others the flags, at most V each; the flags written)
+    and the compaction (the list, T and the flag at its rows, the survivors
+    written)."""
+    nbytes = 8 * v
+    for i, n in enumerate(trace):
+        kept = trace[i + 1] if i + 1 < len(trace) else live
+        nbytes += 8 * n
+        nbytes += k * (4 * v * d + 4 * v + 4 * v)
+        nbytes += (4 * v * d + 8 * v + v) + (k - 1) * (4 * v * d + 2 * v)
+        nbytes += 9 * n + 4 * kept
+    return nbytes
+
+
+def _fleet_phase2_masks(rt, batch) -> dict:
+    """Each bucket's active mask of the second MIS-2 solve in a two-phase
+    ``coarsen_batch`` (the rows phase 1 left unaggregated), caught at the
+    pipeline's fixed point: bucket index -> mask."""
+    from repro_torch.batch import pipeline
+
+    inner = pipeline._fixed_point
+    seen: dict = {}
+
+    def spy(bucket, active, options):
+        seen.setdefault(id(bucket), []).append(active.clone())
+        return inner(bucket, active, options)
+
+    pipeline._fixed_point = spy
+    try:
+        rt.coarsen_batch(batch, method="two_phase")
+    finally:
+        pipeline._fixed_point = inner
+    masks = {}
+    for i, bucket in enumerate(batch.buckets):
+        calls = seen.get(id(bucket), [])
+        check(len(calls) == 2, f"bucket {bucket.shape}: {len(calls)} solves")
+        masks[i] = calls[1]
+    return masks
+
+
+def _repair_seeds(torch, np, rt, ops, g) -> list:
+    """The seeded fixed points of the first streaming deltas of phase 13
+    (``STREAM`` on Laplace3D_100), caught at the wrapper: ``(t_init,
+    nbrs_flat, kw)`` each (a delta whose region grows solves again)."""
+    from repro_torch.serve import StreamSession
+
+    inner = ops.resident_fixed_point_seeded
+    seeds = []
+
+    def spy(t, m, nbrs_flat, **kw):
+        seeds.append((t.clone(), nbrs_flat, kw))
+        return inner(t, m, nbrs_flat, **kw)
+
+    sess = StreamSession(g.csr)
+    v = g.num_vertices
+    rng = np.random.default_rng(STREAM["seed"])
+    ops.resident_fixed_point_seeded = spy
+    try:
+        for _ in range(REPAIR_SEEDS):
+            adds = rng.integers(0, v, size=(STREAM["adds"], 2))
+            adds = adds[adds[:, 0] != adds[:, 1]]
+            rows, cols = sess._keys // v, sess._keys % v
+            offd = np.flatnonzero(rows != cols)
+            pick = rng.choice(offd, size=STREAM["removes"], replace=False)
+            sess.apply_delta(adds, np.stack([rows[pick], cols[pick]],
+                                            axis=1))
+            check(sess.last_repair.mode == "repair", "stream: not a repair")
+    finally:
+        ops.resident_fixed_point_seeded = inner
+    check(len(seeds) >= REPAIR_SEEDS, f"{len(seeds)} repair solves")
+    return seeds
+
+
+def _batched_misk_one_dispatch(torch, np, rt, ops, ref, misk_ops, misk_ref,
+                               luby_ops, luby_ref, graphs, batch_a, batch_b,
+                               launches, errs) -> dict:
+    """Phase 17: the misk, batched resident, seeded resident and batched
+    Luby kernels against their twins, one launch a call and no host sync
+    inside one; ``misk`` and the batched calls through the facade (one
+    launch a solve or a bucket, ``host_syncs`` 0); each kernel timed beside
+    its bound and its twin; the walls beside the times before."""
+    out = {"misk_vs_twin": {}, "batched_vs_twin": {}, "seeded_vs_twin": {},
+           "luby_batched_vs_twin": {}}
+    dev = graphs["Laplace3D_100"].device
+    fleets = {"A": batch_a, "B": batch_b}
+    # the path, counted: the facade calls and the streaming deltas, one
+    # launch a solve or a bucket, no host sync
+    launches.reset()
+    anchors = {}
+    l100 = graphs["Laplace3D_100"]
+    seeds = _repair_seeds(torch, np, rt, ops, l100)
+    for k_, want in MISK_L100.items():
+        for engine in ("dense", "resident"):
+            before = launches.read()
+            with rt.obs.capture() as cap:
+                r = rt.misk(l100, k=k_, engine=engine)
+            got = {k: launches.read()[k] - before[k] for k in (MISK,)}
+            check((r.size, r.iterations, r.digest) == want
+                  and r.host_syncs == 0 and got == {MISK: 1}
+                  and cap.value("mis2.host_syncs") == 0
+                  and cap.value("mis2.resident_dispatches")
+                  == (engine == "resident"),
+                  f"misk k={k_} {engine}: {r.digest} syncs {r.host_syncs} "
+                  f"launches {got}")
+            anchors[f"Laplace3D_100 misk k={k_} {engine}"] = [
+                r.size, r.iterations, r.digest, r.host_syncs, got]
+    for f, batch in fleets.items():
+        nb = batch.num_buckets
+        for name, call, key, per in (
+                ("mis2", rt.mis2_batch, BATCHED, 1),
+                ("color", rt.color_batch, LUBY_BATCHED, 1),
+                ("coarsen_two_phase",
+                 lambda b: rt.coarsen_batch(b, method="two_phase"), BATCHED,
+                 2)):
+            before = launches.read()
+            res = call(batch)
+            got = launches.read()[key] - before[key]
+            syncs = res.provenance.metrics.get("mis2.host_syncs", 0)
+            check(got == per * nb and syncs == 0,
+                  f"fleet {f} {name}: {got} launches of {key} for {nb} "
+                  f"buckets, {syncs} host syncs")
+            if f == "A":
+                anchor = fleet_anchor(res.digests, res.bucket_shapes)
+                check(anchor == FLEET_A_ANCHORS[name],
+                      f"fleet A {name}: anchor {anchor}")
+            anchors[f"fleet {f} {name}"] = [res.digest, got, syncs]
+    out["anchors"] = anchors
+    out["launches"] = launches.read()
+    # misk: the kernel against both engines' twins
+    for label in PAPER_GRAPHS:
+        nb = graphs[label].ell.neighbors
+        for k in (1, 2, 3):
+            for cap in (1, 2, MISK_UNCAPPED):
+                kw = dict(k=k, priority="xorshift_star", max_iters=cap)
+                got = _hold_one_dispatch(
+                    torch, lambda kw=kw: misk_ops.misk_fixed_point(nb, **kw),
+                    lambda kw=kw: misk_ref.misk_dense_fixed_point_ref(nb,
+                                                                      **kw),
+                    MISK, misk_ops.LAUNCHES, f"{label} misk k={k} cap {cap}",
+                    errs)
+                if cap == MISK_UNCAPPED:
+                    want = misk_ref.misk_resident_fixed_point_ref(nb, **kw)
+                    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                          f"{label} misk k={k}: resident twin differs")
+                rounds, live = got[1].tolist()
+                out["misk_vs_twin"][f"{label} k={k} cap {cap}"] = {
+                    "rounds": rounds, "live": live,
+                    "size": int((got[0] == 0).sum()), "bitwise": True}
+    # the batched resident kernel on every bucket of both fleets
+    masks = {f: _fleet_phase2_masks(rt, b) for f, b in fleets.items()}
+
+    def batched(bucket, act, cap, twin=False, trace=None):
+        n = bucket.size * bucket.rows
+        fn = ref.resident_fixed_point_batched_ref if twin \
+            else ops.resident_fixed_point_batched
+        extra = {} if trace is None else {"trace": trace}
+        return fn(torch.empty(n, dtype=torch.int32, device=dev),
+                  torch.empty(n, dtype=torch.int32, device=dev), act,
+                  bucket.flat_neighbors32.view(-1), priority="xorshift_star",
+                  bits=bucket.id_bits, rows=bucket.rows, max_iters=cap,
+                  **extra)
+
+    for f, batch in fleets.items():
+        for i, bucket in enumerate(batch.buckets):
+            valid = bucket.row_valid.view(-1)
+            for case, act, cap in (("1 round", valid, 1),
+                                   ("2 rounds", valid, 2),
+                                   ("all", valid, 128),
+                                   ("phase-2 mask", masks[f][i], 128)):
+                got = _hold_one_dispatch(
+                    torch, lambda a=act, c=cap: batched(bucket, a, c),
+                    lambda a=act, c=cap: batched(bucket, a, c, twin=True),
+                    BATCHED, ops.LAUNCHES,
+                    f"fleet {f} bucket {bucket.shape} ({case})", errs)
+                out["batched_vs_twin"][
+                    f"fleet {f} {bucket.size} x {bucket.shape} {case}"] = {
+                    "rows_active": int(act.sum()),
+                    "rounds": got[1].tolist()[0],
+                    "member_rounds": sorted(set(got[2].tolist())),
+                    "bitwise": True}
+    # the seeded resident kernel on the repair seeds of phase 13's stream
+    for j, (t_init, nbrs_flat, kw) in enumerate(seeds):
+        got = _hold_one_dispatch(
+            torch, lambda t=t_init, kw=kw: ops.resident_fixed_point_seeded(
+                t.clone(), torch.empty_like(t), nbrs_flat, **kw),
+            lambda t=t_init, kw=kw: ref.resident_fixed_point_seeded_ref(
+                t.clone(), torch.empty_like(t), nbrs_flat, **kw),
+            SEEDED, ops.LAUNCHES, f"Laplace3D_100 repair {j}", errs)
+        out["seeded_vs_twin"][f"Laplace3D_100 repair solve {j}"] = {
+            "rows_reseeded": int(((t_init != 0) & (t_init != -1)).sum()),
+            "rounds": got[1].tolist()[0], "bitwise": True}
+    # the batched Luby kernel on every bucket of both fleets
+    def luby_args(bucket):
+        n = bucket.size * bucket.rows
+        return (bucket.flat_neighbors32, bucket.mask.view(n, bucket.width),
+                bucket.row_valid.view(-1), bucket.id_bits, bucket.rows)
+
+    for f, batch in fleets.items():
+        for bucket in batch.buckets:
+            args = luby_args(bucket)
+            luby_ops.luby_fixed_point_batched(*args, max_rounds=1)  # table
+            for cap in (1, 2, 256):
+                got = _hold_one_dispatch(
+                    torch, lambda c=cap: luby_ops.luby_fixed_point_batched(
+                        *args, max_rounds=c),
+                    lambda c=cap: luby_ref.luby_fixed_point_batched_ref(
+                        *args, max_rounds=c),
+                    LUBY_BATCHED, luby_ops.LAUNCHES,
+                    f"fleet {f} bucket {bucket.shape} (max_rounds {cap})",
+                    errs)
+                out["luby_batched_vs_twin"][
+                    f"fleet {f} {bucket.size} x {bucket.shape} cap {cap}"] = {
+                    "rounds": int(got[2].item()),
+                    "done": int((got[1] >= 0).sum()), "bitwise": True}
+    # each kernel beside its bound and its twin
+    timing = {MISK: {}}
+    for label in PAPER_GRAPHS:
+        nb = graphs[label].ell.neighbors
+        v, d = nb.shape
+        for k in (2,):
+            kw = dict(k=k, priority="xorshift_star", max_iters=MISK_UNCAPPED)
+            trace = []
+            _, stats = misk_ref.misk_dense_fixed_point_ref(nb, trace=trace,
+                                                           **kw)
+            live = stats.tolist()[1]
+            timing[MISK][f"{label} k={k}"] = {**_timed(
+                torch, lambda kw=kw: misk_ops.misk_fixed_point(nb, **kw),
+                lambda kw=kw: misk_ref.misk_dense_fixed_point_ref(nb, **kw),
+                None, _misk_bytes(v, d, k, trace, live), hashes=sum(trace),
+                reps=20, plain_reps=3), "rounds": len(trace),
+                "undecided": trace}
+    bucket = max(batch_b.buckets, key=lambda b: b.size * b.rows * b.width)
+    valid = bucket.row_valid.view(-1)
+    trace = []
+    batched(bucket, valid, 128, twin=True, trace=trace)
+    nbytes, hashes = _resident_bytes(bucket.size * bucket.rows, bucket.width,
+                                     trace)
+    timing[BATCHED] = {**_timed(
+        torch, lambda: batched(bucket, valid, 128),
+        lambda: batched(bucket, valid, 128, twin=True), None, nbytes,
+        hashes=hashes, reps=20, plain_reps=3),
+        "shape": f"{bucket.size} x {bucket.rows} x {bucket.width}",
+        "rounds": len(trace)}
+    t_init, nbrs_flat, kw = seeds[0]
+    trace = []
+    ref.resident_fixed_point_seeded_ref(t_init.clone(), torch.empty_like(
+        t_init), nbrs_flat, trace=trace, **kw)
+    nbytes, hashes = _resident_bytes(l100.num_vertices, l100.ell.width,
+                                     trace)
+    timing[SEEDED] = {**_timed(
+        torch, lambda: ops.resident_fixed_point_seeded(
+            t_init.clone(), torch.empty_like(t_init), nbrs_flat, **kw),
+        lambda: ref.resident_fixed_point_seeded_ref(
+            t_init.clone(), torch.empty_like(t_init), nbrs_flat, **kw),
+        None, nbytes, hashes=hashes, reps=20, plain_reps=3),
+        "rounds": len(trace), "undecided_first": trace[0][1] if trace else 0}
+    args = luby_args(bucket)
+    trace = []
+    luby_ref.luby_fixed_point_batched_ref(*args, max_rounds=256, trace=trace)
+    nbytes, hashes = _luby_bytes(
+        [(None, bucket.width)],
+        (torch.empty(0, dtype=torch.int32, device=dev),) * 3, trace)
+    timing[LUBY_BATCHED] = {**_timed(
+        torch, lambda: luby_ops.luby_fixed_point_batched(*args,
+                                                         max_rounds=256),
+        lambda: luby_ref.luby_fixed_point_batched_ref(*args, max_rounds=256),
+        None, nbytes, hashes=hashes, reps=20, plain_reps=3),
+        "shape": f"{bucket.size} x {bucket.rows} x {bucket.width}",
+        "rounds": len(trace)}
+    del trace
+    out["timing"] = timing
+    e60 = graphs["Elasticity3D_60"]
+    out["wall_ms"] = {
+        what: {"now": _wall_ms(torch, call, reps=5),
+               "before": WALL_BEFORE_BATCHED_MS.get(what)}
+        for what, call in (
+            ("Laplace3D_100 misk2", lambda: rt.misk(l100, k=2)),
+            ("Elasticity3D_60 misk2", lambda: rt.misk(e60, k=2)),
+            *((f"fleet {f} {name}", lambda b=b, c=c: c(b))
+              for f, b in fleets.items()
+              for name, c in (("mis2_batch", rt.mis2_batch),
+                              ("coarsen_batch", rt.coarsen_batch),
+                              ("color_batch", rt.color_batch))))}
     return out
 
 

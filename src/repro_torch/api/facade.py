@@ -121,8 +121,9 @@ def misk(graph, k: int = 2, *, priority: str = "xorshift_star",
     """Distance-k maximal independent set (k-fold min-propagation):
     ``dense`` and ``resident`` (the worklist refresh) return bit-identical
     sets, equal to the JAX package's.  ``engine=None`` selects ``dense``.
-    ``result.engine`` is ``f"misk{k}_{engine}"``; ``host_syncs`` counts the
-    one live-flag read a round."""
+    ``result.engine`` is ``f"misk{k}_{engine}"``; ``host_syncs`` is 0 on
+    the card (one launch a solve) and counts the CPU twin's live-count
+    read a round."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
     engine = default_misk_engine() if engine is None else engine

@@ -68,6 +68,12 @@ class GraphBucket:
         return (self.neighbors.to(torch.int64)
                 + offset[:, None, None]).view(-1, self.width)
 
+    @functools.cached_property
+    def flat_neighbors32(self) -> torch.Tensor:
+        """:attr:`flat_neighbors` narrowed to int32 (the kernels' ids:
+        ``B * rows < 2**31``); built once."""
+        return self.flat_neighbors.to(torch.int32)
+
 
 class GraphBatch:
     """An ordered collection of graphs, stacked into shape buckets::

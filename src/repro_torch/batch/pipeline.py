@@ -10,9 +10,9 @@ step is the single-graph row unchanged (the MIS-2 round, the Luby round,
 the coarsening's label joins).  Only what is per graph is per member:
 
 * each graph keeps its own packing bit width ``b = id_bits(V_real)`` and
-  hashes its local ids (``core.mis2.mis2_dense_batched_fixed_point``; the
-  coloring's round priorities come from one launch a round of the batched
-  hash-pack kernel, ``round_priorities_batched``);
+  hashes its local ids (the batched forms of the resident MIS-2 and Luby
+  kernels, ``ops.resident_fixed_point_batched`` and
+  ``luby_ops.luby_fixed_point_batched``, take the members' bits);
 * padded rows are inactive: MIS-2 pins them to OUT, the coloring
   pre-colors them, the joins never see them;
 * a member's iteration counter advances only while that graph is live, so
@@ -21,10 +21,12 @@ the coarsening's label joins).  Only what is per graph is per member:
 * host-side label bookkeeping (singleton cleanup) runs per graph on the
   unpadded slice, exactly as the single-graph aggregation does.
 
-The loops read one flag a round per bucket on the host (``host_syncs``),
-where the reference runs each fixed point as one dispatch; the
-coarsening's cleanup and phase-3 loops are one launch each of the join
-kernels (``kernels.joins``) over the bucket's block-diagonal ELL.  Every
+Each fixed point of a bucket is one launch on the card with no host read
+inside it (``host_syncs`` 0), as the reference runs it as one dispatch; on
+the CPU the kernels' twins read one flag a round.  The coarsening's
+cleanup and phase-3 loops are one launch each of the join kernels
+(``kernels.joins``) over the bucket's block-diagonal ELL; its phase-1 and
+phase-2 label joins are plain torch.  Every
 per-graph result is bit-identical to the single-graph call's and to the
 reference's batched call's.  The drivers return *core* result dataclasses
 in batch input order; the facade (``repro_torch.api.facade``) wraps them
@@ -48,25 +50,35 @@ from ..core.coloring import (
     _coloring_result,
     color_batched_fixed_point,
 )
-from ..core.mis2 import (
-    Mis2Options,
-    Mis2Result,
-    _active_mask,
-    mis2_dense_batched_fixed_point,
-)
+from ..core.mis2 import Mis2Options, Mis2Result, _active_mask, record_loop
 from ..core.tuples import IN, is_undecided
 from ..kernels.joins import ops as join_ops
+from ..kernels.minprop_ell import ops
 from ..kernels.joins.ref import INT32_MAX, count_unagg, join_rows
 from .container import GraphBatch, GraphBucket
 
 
 def _fixed_point(bucket: GraphBucket, active: torch.Tensor,
                  options: Mis2Options):
-    """The bucket's batched MIS-2 fixed point: ``(T [B, rows], iterations
-    [B] int64, host_syncs)``."""
-    t, its, syncs = mis2_dense_batched_fixed_point(
-        bucket.flat_neighbors, active, bucket.id_bits, bucket.rows,
-        options.priority, options.max_iters)
+    """The bucket's batched MIS-2 fixed point, the reference's
+    ``mis2_dense_fixed_point`` vmapped over the stack, as one call of
+    ``ops.resident_fixed_point_batched`` over the block-diagonal ELL: on
+    the card one launch that reads nothing from the host (``host_syncs``
+    0), on the CPU its twin (a read a round).  A member's iterations count
+    only the rounds it had an undecided active vertex, so its §V-A
+    priority stream is the single-graph one.  Returns ``(T stored int32
+    [B, rows], iterations int32 [B], host_syncs)``."""
+    n = bucket.size * bucket.rows
+    dev = bucket.neighbors.device
+    t = torch.empty(n, dtype=torch.int32, device=dev)
+    m = torch.empty(n, dtype=torch.int32, device=dev)
+    t, stats, its = ops.resident_fixed_point_batched(
+        t, m, active, bucket.flat_neighbors32.view(-1),
+        priority=options.priority, bits=bucket.id_bits, rows=bucket.rows,
+        max_iters=options.max_iters)
+    syncs = 0 if dev.type == "cuda" else min(int(stats[0]) + 1,
+                                             options.max_iters)
+    record_loop(syncs)
     return t.view(bucket.size, bucket.rows), its, syncs
 
 
@@ -120,7 +132,7 @@ def _color_batch_impl(batch: GraphBatch,
     out: list = [None] * len(batch)
     for bucket in batch.buckets:
         colors, done_round, rounds, syncs = color_batched_fixed_point(
-            bucket.flat_neighbors, bucket.mask.view(-1, bucket.width),
+            bucket.flat_neighbors32, bucket.mask.view(-1, bucket.width),
             bucket.row_valid.view(-1), bucket.id_bits, bucket.rows,
             max_rounds)
         c = colors.view(bucket.size, bucket.rows).cpu().numpy()
@@ -220,13 +232,13 @@ def _coarsen_bucket(bucket: GraphBucket, method: str, options: Mis2Options,
         labels = torch.where(labels >= 0, labels + base, labels)
         labels = torch.where(valid, labels, n - 1).to(torch.int32)
         labels, phase = join_ops.phase3_fixed_point(
-            join_ops.ell_layout(nbrs.to(torch.int32), mask), labels, phase)
+            join_ops.ell_layout(bucket.flat_neighbors32, mask), labels, phase)
         labels = torch.where(labels >= 0, labels - base, labels)
     else:
         # basic: leftovers join the min adjacent aggregate
         labels = torch.where(valid, labels, n - 1).to(torch.int32)
         labels, phase = join_ops.cleanup_join(
-            join_ops.ell_layout(nbrs.to(torch.int32), mask), labels, phase)
+            join_ops.ell_layout(bucket.flat_neighbors32, mask), labels, phase)
 
     labels = labels.view(bsz, rows).cpu().numpy()
     phase = phase.view(bsz, rows).cpu().numpy()

@@ -13,9 +13,8 @@ nothing from the host until the loop ends (``host_syncs`` 0); on the CPU
 its plain-torch twin, which reads one flag a round.  ``luby_hybrid`` runs
 the same rounds over the degree-aware hybrid layout
 (``luby_fixed_point_hybrid``: slab rows as above, the spill's heavy rows
-by segment reductions).  The batched coloring keeps a loop of rounds
-here, one launch of the batched hash-pack kernel and a plain-torch round
-each.
+by segment reductions), and the batched coloring over a bucket of graphs
+(``luby_fixed_point_batched``), each one launch on the card.
 """
 from __future__ import annotations
 
@@ -25,9 +24,7 @@ import numpy as np
 import torch
 
 from ..graphs.handle import as_graph
-from ..kernels.hash_priority import ops as hash_ops
 from ..kernels.luby import ops as luby_ops
-from ..kernels.luby.ref import color_round_rows
 from .mis2 import record_loop
 
 MAX_COLORS = 64
@@ -72,39 +69,23 @@ def color_batched_fixed_point(neighbors: torch.Tensor, mask: torch.Tensor,
                               rows: int, max_rounds: int):
     """The Luby round loop over a bucket of ``B`` graphs at once: the
     reference's ``_color_round_masked`` vmapped over a ``[B, rows, width]``
-    stack with the round number shared (``in_axes=(0, 0, 0, None, 0)``).
+    stack with the round number shared (``in_axes=(0, 0, 0, None, 0)``),
+    one call of ``luby_ops.luby_fixed_point_batched``.
 
-    ``neighbors`` (int64 ``[B * rows, width]``) is the bucket as one
-    block-diagonal graph, as :func:`~repro_torch.core.mis2.
-    mis2_dense_batched_fixed_point` takes it, so each round is
-    :func:`color_round_rows` over every row, with the priorities of one
-    launch of the batched hash-pack kernel (each member's local ids and its
-    own ``bits``, int32 ``[B]`` on the device).  Padded rows
-    (``row_valid`` False) enter pre-colored 0: never contenders, nobody's
-    neighbor.  One ``[B]`` finished flag comes to the host a round, not the
-    colors.  Returns ``(colors int32 [B * rows], done_round [B] (the round
-    after which each member had every vertex colored, -1 if none), rounds,
-    host_syncs)``.
+    ``neighbors`` (int32 ``[B * rows, width]``) is the bucket as one
+    block-diagonal graph (:attr:`~repro_torch.batch.GraphBucket.
+    flat_neighbors32`); each row hashes its local id with its member's own
+    ``bits`` (int32 ``[B]`` on the device).  Padded rows (``row_valid``
+    False) enter pre-colored 0: never contenders, nobody's neighbor.  On
+    the card nothing comes to the host until the loop ends; on the CPU the
+    twin reads one finished flag a round.  Returns ``(colors int32 [B *
+    rows], done_round int64 [B] (the round after which each member had
+    every vertex colored, -1 if none), rounds, host_syncs)``.
     """
-    n, dev = neighbors.shape[0], neighbors.device
-    vids = torch.arange(n, device=dev)
-    colors = torch.where(row_valid, -1, 0).to(torch.int32)
-    done_round = np.full(n // rows, -1, dtype=np.int64)
-    rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
-    rnd = syncs = 0
-    while True:
-        prio = hash_ops.round_priorities_batched(rows, rnd_dev, bits)
-        colors = color_round_rows(neighbors, mask, vids, colors, prio)
-        rnd_dev += 1
-        rnd += 1
-        finished = ((colors >= 0) | ~row_valid).view(-1, rows).all(dim=1)
-        finished = finished.cpu().numpy()     # the one host read a round
-        syncs += 1
-        done_round[(done_round < 0) & finished] = rnd
-        if finished.all() or rnd >= max_rounds:
-            break
-    record_loop(syncs)
-    return colors, done_round, rnd, syncs
+    colors, done, stats = luby_ops.luby_fixed_point_batched(
+        neighbors, mask, row_valid, bits, rows, max_rounds=max_rounds)
+    colors, rounds, syncs = _loop_result(colors, stats, max_rounds)
+    return colors, done.cpu().numpy().astype(np.int64), rounds, syncs
 
 
 def color_fixed_point_hybrid(hyb, max_rounds: int):

@@ -228,58 +228,6 @@ def mis2_dense_jittable(neighbors: torch.Tensor, active: torch.Tensor,
                                   max_iters)
 
 
-def mis2_dense_batched_fixed_point(neighbors: torch.Tensor,
-                                   active: torch.Tensor, bits: torch.Tensor,
-                                   rows: int, priority: str = "xorshift_star",
-                                   max_iters: int = MAX_ITERS_DEFAULT):
-    """:func:`mis2_dense_fixed_point` over a bucket of ``B`` graphs at once:
-    the reference's ``mis2_dense_fixed_point`` vmapped over a ``[B, rows,
-    width]`` stack.
-
-    ``neighbors`` (int64 ``[B * rows, width]``) is the bucket as one
-    block-diagonal graph: member ``j`` holds rows ``j * rows ..`` with its
-    neighbor ids offset by ``j * rows`` (padded slots and padded rows hold
-    their own id), so no row reaches another member's and the closed-
-    neighborhood min, the IN poison and the decide are the single-graph
-    rows unchanged.  Only the priority needs the member: row ``i`` hashes
-    its local id ``i % rows`` in its member's round, packed with the
-    member's ``b = bits[i // rows]`` (``rows`` a power of two, so a mask and
-    a shift).  ``active`` (bool ``[B * rows]``) is False on padding.
-
-    Member ``j``'s round counter advances only while it has an undecided
-    active vertex and is below ``max_iters``; a member that stops keeps its
-    T exactly while its mates go on, as a member whose ``cond`` is false
-    does under the reference's vmapped ``while_loop``.  A member that stops
-    never goes on again (no undecided vertex stays so, and the counter no
-    longer moves), so every live member's counter is the loop's round
-    ``it``, which the priority takes.  One host read a round (is any member
-    live).  Returns ``(T widened int64 [B * rows], iterations int64 [B],
-    host_syncs)``.
-    """
-    n, dev = neighbors.shape[0], neighbors.device
-    idx = torch.arange(n, device=dev)
-    member = idx >> (rows.bit_length() - 1)
-    vids = idx & (rows - 1)
-    b = bits.to(torch.int64)[member]
-    prio_fn = PRIORITY_FNS[priority]
-    t = torch.where(active, 1, OUT).to(torch.int64)
-    its = torch.zeros(n // rows, dtype=torch.int64, device=dev)
-    it = syncs = 0
-    while it < max_iters:
-        und = is_undecided(t) & active
-        live = und.view(-1, rows).any(dim=1)
-        syncs += 1
-        if not bool(live.any()):      # the one host read a round
-            break
-        und &= live[member]
-        t = _dense_round(t, und, pack(prio_fn(it, vids), vids, b),
-                         neighbors, active)
-        its += live
-        it += 1
-    record_loop(syncs)
-    return t, its, syncs
-
-
 # ===========================================================================
 # incremental repair (the streaming mode of the serving layer)
 # ===========================================================================
@@ -297,30 +245,22 @@ def mis2_repair_fixed_point(neighbors: torch.Tensor, t_init: torch.Tensor,
     invisible.  With the round-independent ``"fixed"`` priority the result
     is the unique lexicographically-first MIS-2, so a repaired solution
     with no :func:`lexfirst_violations` equals a from-scratch run bit for
-    bit.  Returns ``(T widened int64 [V], iterations, host_syncs)``;
+    bit.  One call of ``ops.resident_fixed_point_seeded`` over the graph's
+    self-padded ELL (int32 ``[V, D]``): on the card one launch with no host
+    read inside it; on the CPU its twin, which reads the live count a
+    round.  Returns ``(T widened int64 [V], iterations, host_syncs)``;
     ``iterations`` counts the rounds that had an undecided vertex.
     """
-    nb = neighbors.to(torch.int64)
-    vids = torch.arange(nb.shape[0], device=nb.device)
-    prio_fn = PRIORITY_FNS[priority]
-    t = widen(t_init) if t_init.dtype == torch.int32 else t_init.clone()
-    it = syncs = 0
-    while it < max_iters:
-        und = is_undecided(t)
-        syncs += 1
-        if not bool(und.any()):     # the one host read a round
-            break
-        t = torch.where(und, pack(prio_fn(it, vids), vids, b), t)
-        m = t[nb].amin(dim=1)
-        m = torch.where(m == IN, OUT, m)
-        mn = m[nb]
-        any_out = (mn == OUT).any(dim=1)
-        all_eq = (mn == t[:, None]).all(dim=1)
-        t = torch.where(und & any_out, OUT, t)
-        t = torch.where(und & ~any_out & all_eq, IN, t)
-        it += 1
+    v, dev = neighbors.shape[0], neighbors.device
+    t = (t_init if t_init.dtype == torch.int32 else narrow(t_init)).clone()
+    m = torch.empty(v, dtype=torch.int32, device=dev)
+    t, stats = ops.resident_fixed_point_seeded(
+        t, m, neighbors.to(torch.int32).contiguous().view(-1),
+        priority=priority, b=b, max_iters=max_iters)
+    iters = int(stats[0].item())
+    syncs = 0 if dev.type == "cuda" else min(iters + 1, max_iters)
     record_loop(syncs)
-    return t, it, syncs
+    return widen(t), iters, syncs
 
 
 def lexfirst_violations(neighbors: torch.Tensor, in_set: torch.Tensor,

@@ -1,7 +1,7 @@
 // Grids sized to the card, for the kernels that stride over their work:
 // at most the blocks of a kernel that fit on the card at once; and the
 // helpers the persistent kernels share (coherent state loads, a block sum,
-// the lanes a row takes).
+// a lane group's min and ballot bits, the lanes a row takes).
 #pragma once
 
 #include <cstdint>
@@ -51,6 +51,32 @@ __device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* words) {
   for (int k = 0; k < kWarps; ++k) s += words[k];
   __syncthreads();
   return s;
+}
+
+// x's minimum over the G lanes of its group (groups of G neighbouring
+// lanes, G a power of two), on every lane of the group
+template <int G>
+__device__ __forceinline__ uint32_t group_min(uint32_t x) {
+  if constexpr (G == 32) {
+    return __reduce_min_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const uint32_t y = __shfl_xor_sync(kFull, x, o);
+      x = y < x ? y : x;
+    }
+    return x;
+  }
+}
+
+// the ballot bits of group grp's lanes
+template <int G>
+__device__ __forceinline__ uint32_t group_bits(int grp) {
+  if constexpr (G == 32) {
+    return kFull;
+  } else {
+    return ((1u << G) - 1u) << (grp * G);
+  }
 }
 
 // G, the lanes a row of d slots takes: the smallest power of two, at most

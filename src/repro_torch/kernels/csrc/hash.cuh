@@ -120,4 +120,30 @@ __device__ __forceinline__ uint32_t fresh_tuple(int kind, uint32_t it,
   }
 }
 
+// A bucket of graphs laid end to end, each over `1 << shift` rows: vertex
+// v is member v >> shift's local id v & (rows - 1), hashed and packed with
+// that member's bits[v >> shift] (its own id_bits), so every member's
+// tuples are its single-graph ones.  `bits` null: one graph, each vertex
+// its own id packed with the kernel's b (a branch on a value every thread
+// shares; with the default argument it folds away).
+struct Members {
+  const int32_t* bits = nullptr;
+  int shift = 0;
+};
+
+template <class P>
+__device__ __forceinline__ uint32_t tuple_of(const P& prio, uint32_t v, int b,
+                                             const Members& mem) {
+  if (mem.bits == nullptr) return prio.tuple(v, b);
+  return prio.tuple(v & ((1u << mem.shift) - 1u), mem.bits[v >> mem.shift]);
+}
+
+__device__ __forceinline__ uint32_t fresh_of(int kind, uint32_t it,
+                                             uint32_t v, int b,
+                                             const Members& mem) {
+  if (mem.bits == nullptr) return fresh_tuple(kind, it, v, b);
+  return fresh_tuple(kind, it, v & ((1u << mem.shift) - 1u),
+                     mem.bits[v >> mem.shift]);
+}
+
 }  // namespace repro_torch

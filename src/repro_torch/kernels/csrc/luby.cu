@@ -39,6 +39,22 @@
 // sync.  One grid sync a round, two with a spill; at the end the colors are
 // copied into buffer 0 if the last round wrote buffer 1.
 //
+// A bucket of graphs (the batched coloring: it replaces the host loop of
+// src/repro/batch/pipeline.py:123-161, which reads the colors back every
+// round) is one padded ELL of member after member, block-diagonal: each
+// row hashes its member-local id with
+// its member's bits (hash.cuh's Members), the padded rows enter colored 0
+// (never contenders, nobody's neighbour), and the round is shared, as the
+// reference's vmapped round takes it.  Member j's done round, the round
+// after which its rows were all colored (-1 if it never was), is the
+// largest round + 1 in which one of its rows took a color: the rows a warp
+// colors in a round are grouped by member (__match_any_sync) and each
+// group's leader takes an atomicMax, one a member a warp at most; after
+// the loop every row still uncolored sets its member's to -1.  The bucket
+// is an instance of its own (kBucket), so the single-graph loops pay no
+// branch for the member map (on an H100 the branch cost the E60 loop 6%,
+// tools/bench_resident.py against a build without the map in one call).
+//
 // Priorities are hashed inline, one hash per uncolored real neighbour slot
 // and one per row: on an H100 that beat hashing every row in play once a
 // round into a [V] scratch, by a pass and a grid sync before the round, on
@@ -100,7 +116,8 @@ struct MapView {
 // and [2 * H] per heavy row, the contender minimum and the forbidden words;
 // counts[3 * s + k]: map s's list length, k = round % 3 (the list a round
 // reads), (round + 1) % 3 (the one it writes); uncolored[k]: the rows left
-// uncolored by round k - 1; out: the rounds run.
+// uncolored by round k - 1; out: the rounds run.  A bucket (mem.bits
+// set) also has its rows' valid bytes and writes done[members].
 struct Luby {
   const LubyMap* maps;
   int32_t* lists;
@@ -119,6 +136,10 @@ struct Luby {
   int num_maps;
   int b;
   int max_rounds;
+  Members mem;
+  const uint8_t* valid;        // [V], null: every row (a bucket's padding)
+  int32_t* done;               // [members], a bucket's done rounds
+  int64_t members;
 };
 
 __device__ __forceinline__ MapView map_view(const Luby& r, int s) {
@@ -171,14 +192,28 @@ __device__ __forceinline__ Term combine(Term a, Term b) {
   return {a.pmin < b.pmin ? a.pmin : b.pmin, a.lo | b.lo, a.hi | b.hi};
 }
 
+// vertex v's priority this round: its own id packed with b, or in a bucket
+// (kBucket, an instance of its own, so the single-graph loop pays no
+// branch) its member-local one
+template <bool kBucket>
+__device__ __forceinline__ uint32_t luby_tuple(
+    const Luby& r, const RoundPriority<kXorshiftStar>& prio, int32_t v) {
+  if constexpr (kBucket) {
+    return tuple_of(prio, static_cast<uint32_t>(v), r.b, r.mem);
+  } else {
+    return prio.tuple(static_cast<uint32_t>(v), r.b);
+  }
+}
+
 // neighbour j's share of a row's term: a contender's priority if j is
 // uncolored, its color's bit if not
+template <bool kBucket>
 __device__ __forceinline__ void add_neighbour(
     Term& x, const Luby& r, const RoundPriority<kXorshiftStar>& prio,
     const int32_t* cur, int32_t j) {
   const int32_t c = state_load<kCoherent>(cur + j);
   if (c < 0) {
-    const uint32_t p = prio.tuple(static_cast<uint32_t>(j), r.b);
+    const uint32_t p = luby_tuple<kBucket>(r, prio, j);
     x.pmin = p < x.pmin ? p : x.pmin;
   } else if (c < 32) {
     x.lo |= 1u << c;
@@ -202,7 +237,7 @@ __device__ __forceinline__ Term group_reduce(Term x) {
 // i), G lanes a row, 32 / G rows a warp step: each row's new color to
 // `nxt`, the rows uncolored at the round's start appended to `next` (its
 // length at *next_count), the rows left uncolored counted into `left`
-template <int G>
+template <int G, bool kBucket>
 __device__ __forceinline__ void luby_rows(const Luby& r, const MapView& m,
                                           const int32_t* wl, int64_t n,
                                           const int32_t* cur, int32_t* nxt,
@@ -233,19 +268,21 @@ __device__ __forceinline__ void luby_rows(const Luby& r, const MapView& m,
         for (int j = sub; j < m.d; j += G) {
           const int32_t nb = m.nbrs[at + j];
           if (m.mask[at + j] != 0 && nb != vid) {
-            add_neighbour(x, r, prio, cur, nb);
+            add_neighbour<kBucket>(x, r, prio, cur, nb);
           }
         }
       }
       x = group_reduce<G>(x);
     }
+    bool colored = false;
     if (sub == 0 && vid >= 0) {
       int32_t res = own;
       if (work) {
-        if (prio.tuple(static_cast<uint32_t>(vid), r.b) < x.pmin) {
+        if (luby_tuple<kBucket>(r, prio, vid) < x.pmin) {
           res = smallest_free(x.lo, x.hi);
         }
         left += res < 0 ? 1 : 0;
+        colored = res >= 0;
       }
       nxt[vid] = res;
     }
@@ -255,6 +292,13 @@ __device__ __forceinline__ void luby_rows(const Luby& r, const MapView& m,
     if (lane == 0 && bits != 0u) pos = atomicAdd(next_count, __popc(bits));
     pos = __shfl_sync(kFull, pos, 0);
     if (keep) next[pos + __popc(bits & ((1u << lane) - 1u))] = row;
+    if constexpr (kBucket) {     // the members' done rounds
+      const int32_t j = colored ? vid >> r.mem.shift : -1;
+      const uint32_t peers = __match_any_sync(kFull, j);
+      if (j >= 0 && lane == __ffs(static_cast<int>(peers)) - 1) {
+        atomicMax(r.done + j, static_cast<int32_t>(rnd + 1));
+      }
+    }
   }
 }
 
@@ -271,7 +315,7 @@ __device__ __forceinline__ void spill_terms(const Luby& r, const int32_t* cur,
         const int32_t row = r.spill_rows[sg];
         const int32_t col = r.spill_cols[i];
         if (col != row && state_load<kCoherent>(cur + row) < 0) {
-          add_neighbour(x, r, prio, cur, col);
+          add_neighbour<false>(x, r, prio, cur, col);
         }
         return x;
       },
@@ -307,6 +351,8 @@ __device__ __forceinline__ void spill_finish(const Luby& r, const int32_t* cur,
   }
 }
 
+// kBucket: a bucket of graphs (no spill there)
+template <bool kBucket>
 __global__ void __launch_bounds__(kThreads, kLubyMinBlocks)
 luby_fixed_point_kernel(const __grid_constant__ Luby r) {
   __shared__ int32_t words[kWarps];
@@ -314,7 +360,13 @@ luby_fixed_point_kernel(const __grid_constant__ Luby r) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  for (int64_t i = tid; i < 2 * r.v; i += stride) r.colors[i] = -1;
+  for (int64_t i = tid; i < 2 * r.v; i += stride) {
+    const int64_t row = i < r.v ? i : i - r.v;
+    r.colors[i] = r.valid == nullptr || r.valid[row] != 0 ? -1 : 0;
+  }
+  // a member whose rows are all colored in round 0 (or that has none) is
+  // done after it
+  for (int64_t j = tid; j < r.members; j += stride) r.done[j] = 1;
   for (int64_t h = tid; h < r.h; h += stride) {
     r.hmin[h] = kNoContender;
     r.hforb[2 * h] = r.hforb[2 * h + 1] = 0u;
@@ -345,7 +397,7 @@ luby_fixed_point_kernel(const __grid_constant__ Luby r) {
       const int64_t n = state_load<kCoherent>(r.counts + 3 * s + rnd % 3);
       const int32_t* wl = rnd == 0 ? nullptr : m.wl[rnd & 1];
       with_lanes(m.g, [&](auto gg) {
-        luby_rows<decltype(gg)::value>(r, m, wl, n, cur, nxt, rnd,
+        luby_rows<decltype(gg)::value, kBucket>(r, m, wl, n, cur, nxt, rnd,
                                        m.wl[(rnd + 1) & 1],
                                        r.counts + 3 * s + (rnd + 1) % 3, left);
       });
@@ -362,12 +414,39 @@ luby_fixed_point_kernel(const __grid_constant__ Luby r) {
     grid.sync();
     ++rnd;
   }
+  if constexpr (kBucket) {     // a member left with an uncolored row
+    const int32_t* last = r.colors + (rnd & 1) * r.v;
+    for (int64_t i = tid; i < r.v; i += stride) {
+      if (state_load<kCoherent>(last + i) < 0) r.done[i >> r.mem.shift] = -1;
+    }
+  }
   if (rnd & 1) {         // the last round wrote buffer 1
     for (int64_t i = tid; i < r.v; i += stride) {
       r.colors[i] = state_load<kCoherent>(r.colors + r.v + i);
     }
   }
   if (tid == 0) r.out[0] = static_cast<int32_t>(rnd);
+}
+
+// One cooperative launch of the loop over `r`
+int launch_luby(const Luby& r, int64_t aux_len, void* stream) {
+  int dev = 0, coop = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
+  if (3 * static_cast<int64_t>(r.num_maps) + 4 > aux_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto fn = r.mem.bits != nullptr ? luby_fixed_point_kernel<true>
+                                  : luby_fixed_point_kernel<false>;
+  const int grid = resident_blocks(fn);
+  Luby arg = r;
+  void* args[] = {&arg};
+  const cudaError_t status = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fn), dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (status != cudaSuccess) return static_cast<int>(status);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -394,28 +473,38 @@ int luby_fixed_point(const void* maps, int num_maps, void* lists,
                      int64_t aux_len, int64_t v, int b, int max_rounds,
                      void* stream) {
   using namespace repro_torch;
-  int dev = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
-  if (3 * static_cast<int64_t>(num_maps) + 4 > aux_len) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto* x = static_cast<int32_t*>(aux);
   auto* hw = static_cast<uint32_t*>(heavy);
-  Luby r{static_cast<const LubyMap*>(maps), static_cast<int32_t*>(lists),
-         static_cast<const int32_t*>(spill_rows),
-         static_cast<const int32_t*>(spill_seg),
-         static_cast<const int32_t*>(spill_cols),
-         static_cast<int32_t*>(colors), hw,
-         hw + h, x + 4, x + 1, x, v, h, e, num_maps, b, max_rounds};
-  const int grid = resident_blocks(luby_fixed_point_kernel);
-  void* args[] = {&r};
-  const cudaError_t status = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(luby_fixed_point_kernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-  if (status != cudaSuccess) return static_cast<int>(status);
-  return static_cast<int>(cudaGetLastError());
+  auto* x = static_cast<int32_t*>(aux);
+  return launch_luby(
+      Luby{static_cast<const LubyMap*>(maps), static_cast<int32_t*>(lists),
+           static_cast<const int32_t*>(spill_rows),
+           static_cast<const int32_t*>(spill_seg),
+           static_cast<const int32_t*>(spill_cols),
+           static_cast<int32_t*>(colors), hw, hw + h, x + 4, x + 1, x, v, h,
+           e, num_maps, b, max_rounds, Members{}, nullptr, nullptr, 0},
+      aux_len, stream);
+}
+
+// The same over a bucket of graphs, one padded ELL map of V = members *
+// (1 << shift) rows and no spill: bits, the members' id bits, int32
+// [members]; valid: [V] bytes, the real rows; done: int32 [members],
+// written, each member's done round (-1: not done).  Returns as
+// luby_fixed_point.
+int luby_fixed_point_batched(const void* maps, void* lists, void* colors,
+                             void* aux, int64_t aux_len, int64_t v,
+                             const void* bits, int shift, const void* valid,
+                             void* done, int64_t members, int max_rounds,
+                             void* stream) {
+  using namespace repro_torch;
+  auto* x = static_cast<int32_t*>(aux);
+  return launch_luby(
+      Luby{static_cast<const LubyMap*>(maps), static_cast<int32_t*>(lists),
+           nullptr, nullptr, nullptr, static_cast<int32_t*>(colors), nullptr,
+           nullptr, x + 4, x + 1, x, v, 0, 0, 1, 1, max_rounds,
+           Members{static_cast<const int32_t*>(bits), shift},
+           static_cast<const uint8_t*>(valid), static_cast<int32_t*>(done),
+           members},
+      aux_len, stream);
 }
 
 }  // extern "C"

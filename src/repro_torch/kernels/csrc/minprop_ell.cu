@@ -146,6 +146,19 @@
 // list's take the sentinel V: the new list is compact_worklist's over [V],
 // slot for slot.  Two buffers a list, swapped each round.
 //
+// The same kernel runs two more fixed points of the reference in one launch
+// each.  resident_fixed_point_batched: a bucket of graphs as one
+// block-diagonal ELL (src/repro/batch/pipeline.py:60-65, the vmapped dense
+// fixed point): no row reaches another member's, so only the hash needs the
+// member (hash.cuh's Members: the local id and the member's bits), and each
+// member's round count is written by the slot that starts its run of the
+// ascending undecided list (a member that stops never goes on, so the last
+// value is its count).  resident_fixed_point_seeded: the streaming repair
+// (src/repro/core/mis2.py:192-236), from the T it is given, every row
+// active, the first undecided list T's undecided rows.  Both are bit for bit
+// the reference's dense rounds for the same reason the single-graph solve is:
+// a decided row stays decided and an M that is OUT stays OUT.
+//
 // Bound: memory, the bytes of the passes at the rounds run (chip_smoke.py
 // counts them from the twin's live counts), against which a solve also pays
 // its grid syncs, four a round at short rows and five at wide ones.  One
@@ -163,6 +176,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "compact.cuh"
 #include "grid.cuh"
 #include "hash.cuh"
 #include "spill.cuh"
@@ -286,30 +300,6 @@ __device__ __forceinline__ int32_t vertex_of(
   }
 }
 
-template <int G>
-__device__ __forceinline__ uint32_t group_min(uint32_t x) {
-  if constexpr (G == 32) {
-    return __reduce_min_sync(kFull, x);
-  } else {
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) {
-      const uint32_t y = __shfl_xor_sync(kFull, x, o);
-      x = y < x ? y : x;
-    }
-    return x;
-  }
-}
-
-// the ballot bits of group grp's lanes
-template <int G>
-__device__ __forceinline__ uint32_t group_bits(int grp) {
-  if constexpr (G == 32) {
-    return kFull;
-  } else {
-    return ((1u << G) - 1u) << (grp * G);
-  }
-}
-
 // A warp's step s hands slot s + q of its batch to group q.  Returns, on
 // the lane that owns that slot, its group's result x, and `res` on every
 // other lane.
@@ -336,17 +326,17 @@ __device__ __forceinline__ void load_ids(int32_t (&nb)[C],
 }
 
 // One round's refreshed tuple of every vertex: h[i] = T[i], or T[i]'s fresh
-// tuple where it is undecided
+// tuple where it is undecided (a bucket's member-local one where `mem` says)
 template <int Kind, bool kCoh>
 __device__ __forceinline__ void refreshed_tuples_body(
     const uint32_t* __restrict__ t, uint32_t* __restrict__ h, uint32_t it,
-    int64_t v, int b) {
+    int64_t v, int b, const Members& mem = Members{}) {
   const RoundPriority<Kind> prio(it);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < v; i += stride) {
     uint32_t x = state_load<kCoh>(t + i);
-    if (is_undecided(x)) x = prio.tuple(static_cast<uint32_t>(i), b);
+    if (is_undecided(x)) x = tuple_of(prio, static_cast<uint32_t>(i), b, mem);
     h[i] = x;
   }
 }
@@ -370,7 +360,8 @@ __device__ __forceinline__ void refresh_group_body(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
     int64_t n, uint32_t it, int64_t rows, int64_t w, int d, int b,
-    const int32_t* __restrict__ slab_rows, int kind = Kind) {
+    const int32_t* __restrict__ slab_rows, int kind = Kind,
+    const Members& mem = Members{}) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
@@ -404,7 +395,7 @@ __device__ __forceinline__ void refresh_group_body(
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if (!kOnce && nb[c] >= 0 && is_undecided(x[c])) {
-            x[c] = prio.tuple(static_cast<uint32_t>(nb[c]), b);
+            x[c] = tuple_of(prio, static_cast<uint32_t>(nb[c]), b, mem);
           }
           mn = x[c] < mn ? x[c] : mn;
         }
@@ -447,7 +438,7 @@ __device__ __forceinline__ void decide_group_body(
     const int32_t* __restrict__ wl, int64_t n, uint32_t it, int64_t rows,
     int64_t w, int d, int b, int kind,
     const int32_t* __restrict__ slab_rows,
-    const uint32_t* __restrict__ t_rows) {
+    const uint32_t* __restrict__ t_rows, const Members& mem = Members{}) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
@@ -474,8 +465,9 @@ __device__ __forceinline__ void decide_group_body(
       // in the padded ELL a row is its vertex: `row` alone keys T there
       if (row >= 0) {
         if (is_undecided(state_load<kCoh>(t + (Map == kSlab ? vid : row)))) {
-          tv = fresh_tuple(kind, it,
-                           static_cast<uint32_t>(Map == kSlab ? vid : row), b);
+          tv = fresh_of(kind, it,
+                        static_cast<uint32_t>(Map == kSlab ? vid : row), b,
+                        mem);
         } else {
           row = -1;
         }
@@ -650,7 +642,9 @@ constexpr int kLiveM = 1;      // ... and rows whose M is not OUT (wl2)
 // The solve's buffers.  wl[l][k]: list l's buffer k, [V] int32 each;
 // counts[2 * l + k]: its live slots; block_counts[l * grid + block]: what
 // a block keeps of list l in a round's compaction; out: the rounds run
-// and the last live count of wl1.
+// and the last live count of wl1.  A bucket of graphs (mem.bits set) also
+// writes its[j], the rounds in which member j had an undecided row; a
+// seeded solve starts from the T it is given instead of from `active`.
 struct Resident {
   uint32_t* t;
   uint32_t* m;
@@ -666,6 +660,10 @@ struct Resident {
   int b;
   int kind;
   int max_iters;
+  Members mem;                 // a bucket's members (bits null: one graph)
+  int32_t* its;                // [members], a bucket's round counts
+  int64_t members;
+  int seeded;                  // T given: the first list its undecided rows
 };
 
 // buffer k of list L (a select, so the parameter struct is never indexed
@@ -675,94 +673,18 @@ __device__ __forceinline__ int32_t* list_buffer(const Resident& r, int k) {
   return k != 0 ? r.wl[L][1] : r.wl[L][0];
 }
 
-// this block's contiguous chunk [lo, hi) of n list slots
-__device__ __forceinline__ void block_chunk(int64_t n, int64_t& lo,
-                                            int64_t& hi) {
-  const int64_t per = (n + gridDim.x - 1) / gridDim.x;
-  lo = per * blockIdx.x < n ? per * blockIdx.x : n;
-  hi = lo + per < n ? lo + per : n;
-}
-
-// the row at slot i of a previous list (`prev` null: the identity, row i)
-__device__ __forceinline__ int32_t list_row(const int32_t* prev, int64_t i) {
-  return prev != nullptr ? state_load<kCoherent>(prev + i)
-                         : static_cast<int32_t>(i);
-}
-
-// Compaction, first half: the rows this block keeps (`keep(row)`) of its
-// chunk of the previous list's n slots, to bc[blockIdx.x]
-template <typename Keep>
-__device__ __forceinline__ void count_kept(const int32_t* prev, int64_t n,
-                                           Keep keep, int32_t* bc,
-                                           int32_t* words) {
-  int64_t lo, hi;
-  block_chunk(n, lo, hi);
-  int32_t c = 0;
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    c += keep(list_row(prev, i)) ? 1 : 0;
-  }
-  c = block_sum(c, words);
-  if (threadIdx.x == 0) bc[blockIdx.x] = c;
-}
-
-// Compaction, second half (after a grid sync): this block's kept rows, in
-// order, at the sum of the earlier blocks' counts in `next`; the sentinel
-// from the new count up to `stale`, the slots `next` held live before; the
-// new count to *count
-template <typename Keep>
-__device__ __forceinline__ void write_kept(const int32_t* prev, int64_t n,
-                                           Keep keep, const int32_t* bc,
-                                           int32_t* next, int32_t* count,
-                                           int64_t stale, int32_t sentinel,
-                                           int32_t* words) {
-  int32_t before = 0, total = 0;
-  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads) {
-    const int32_t c = state_load<kCoherent>(bc + j);
-    total += c;
-    before += j < static_cast<int>(blockIdx.x) ? c : 0;
-  }
-  int64_t pos = block_sum(before, words);
-  total = block_sum(total, words);
-  int64_t lo, hi;
-  block_chunk(n, lo, hi);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int64_t base = lo; base < hi; base += kThreads) {  // block-uniform
-    const int64_t i = base + threadIdx.x;
-    const int32_t row = i < hi ? list_row(prev, i) : 0;
-    const bool kp = i < hi && keep(row);
-    const uint32_t bits = __ballot_sync(kFull, kp);
-    if (lane == 0) words[warp] = __popc(bits);
-    __syncthreads();
-    int32_t at = 0, tile = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < warp ? words[w] : 0;
-      tile += words[w];
-    }
-    __syncthreads();
-    if (kp) next[pos + at + __popc(bits & ((1u << lane) - 1u))] = row;
-    pos += tile;
-  }
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = total + static_cast<int64_t>(blockIdx.x) * kThreads +
-                   threadIdx.x;
-       i < stale; i += stride) {
-    next[i] = sentinel;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = total;
-}
-
 // what list L of the resident fixed point keeps of a previous list: the
-// undecided rows (kUndecided; the active rows of round 0's, `prev` null),
-// or the rows whose M is not OUT (kLiveM)
+// undecided rows (kUndecided; of round 0's, `prev` null, the active rows,
+// or the undecided ones of a seeded T), or the rows whose M is not OUT
+// (kLiveM)
 template <int L>
 __device__ __forceinline__ auto resident_keep(const Resident& r,
                                               const int32_t* prev) {
   return [&r, prev](int32_t row) -> bool {
     if constexpr (L == kUndecided) {
-      return prev != nullptr ? is_undecided(state_load<kCoherent>(r.t + row))
-                             : r.active[row] != 0;
+      return prev != nullptr || r.seeded != 0
+                 ? is_undecided(state_load<kCoherent>(r.t + row))
+                 : r.active[row] != 0;
     } else {
       return state_load<kCoherent>(r.m + row) != kOut;
     }
@@ -793,20 +715,43 @@ __device__ __forceinline__ void refreshed_tuples_any(const Resident& r,
   switch (r.kind) {
     case kXorshift:
       return refreshed_tuples_body<kXorshift, kCoherent>(r.t, r.h, it, r.v,
-                                                         r.b);
+                                                         r.b, r.mem);
     case kFixed:
-      return refreshed_tuples_body<kFixed, kCoherent>(r.t, r.h, it, r.v, r.b);
+      return refreshed_tuples_body<kFixed, kCoherent>(r.t, r.h, it, r.v, r.b,
+                                                      r.mem);
     default:
       return refreshed_tuples_body<kXorshiftStar, kCoherent>(r.t, r.h, it,
-                                                             r.v, r.b);
+                                                             r.v, r.b, r.mem);
+  }
+}
+
+// A bucket's round counts: each member with a row on the round's undecided
+// list wl1 (ascending, so a member's rows are one run of slots) takes
+// it + 1, written by the slot that starts its run -- one plain store a
+// live member a round.  A member stops for good (no row turns undecided
+// again), so the last value is the rounds it was live.
+__device__ __forceinline__ void member_rounds(const Resident& r,
+                                              const int32_t* wl1, int64_t n1,
+                                              uint32_t it) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n1; i += stride) {
+    const int32_t j = state_load<kCoherent>(wl1 + i) >> r.mem.shift;
+    if (i == 0 || (state_load<kCoherent>(wl1 + i - 1) >> r.mem.shift) != j) {
+      r.its[j] = static_cast<int32_t>(it + 1);
+    }
   }
 }
 
 // The §V-B fixed point over padded ELL, from `active`: round 0's state is
-// T = 1 on the active rows and OUT elsewhere, M = OUT, wl1 the active rows
-// and wl2 every row.  Each round: (a) at wide rows (kOnce) the per-vertex
-// pass into h, (b) the fused refresh over wl2, (c) the fused decide over
-// wl1, (d) both lists compacted over themselves; a grid sync after each.
+// T = 1 on the active rows and OUT elsewhere (or the seeded T as given),
+// M = OUT, wl1 the active rows (the seeded T's undecided ones) and wl2
+// every row.  Each round: (a) at wide rows (kOnce) the per-vertex pass
+// into h, (b) the fused refresh over wl2, (c) the fused decide over wl1
+// (and a bucket's round counts), (d) both lists compacted over
+// themselves; a grid sync after each.  A bucket of graphs is one
+// block-diagonal ELL: no row reaches another member's, so only the hash
+// needs the member (r.mem).
 template <int G, int C, bool kOnce, int Kind>
 __global__ void __launch_bounds__(kThreads, kResidentMinBlocks)
 resident_fixed_point_kernel(const __grid_constant__ Resident r) {
@@ -817,10 +762,11 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
                       threadIdx.x;
   for (int64_t i = tid; i < v; i += stride) {
-    r.t[i] = r.active[i] != 0 ? 1u : kOut;
+    if (r.seeded == 0) r.t[i] = r.active[i] != 0 ? 1u : kOut;
     r.m[i] = kOut;
     list_buffer<kLiveM>(r, 0)[i] = static_cast<int32_t>(i);
   }
+  for (int64_t j = tid; j < r.members; j += stride) r.its[j] = 0;
   resident_count<kUndecided>(r, nullptr, v, words);
   if (tid == 0) {
     r.counts[2 * kLiveM] = static_cast<int32_t>(v);
@@ -847,11 +793,12 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
     }
     refresh_group_body<G, G, C, kOnce, Kind, kPadded, kCoherent>(
         kOnce ? r.h : r.t, r.m, r.nbrs, wl2, n2, it, v, v, r.d, r.b,
-        nullptr);
+        nullptr, Kind, r.mem);
     grid.sync();
     decide_group_body<G, G, C, true, kPadded, kCoherent>(
         r.t, r.m, r.active, r.nbrs, wl1, n1, it, v, v, r.d, r.b, r.kind,
-        nullptr, nullptr);
+        nullptr, nullptr, r.mem);
+    if (r.its != nullptr) member_rounds(r, wl1, n1, it);
     grid.sync();
     // the slots each next buffer held live (written two rounds ago)
     const int64_t stale1 =
@@ -1317,6 +1264,50 @@ hybrid_fixed_point_kernel(const __grid_constant__ Hybrid r) {
   }
 }
 
+// The state of one resident solve over the caller's buffers (one graph,
+// from `active`; the batched and seeded entries set the rest)
+Resident resident_of(void* t, void* m, void* scratch, const void* active,
+                     const void* nbrs, void* wl, void* aux, int64_t v, int d,
+                     int b, int kind, int max_iters) {
+  auto* w = static_cast<int32_t*>(wl);
+  auto* x = static_cast<int32_t*>(aux);
+  return Resident{static_cast<uint32_t*>(t), static_cast<uint32_t*>(m),
+                  static_cast<uint32_t*>(scratch),
+                  static_cast<const uint8_t*>(active),
+                  static_cast<const int32_t*>(nbrs),
+                  {{w, w + v}, {w + 2 * v, w + 3 * v}}, x, x + 6, x + 4, v, d,
+                  b, kind, max_iters, Members{}, nullptr, 0, 0};
+}
+
+// One cooperative launch of the instance width r.d takes
+int launch_resident(const Resident& r, int64_t aux_len, void* stream) {
+  int dev = 0, coop = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
+  cudaError_t status = cudaSuccess;
+  const bool shaped = with_resident_shape(r.d, r.kind, [&](auto gg, auto cc,
+                                                           auto once, auto k) {
+    auto fn = resident_fixed_point_kernel<decltype(gg)::value,
+                                          decltype(cc)::value,
+                                          decltype(once)::value != 0,
+                                          decltype(k)::value>;
+    const int grid = resident_blocks(fn);
+    if (6 + 2 * static_cast<int64_t>(grid) > aux_len) {
+      status = cudaErrorInvalidValue;
+      return;
+    }
+    Resident arg = r;
+    void* args[] = {&arg};
+    status = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                         dim3(grid), dim3(kThreads), args, 0,
+                                         static_cast<cudaStream_t>(stream));
+  });
+  if (!shaped) return static_cast<int>(cudaErrorInvalidValue);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -1415,39 +1406,45 @@ int resident_fixed_point(void* t, void* m, void* scratch, const void* active,
                          const void* nbrs, void* wl, void* aux,
                          int64_t aux_len, int64_t v, int d, int b, int kind,
                          int max_iters, void* stream) {
+  return repro_torch::launch_resident(
+      repro_torch::resident_of(t, m, scratch, active, nbrs, wl, aux, v, d, b,
+                               kind, max_iters),
+      aux_len, stream);
+}
+
+// The same over a bucket of graphs laid end to end, rows = 1 << shift rows
+// each (one block-diagonal ELL of V = members * rows rows): bits, the
+// members' id bits, int32 [members]; its: int32 [members], written, the
+// rounds each member had an undecided row.  Returns as
+// resident_fixed_point.
+int resident_fixed_point_batched(void* t, void* m, void* scratch,
+                                 const void* active, const void* nbrs,
+                                 void* wl, void* aux, int64_t aux_len,
+                                 int64_t v, int d, const void* bits,
+                                 int shift, void* its, int64_t members,
+                                 int kind, int max_iters, void* stream) {
   using namespace repro_torch;
-  int dev = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
-  auto* w = static_cast<int32_t*>(wl);
-  auto* x = static_cast<int32_t*>(aux);
-  Resident r{static_cast<uint32_t*>(t), static_cast<uint32_t*>(m),
-             static_cast<uint32_t*>(scratch),
-             static_cast<const uint8_t*>(active),
-             static_cast<const int32_t*>(nbrs),
-             {{w, w + v}, {w + 2 * v, w + 3 * v}}, x, x + 6, x + 4, v, d, b,
-             kind, max_iters};
-  cudaError_t status = cudaSuccess;
-  const bool shaped = with_resident_shape(d, kind, [&](auto gg, auto cc,
-                                                       auto once, auto k) {
-    auto fn = resident_fixed_point_kernel<decltype(gg)::value,
-                                          decltype(cc)::value,
-                                          decltype(once)::value != 0,
-                                          decltype(k)::value>;
-    const int grid = resident_blocks(fn);
-    if (6 + 2 * static_cast<int64_t>(grid) > aux_len) {
-      status = cudaErrorInvalidValue;
-      return;
-    }
-    void* args[] = {&r};
-    status = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                         dim3(grid), dim3(kThreads), args, 0,
-                                         static_cast<cudaStream_t>(stream));
-  });
-  if (!shaped) return static_cast<int>(cudaErrorInvalidValue);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  return static_cast<int>(cudaGetLastError());
+  Resident r = resident_of(t, m, scratch, active, nbrs, wl, aux, v, d, 1,
+                           kind, max_iters);
+  r.mem = Members{static_cast<const int32_t*>(bits), shift};
+  r.its = static_cast<int32_t*>(its);
+  r.members = members;
+  return launch_resident(r, aux_len, stream);
+}
+
+// The same from a given T: t holds the seed on entry (IN / OUT on frozen
+// rows, undecided words on the rows to solve), the first undecided list is
+// its undecided rows, and every row is active (active: [V] bytes, all
+// set).  Returns as resident_fixed_point.
+int resident_fixed_point_seeded(void* t, void* m, void* scratch,
+                                const void* active, const void* nbrs, void* wl,
+                                void* aux, int64_t aux_len, int64_t v, int d,
+                                int b, int kind, int max_iters, void* stream) {
+  using namespace repro_torch;
+  Resident r = resident_of(t, m, scratch, active, nbrs, wl, aux, v, d, b,
+                           kind, max_iters);
+  r.seeded = 1;
+  return launch_resident(r, aux_len, stream);
 }
 
 // The group shape of a slab of r rows of d ids in the hybrid fixed point,

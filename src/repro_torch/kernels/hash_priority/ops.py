@@ -6,7 +6,8 @@ id as int32 bit patterns of the uint32 words (the TPU kernel's signature);
 ``0..n-1``, widened to int64, with no ids read: the form the coloring's
 round takes, in one launch; ``round_priorities_batched(rows, it, bits)``
 that form of each member of a bucket (``bits`` per member), end to end:
-the batched coloring's round, one launch a bucket.  A tensor on the CPU
+the batched coloring's round priorities (its twin's; the batched Luby
+kernel hashes them inline).  A tensor on the CPU
 goes to the plain-torch twins (``ref``); a tensor on a CUDA device goes to
 the hand-written kernel (``csrc/hash_pack.cu``), or the call raises.
 ``LAUNCHES`` counts kernel launches, the two single-graph forms under

@@ -1,6 +1,7 @@
 """Wrappers for the Luby coloring kernel: the reference's round loop in one
-launch, over the padded ELL (``luby_fixed_point``) or over the hybrid
-layout (``luby_fixed_point_hybrid``: its slabs and its COO spill).
+launch, over the padded ELL (``luby_fixed_point``), over the hybrid layout
+(``luby_fixed_point_hybrid``: its slabs and its COO spill) or over a bucket
+of graphs laid end to end (``luby_fixed_point_batched``).
 
 A tensor on the CPU goes to the plain-torch twin (``ref``); a tensor on a
 CUDA device goes to the hand-written kernel (``csrc/luby.cu``), or the call
@@ -17,7 +18,7 @@ from ...core.tuples import id_bits
 from .. import _build
 from . import ref
 
-LAUNCHES = {"luby_fixed_point": 0}
+LAUNCHES = {"luby_fixed_point": 0, "luby_fixed_point_batched": 0}
 
 _SIGNATURES = {
     "luby_fixed_point": (ctypes.c_void_p, ctypes.c_int) + (
@@ -25,13 +26,18 @@ _SIGNATURES = {
         ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p),
+    "luby_fixed_point_batched": (ctypes.c_void_p,) * 4 + (
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p),
     "luby_lanes": (ctypes.c_int, ctypes.c_int64),
 }
 _MAP_TABLES: dict = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["luby_fixed_point"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _entry(name: str):
@@ -110,6 +116,60 @@ def luby_fixed_point_hybrid(slabs, spill, v: int, *, max_rounds: int):
     return _luby_on_card(maps, spill, v, max_rounds)
 
 
+def luby_fixed_point_batched(neighbors, mask, row_valid, bits, rows: int,
+                             *, max_rounds: int):
+    """The reference's batched coloring loop (``_color_batch_impl``'s
+    rounds of the vmapped ``_color_round_masked``, the round shared) over a
+    bucket of ``B`` graphs laid end to end, ``rows`` (a power of two) each:
+    ``neighbors`` (int32 ``[B * rows, W]``) the block-diagonal ELL,
+    ``mask`` (bool, the same shape), ``row_valid`` (bool ``[B * rows]``)
+    the real rows, ``bits`` (int32 ``[B]``) the members' id bits (not read
+    back here).  Padded rows enter colored 0.  Returns ``(colors int32 [B *
+    rows], done_round int32 [B], rounds int32 [1])``: ``done_round[j]`` the
+    round after which member ``j`` had every real row colored, -1 if it
+    never had; the loop runs round 0, then on while a real row is
+    uncolored and fewer than ``max_rounds`` rounds ran.
+
+    On the card one cooperative launch, as :func:`luby_fixed_point`."""
+    dev = neighbors.device
+    _check({"neighbors": neighbors, "mask": mask, "row_valid mask": row_valid,
+            "bits": bits}, dev)
+    n = neighbors.shape[0]
+    if neighbors.dim() != 2 or mask.shape != neighbors.shape \
+            or row_valid.shape != (n,):
+        raise ValueError(f"neighbors {tuple(neighbors.shape)}, mask "
+                         f"{tuple(mask.shape)} and row_valid "
+                         f"{tuple(row_valid.shape)} disagree")
+    if rows < 1 or rows & (rows - 1) or bits.dim() != 1 \
+            or n != bits.shape[0] * rows:
+        raise ValueError(f"{n} rows are not {tuple(bits.shape)} members of "
+                         f"{rows} rows (a power of two)")
+    _check_rounds(max_rounds)
+    if dev.type == "cpu":
+        return ref.luby_fixed_point_batched_ref(
+            neighbors, mask, row_valid, bits, rows, max_rounds=max_rounds)
+    return _luby_batched_on_card(neighbors, mask, row_valid, bits, rows,
+                                 max_rounds)
+
+
+def _luby_batched_on_card(neighbors, mask, row_valid, bits, rows: int,
+                          max_rounds: int):
+    """One launch over a bucket's one row map, no spill."""
+    dev = neighbors.device
+    n = neighbors.shape[0]
+    table = _map_table([(None, neighbors.reshape(-1), mask.reshape(-1), n,
+                         neighbors.shape[1])], dev)
+    lists = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    colors = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    done = torch.empty(bits.shape[0], dtype=torch.int32, device=dev)
+    aux = torch.empty(7, dtype=torch.int32, device=dev)
+    _launch(dev, "luby_fixed_point_batched", table.data_ptr(),
+            lists.data_ptr(), colors.data_ptr(), aux.data_ptr(), aux.shape[0],
+            n, bits.data_ptr(), rows.bit_length() - 1, row_valid.data_ptr(),
+            done.data_ptr(), bits.shape[0], max_rounds)
+    return colors[:n], done, aux[:1]
+
+
 def _empty_spill(dev):
     none = torch.empty(0, dtype=torch.int32, device=dev)
     return none, none, none
@@ -141,12 +201,12 @@ def _map_table(maps, dev) -> torch.Tensor:
     return table
 
 
-def _launch(dev, *args) -> None:
+def _launch(dev, name: str, *args) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = _entry("luby_fixed_point")(*args, stream)
-    _build.check(status, "luby_fixed_point")
-    LAUNCHES["luby_fixed_point"] += 1
+        status = _entry(name)(*args, stream)
+    _build.check(status, name)
+    LAUNCHES[name] += 1
 
 
 def _luby_on_card(maps, spill, v: int, max_rounds: int):
@@ -160,7 +220,8 @@ def _luby_on_card(maps, spill, v: int, max_rounds: int):
     colors = torch.empty(2 * max(v, 1), dtype=torch.int32, device=dev)
     heavy = torch.empty(3 * max(h, 1), dtype=torch.int32, device=dev)
     aux = torch.empty(4 + 3 * len(maps), dtype=torch.int32, device=dev)
-    _launch(dev, table.data_ptr(), len(maps), lists.data_ptr(),
+    _launch(dev, "luby_fixed_point", table.data_ptr(), len(maps),
+            lists.data_ptr(),
             *(x.data_ptr() for x in spill), h, e, colors.data_ptr(),
             heavy.data_ptr(), aux.data_ptr(), aux.shape[0], v, id_bits(v),
             max_rounds)

@@ -1,7 +1,8 @@
 """Plain-torch twins of the Luby coloring kernel (``csrc/luby.cu``): the
 reference's round loops ``repro.core.coloring._color_fixed_point`` (padded
-ELL) and ``_color_fixed_point_hybrid`` (the hybrid layout's slabs and COO
-spill), round for round.
+ELL), ``_color_fixed_point_hybrid`` (the hybrid layout's slabs and COO
+spill) and ``repro.batch.pipeline._color_batch_impl``'s (a bucket of
+graphs), round for round.
 
 Each round hashes the priorities with the hash-pack wrapper
 (``kernels.hash_priority.ops.round_priorities``, its own twin on the CPU)
@@ -9,10 +10,8 @@ and runs the rowwise round in plain torch; the loop reads one flag a round
 on the host, which is the plain version and no yardstick of speed.  The
 words are widened to int64 for every compare (see ``core.tuples``).
 
-The rowwise round (``color_round_rows`` and its bit helpers) is shared: it
-is also the production round of the batched coloring
-(``core.coloring.color_batched_fixed_point``) on every device, whose loop
-has no kernel of its own yet.
+The batched twin hashes with the batched hash-pack wrapper
+(``round_priorities_batched``: each member's local ids and its own bits).
 """
 from __future__ import annotations
 
@@ -155,3 +154,35 @@ def luby_fixed_point_hybrid_ref(slabs, spill, v: int, *, max_rounds: int,
         return new
 
     return luby_loop(v, dev, max_rounds, round_fn, trace)
+
+
+def luby_fixed_point_batched_ref(neighbors, mask, row_valid, bits,
+                                 rows: int, *, max_rounds: int, trace=None):
+    """The batched Luby loop (the reference's ``_color_batch_impl`` over one
+    bucket): ``neighbors`` / ``mask`` the bucket's block-diagonal ELL
+    (``[B * rows, W]``), ``row_valid`` its real rows, ``bits`` (int32
+    ``[B]``) the members' id bits; padded rows enter colored 0; each round
+    :func:`color_round_rows` over every row with one batched hash-pack call
+    for the priorities, the round shared by the members.  Returns
+    ``(colors int32 [B * rows], done_round int32 [B], int32 [1] rounds)``,
+    ``done_round[j]`` the round after which member ``j`` had every real row
+    colored (-1: never).  ``trace`` (a list) gets each round's starting
+    colors."""
+    dev = neighbors.device
+    vids = torch.arange(neighbors.shape[0], dtype=torch.int32, device=dev)
+    colors = torch.where(row_valid, -1, 0).to(torch.int32)
+    done = torch.full((bits.shape[0],), -1, dtype=torch.int32, device=dev)
+    rnd_dev = torch.zeros(1, dtype=torch.int32, device=dev)
+    rnd = 0
+    while True:
+        if trace is not None:
+            trace.append(colors)
+        prio = hash_ops.round_priorities_batched(rows, rnd_dev, bits)
+        colors = color_round_rows(neighbors, mask, vids, colors, prio)
+        rnd_dev += 1
+        rnd += 1
+        finished = ((colors >= 0) | ~row_valid).view(-1, rows).all(dim=1)
+        done = torch.where((done < 0) & finished, rnd, done)
+        if rnd >= max_rounds or bool(finished.all()):   # a host read a round
+            break
+    return colors, done, torch.tensor([rnd], dtype=torch.int32, device=dev)

@@ -1,8 +1,10 @@
 """Wrappers for the MIS-2 round passes: the fused ones over padded ELL and
 over one slab of the hybrid layout, and the unfused ones of the host-driven
 round; and for the whole fixed point in one launch, over padded ELL
-(``resident_fixed_point``) and over the hybrid layout
-(``hybrid_fixed_point``: its slabs and its COO spill).
+(``resident_fixed_point``; ``resident_fixed_point_batched`` over a bucket
+of graphs laid end to end, ``resident_fixed_point_seeded`` from a given T)
+and over the hybrid layout (``hybrid_fixed_point``: its slabs and its COO
+spill).
 
 ``fused_*`` and ``sliced_*`` take the resident drivers' state as it lies
 on the device and update it in place.  ``refresh_columns_rows`` /
@@ -36,7 +38,8 @@ from .ref import set_drop
 LAUNCHES = {"fused_refresh_columns": 0, "fused_decide": 0,
             "sliced_refresh_columns": 0, "sliced_decide": 0,
             "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
-            "hybrid_fixed_point": 0}
+            "resident_fixed_point_batched": 0,
+            "resident_fixed_point_seeded": 0, "hybrid_fixed_point": 0}
 
 _TAIL = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p)
@@ -49,6 +52,13 @@ _SIGNATURES = {
     "refresh_columns": (ctypes.c_void_p,) * 3 + _ROWS_TAIL,
     "decide": (ctypes.c_void_p,) * 5 + _ROWS_TAIL,
     "resident_fixed_point": (ctypes.c_void_p,) * 7 + (
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "resident_fixed_point_batched": (ctypes.c_void_p,) * 7 + (
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p),
+    "resident_fixed_point_seeded": (ctypes.c_void_p,) * 7 + (
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
     "hybrid_fixed_point": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (
@@ -226,23 +236,90 @@ def resident_fixed_point(t, m, active, nbrs_flat, *, priority: str, b: int,
     allocated here.  It raises (``KernelLaunchError``) where the card has
     no cooperative launch or the launch is refused: there is no per-round
     fallback."""
-    v, d = _check_state(t, nbrs_flat, {"m": m, "active": active}, b,
-                        priority, {})
-    if max_iters < 0:
-        raise ValueError(f"max_iters={max_iters} is negative")
+    _check_state(t, nbrs_flat, {"m": m, "active": active}, b, priority, {})
+    _check_iters(max_iters)
     if t.device.type == "cpu":
         return ref.resident_fixed_point_ref(t, m, active, nbrs_flat,
                                             priority=priority, b=b,
                                             max_iters=max_iters)
+    aux = _resident_on_card("resident_fixed_point", t, m, active, nbrs_flat,
+                            b, PRIORITY_CODES[priority], max_iters)
+    return t, aux[4:6]
+
+
+def resident_fixed_point_batched(t, m, active, nbrs_flat, *, priority: str,
+                                 bits: torch.Tensor, rows: int,
+                                 max_iters: int):
+    """:func:`resident_fixed_point` over a bucket of ``B`` graphs laid end
+    to end, ``rows`` (a power of two) each: ``nbrs_flat`` the
+    block-diagonal ELL of ``V = B * rows`` rows, ``bits`` (int32 ``[B]``,
+    on t's device, each ``0 < b < 32``; not read back here) the members'
+    id bits, ``active`` False on padding; as
+    ``ref.resident_fixed_point_batched_ref`` defines it.  Returns ``(t,
+    int32 [2], int32 [B])``: the rounds run and the last live count, and
+    each member's rounds with an undecided row.  On the card one
+    cooperative launch, as :func:`resident_fixed_point`."""
+    if rows < 1 or rows & (rows - 1):
+        raise ValueError(f"rows={rows} is not a power of two")
+    if bits.dtype != torch.int32 or bits.dim() != 1 \
+            or not bits.is_contiguous():
+        raise TypeError("bits must be a contiguous 1-D int32 tensor")
+    if bits.device != t.device:
+        raise ValueError(f"bits is on {bits.device}, t on {t.device}")
+    _check_state(t, nbrs_flat, {"m": m, "active": active}, 1, priority, {})
+    if t.shape[0] != bits.shape[0] * rows:
+        raise ValueError(f"t has {t.shape[0]} rows, {bits.shape[0]} members "
+                         f"of {rows} rows make {bits.shape[0] * rows}")
+    _check_iters(max_iters)
+    if t.device.type == "cpu":
+        return ref.resident_fixed_point_batched_ref(
+            t, m, active, nbrs_flat, priority=priority, bits=bits, rows=rows,
+            max_iters=max_iters)
+    its = torch.empty(bits.shape[0], dtype=torch.int32, device=t.device)
+    aux = _resident_on_card("resident_fixed_point_batched", t, m, active,
+                            nbrs_flat, bits.data_ptr(), rows.bit_length() - 1,
+                            its.data_ptr(), bits.shape[0],
+                            PRIORITY_CODES[priority], max_iters)
+    return t, aux[4:6], its
+
+
+def resident_fixed_point_seeded(t, m, nbrs_flat, *, priority: str, b: int,
+                                max_iters: int):
+    """:func:`resident_fixed_point` from the T that ``t`` holds (read: IN /
+    OUT on frozen rows, undecided words on the rows to solve; written: T at
+    the end), every row active, as ``ref.resident_fixed_point_seeded_ref``
+    defines it (the reference's ``mis2_repair_fixed_point``).  Returns
+    ``(t, int32 [2])``.  On the card one cooperative launch, as
+    :func:`resident_fixed_point`."""
+    _check_state(t, nbrs_flat, {"m": m}, b, priority, {})
+    _check_iters(max_iters)
+    if t.device.type == "cpu":
+        return ref.resident_fixed_point_seeded_ref(
+            t, m, nbrs_flat, priority=priority, b=b, max_iters=max_iters)
+    every = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+    aux = _resident_on_card("resident_fixed_point_seeded", t, m, every,
+                            nbrs_flat, b, PRIORITY_CODES[priority], max_iters)
+    return t, aux[4:6]
+
+
+def _check_iters(max_iters: int) -> None:
+    if max_iters < 0:
+        raise ValueError(f"max_iters={max_iters} is negative")
+
+
+def _resident_on_card(name: str, t, m, active, nbrs_flat, *tail):
+    """One launch of the resident kernel through the C entry ``name``:
+    the scratch and the worklists allocated here, ``tail`` the entry's own
+    arguments after V and D.  Returns the ``aux`` words."""
+    v = t.shape[0]
     scratch = torch.empty_like(t)
     wl = torch.empty(4 * v, dtype=torch.int32, device=t.device)
     aux = torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * card_sms(t.device),
                       dtype=torch.int32, device=t.device)
-    _launch("resident_fixed_point", t, t.data_ptr(), m.data_ptr(),
-            scratch.data_ptr(), active.data_ptr(), nbrs_flat.data_ptr(),
-            wl.data_ptr(), aux.data_ptr(), aux.shape[0], v, d, b,
-            PRIORITY_CODES[priority], max_iters)
-    return t, aux[4:6]
+    _launch(name, t, t.data_ptr(), m.data_ptr(), scratch.data_ptr(),
+            active.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
+            aux.data_ptr(), aux.shape[0], v, nbrs_flat.shape[0] // v, *tail)
+    return aux
 
 
 # ---------------------------------------------------------------------------
@@ -287,8 +364,7 @@ def _check_hybrid(t, m, active, slabs, spill, b: int, priority: str,
         raise ValueError(f"id bits b={b} out of range")
     if priority not in PRIORITY_CODES:
         raise ValueError(f"unknown priority {priority!r}")
-    if max_iters < 0:
-        raise ValueError(f"max_iters={max_iters} is negative")
+    _check_iters(max_iters)
 
 
 _SLAB_TABLES: dict = {}

@@ -11,7 +11,12 @@ slab of ``R`` rows) write nothing.  The sliced decide also takes
 ``resident_fixed_point_ref`` is the twin of the persistent kernel: the
 resident fixed point, round after round of the fused twins and the ordered
 compaction of both worklists over themselves (``compact_over_ref``); it
-reads the live count on the host each round.  ``hybrid_fixed_point_ref``
+reads the live count on the host each round.  Its batched form
+(``resident_fixed_point_batched_ref``: a bucket of graphs as one
+block-diagonal ELL, each row hashing its member-local id with its member's
+bits, and each member's round count) and its seeded form
+(``resident_fixed_point_seeded_ref``: from a given T, every row active) run
+the same loop.  ``hybrid_fixed_point_ref``
 is the twin of the hybrid persistent kernel, the same loop over each slab
 of the hybrid layout (the sliced twins, each slab's lists compacted over
 themselves) and the spill's passes by ``scatter_reduce`` (``segment_reduce``
@@ -40,8 +45,15 @@ from ...core.tuples import IN, OUT, OUT_I32, is_undecided, narrow, pack, widen
 
 
 def _refresh(t_u: torch.Tensor, ids: torch.Tensor, it: torch.Tensor,
-             priority: str, b: int) -> torch.Tensor:
-    """§V-A refresh of widened tuples ``t_u`` of vertices ``ids``."""
+             priority: str, b: int, members=None) -> torch.Tensor:
+    """§V-A refresh of widened tuples ``t_u`` of vertices ``ids``; in a
+    bucket of graphs laid end to end (``members = (bits int32 [B], rows)``)
+    each vertex hashes its member-local id ``id % rows`` and packs it with
+    its member's ``bits[id // rows]``."""
+    if members is not None:
+        bits, rows = members
+        b = bits.to(torch.int64)[ids.to(torch.int64) >> (rows.bit_length() - 1)]
+        ids = ids & (rows - 1)
     fresh = pack(PRIORITY_FNS[priority](it, ids), ids, b)
     return torch.where(is_undecided(t_u), fresh, t_u)
 
@@ -71,22 +83,23 @@ def _scatter_drop(x: torch.Tensor, target: torch.Tensor,
     x.copy_(set_drop(x, target, vals))
 
 
-def _refresh_min(t, nb, it, priority: str, b: int) -> torch.Tensor:
+def _refresh_min(t, nb, it, priority: str, b: int,
+                 members=None) -> torch.Tensor:
     """Per row of ``nb`` [n, D]: min of the refreshed T over the ids, with
     IN -> OUT (the widened M values)."""
     vids = torch.arange(t.shape[0], device=t.device)
-    t_ref = _refresh(widen(t), vids, it, priority, b)
+    t_ref = _refresh(widen(t), vids, it, priority, b, members)
     mv = t_ref[nb].amin(dim=1)
     return torch.where(mv == 0, OUT, mv)
 
 
-def _decide(t, m, active, rows, nb, it, priority: str,
-            b: int) -> torch.Tensor:
+def _decide(t, m, active, rows, nb, it, priority: str, b: int,
+            members=None) -> torch.Tensor:
     """The widened new T of global rows ``rows`` [n] with adjacency ``nb``
     [n, D]: IN / OUT / the refreshed tuple; decided rows keep theirs.
     ``active=None``: the neighbours whose M is not IN are active."""
     tv_old = widen(t)[rows]
-    tv = _refresh(tv_old, rows, it, priority, b)
+    tv = _refresh(tv_old, rows, it, priority, b, members)
     mn = widen(m)[nb]
     an = mn != IN if active is None else active[nb]
     any_out = (an & (mn == OUT)).any(dim=1)
@@ -96,23 +109,25 @@ def _decide(t, m, active, rows, nb, it, priority: str,
 
 
 def fused_refresh_columns_ref(t, m, nbrs_flat, wl, count, it, *,
-                              priority: str, b: int) -> torch.Tensor:
-    """M[wl] <- closed-neighborhood min of the refreshed T, IN -> OUT."""
+                              priority: str, b: int,
+                              members=None) -> torch.Tensor:
+    """M[wl] <- closed-neighborhood min of the refreshed T, IN -> OUT
+    (``members``: a bucket's, as ``_refresh`` takes them)."""
     v = t.shape[0]
     rows, live = _live_slots(wl, count, v)
     nb = nbrs_flat.view(v, -1)[rows].to(torch.int64)
-    mv = _refresh_min(t, nb, it, priority, b)
+    mv = _refresh_min(t, nb, it, priority, b, members)
     _scatter_drop(m, torch.where(live, rows, v), narrow(mv))
     return m
 
 
 def fused_decide_ref(t, m, active, nbrs_flat, wl, count, it, *,
-                     priority: str, b: int) -> torch.Tensor:
+                     priority: str, b: int, members=None) -> torch.Tensor:
     """T[wl] <- IN / OUT / refreshed tuple for the still-undecided rows."""
     v = t.shape[0]
     rows, live = _live_slots(wl, count, v)
     nb = nbrs_flat.view(v, -1)[rows].to(torch.int64)
-    newt = _decide(t, m, active, rows, nb, it, priority, b)
+    newt = _decide(t, m, active, rows, nb, it, priority, b, members)
     _scatter_drop(t, torch.where(live, rows, v), narrow(newt))
     return t
 
@@ -175,19 +190,68 @@ def resident_fixed_point_ref(t, m, active, nbrs_flat, *, priority: str,
     place, whatever they held.  Returns ``(t, int32 [2])``: the rounds run
     and the undecided worklist's last count.  ``trace`` (a list) gets each
     round's live counts ``(M worklist, undecided worklist)``."""
-    v, dev = t.shape[0], t.device
     t.copy_(torch.where(active, 1, OUT_I32).to(torch.int32))
+    it, n1, _ = _resident_loop(t, m, active, nbrs_flat, priority=priority,
+                               b=b, max_iters=max_iters, trace=trace)
+    return t, torch.tensor([it, n1], dtype=torch.int32, device=t.device)
+
+
+def resident_fixed_point_batched_ref(t, m, active, nbrs_flat, *,
+                                     priority: str, bits: torch.Tensor,
+                                     rows: int, max_iters: int, trace=None):
+    """:func:`resident_fixed_point_ref` over a bucket of ``B`` graphs laid
+    end to end, ``rows`` (a power of two) each: the block-diagonal ELL of
+    ``V = B * rows`` rows, row ``i`` hashing its local id ``i % rows`` with
+    its member's ``bits[i // rows]`` (int32 ``[B]``).  Returns ``(t, int32
+    [2], int32 [B])``: the rounds run, the last live count, and each
+    member's rounds with an undecided row (the reference's vmapped
+    ``while_loop`` counters: a member stops for good, so every live
+    member's count is the loop's round)."""
+    t.copy_(torch.where(active, 1, OUT_I32).to(torch.int32))
+    it, n1, its = _resident_loop(t, m, active, nbrs_flat, priority=priority,
+                                 b=1, max_iters=max_iters, trace=trace,
+                                 members=(bits, rows))
+    return t, torch.tensor([it, n1], dtype=torch.int32, device=t.device), its
+
+
+def resident_fixed_point_seeded_ref(t, m, nbrs_flat, *, priority: str,
+                                    b: int, max_iters: int, trace=None):
+    """:func:`resident_fixed_point_ref` from the T that ``t`` holds (IN /
+    OUT on frozen rows, undecided words on the rows to solve) with every
+    row active: the undecided worklist starts as T's undecided rows.  This
+    is the reference's ``mis2_repair_fixed_point``: its dense round with
+    every row active, a frozen IN poisoning its neighbourhood and a frozen
+    OUT invisible.  Returns ``(t, int32 [2])`` as
+    :func:`resident_fixed_point_ref`."""
+    active = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+    it, n1, _ = _resident_loop(t, m, active, nbrs_flat, priority=priority,
+                               b=b, max_iters=max_iters, trace=trace)
+    return t, torch.tensor([it, n1], dtype=torch.int32, device=t.device)
+
+
+def _resident_loop(t, m, active, nbrs_flat, *, priority: str, b: int,
+                   max_iters: int, trace=None, members=None):
+    """The resident rounds from the T that ``t`` holds: the undecided
+    worklist its undecided rows, the M worklist every row, M = OUT.
+    Returns ``(rounds run, last live count, int32 [B] member rounds)``
+    (empty without ``members``)."""
+    v, dev = t.shape[0], t.device
     m.fill_(OUT_I32)
     every = torch.arange(v, dtype=torch.int32, device=dev)
-    wl1, n1 = compact_over_ref(every, v, active)
+    wl1, n1 = compact_over_ref(every, v, is_undecided(t))
     wl2, n2 = every, v
-    kw = dict(priority=priority, b=b)
+    its = torch.zeros(0 if members is None else members[0].shape[0],
+                      dtype=torch.int32, device=dev)
+    kw = dict(priority=priority, b=b, members=members)
     it = 0
     while it < max_iters:
         if n1 == 0:                   # the twin's host read a round
             break
         if trace is not None:
             trace.append((n2, n1))
+        if members is not None:       # the members with an undecided row
+            shift = members[1].bit_length() - 1
+            its[wl1[:n1].to(torch.int64) >> shift] = it + 1
         it_t = torch.full((1,), it, dtype=torch.int32, device=dev)
         fused_refresh_columns_ref(t, m, nbrs_flat, wl2, _count(n2, dev),
                                   it_t, **kw)
@@ -196,7 +260,7 @@ def resident_fixed_point_ref(t, m, active, nbrs_flat, *, priority: str,
         wl1, n1 = compact_over_ref(wl1, n1, is_undecided(t))
         wl2, n2 = compact_over_ref(wl2, n2, m != OUT_I32)
         it += 1
-    return t, torch.tensor([it, n1], dtype=torch.int32, device=dev)
+    return it, n1, its
 
 
 def _count(n: int, device) -> torch.Tensor:

@@ -87,11 +87,12 @@ LEDGER_CAP = 65536
 
 #: the largest padded-ELL bytes estimate (``Graph.ell_bytes_estimate``) of
 #: a graph that joins a batched dispatch; past it the graph runs alone on
-#: the single-graph engines, which beat the batched fixed point there (on
-#: an H100, ``tools/bench_serve_route.py``: batched wins up to 17.9 MB a
-#: graph, loses from 29.5 MB).  It lies below the hybrid layout's
-#: threshold, so no graph that needs that layout joins a padded batch.
-BATCH_MAX_ELL_BYTES = 24 << 20
+#: the single-graph engines, which beat the batched fixed points there (on
+#: an H100, ``tools/bench_serve_route.py`` with one batched launch a bucket:
+#: batched wins every kind up to 32.8 MB a graph, loses ``mis2`` and ``color``
+#: from 35.0 MB).  It lies below the hybrid layout's threshold, so no graph
+#: that needs that layout joins a padded batch.
+BATCH_MAX_ELL_BYTES = 32 << 20
 
 
 @dataclass(frozen=True)

@@ -24,6 +24,7 @@ import repro_torch as rt
 from repro_torch.batch import GraphBatch, bucket_shape
 from repro_torch.core.tuples import id_bits
 from repro_torch.kernels.hash_priority import ops as hash_ops
+from repro_torch.kernels.luby import ops as luby_ops
 
 from _torch_common import CPU
 
@@ -263,13 +264,20 @@ def test_round_priorities_batched_validates_arguments():
 
 
 def test_one_batched_priorities_call_a_luby_round(monkeypatch, fleet):
-    calls = []
+    """The batched coloring is one ``luby_fixed_point_batched`` call a
+    bucket (one launch on the card); on the CPU its twin takes one batched
+    priorities call a round, each with the bucket's member bits."""
+    loops, calls = [], []
+    real_loop = luby_ops.luby_fixed_point_batched
     real = hash_ops.round_priorities_batched
+    monkeypatch.setattr(luby_ops, "luby_fixed_point_batched",
+                        lambda *a, **k: loops.append(a) or real_loop(*a, **k))
     monkeypatch.setattr(hash_ops, "round_priorities_batched",
                         lambda *a: calls.append(a) or real(*a))
     batch = GraphBatch(fleet[:3])             # one member a bucket
     cb = rt.color_batch(batch, backend=CPU)
     assert batch.num_buckets == 3
+    assert [a[4] for a in loops] == [b.rows for b in batch.buckets]
     assert len(calls) == sum(r.rounds for r in cb)
     for bucket in batch.buckets:
         (gi,) = bucket.indices

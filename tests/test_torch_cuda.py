@@ -52,6 +52,8 @@ from repro_torch.kernels.joins import ref as join_ref
 from repro_torch.kernels.luby import ops as luby_ops
 from repro_torch.kernels.luby import ref as luby_ref
 from repro_torch.kernels.minprop_ell import ops, ref
+from repro_torch.kernels.misk import ops as misk_ops
+from repro_torch.kernels.misk import ref as misk_ref
 from repro_torch.kernels.run_sums import ops as run_ops
 from repro_torch.kernels.run_sums import ref as run_ref
 from repro_torch.kernels.spmv_ell import ops as spmv_ops
@@ -126,6 +128,7 @@ def test_kernels_match_twins(cuda_device, name, priority):
         "fused_refresh_columns": 1, "fused_decide": 1,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
         "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "resident_fixed_point_batched": 0, "resident_fixed_point_seeded": 0,
         "hybrid_fixed_point": 0}
 
 
@@ -219,6 +222,7 @@ def test_fused_kernels_match_twins_at_every_width(cuda_device, d, priority):
         "fused_refresh_columns": 1, "fused_decide": 2,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
         "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "resident_fixed_point_batched": 0, "resident_fixed_point_seeded": 0,
         "hybrid_fixed_point": 0}
 
 
@@ -325,6 +329,7 @@ def test_main_path_matches_reference_digests(cuda_device, name):
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
         "refresh_columns": 0, "decide": 0, "resident_fixed_point": 1,
+        "resident_fixed_point_batched": 0, "resident_fixed_point_seeded": 0,
         "hybrid_fixed_point": 0}
     assert rt.mis2(g, engine="dense").digest == digest
     a = rt.coarsen(g, method="two_phase")
@@ -547,9 +552,14 @@ def no_twins_on_cuda(monkeypatch):
                               "sliced_refresh_columns_ref",
                               "sliced_decide_ref", "refresh_columns_ref",
                               "decide_ref", "resident_fixed_point_ref",
+                              "resident_fixed_point_batched_ref",
+                              "resident_fixed_point_seeded_ref",
                               "hybrid_fixed_point_ref")),
                        (luby_ref, ("luby_fixed_point_ref",
-                                   "luby_fixed_point_hybrid_ref")),
+                                   "luby_fixed_point_hybrid_ref",
+                                   "luby_fixed_point_batched_ref")),
+                       (misk_ref, ("misk_dense_fixed_point_ref",
+                                   "misk_resident_fixed_point_ref")),
                        (join_ref, ("root_join_ref", "cleanup_join_ref",
                                    "phase2_join_ref",
                                    "phase3_fixed_point_ref"))):
@@ -706,6 +716,7 @@ def test_sliced_kernels_match_twins(cuda_device, slab, priority):
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 1, "sliced_decide": 2,
         "refresh_columns": 0, "decide": 0, "resident_fixed_point": 0,
+        "resident_fixed_point_batched": 0, "resident_fixed_point_seeded": 0,
         "hybrid_fixed_point": 0}
 
 
@@ -913,6 +924,7 @@ def test_unfused_kernels_match_twins(cuda_device, name):
         "fused_refresh_columns": 0, "fused_decide": 0,
         "sliced_refresh_columns": 0, "sliced_decide": 0,
         "refresh_columns": 1, "decide": 1, "resident_fixed_point": 0,
+        "resident_fixed_point_batched": 0, "resident_fixed_point_seeded": 0,
         "hybrid_fixed_point": 0}
     live = min(x["count"], t_rows.shape[0])
     und = (t_rows[:live] != 0) & (t_rows[:live] != -1)
@@ -961,11 +973,16 @@ MISK_L8 = {1: (174, 3, "bb3c6f919d05dea6"), 2: (53, 5, "0c5589862dc23fba"),
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_misk_on_the_card_equals_the_cpu(cuda_device, name, k, engine):
+    """Both engines are one launch of the misk kernel a solve on the card,
+    with no host read inside it (the CPU twin reads one a round)."""
+    before = misk_ops.LAUNCHES["misk_fixed_point"]
     r = rt.misk(rt.Graph(GRAPHS[name]()), k=k, engine=engine)
+    assert misk_ops.LAUNCHES["misk_fixed_point"] - before == 1
     want = rt.misk(rt.Graph(GRAPHS[name](), device="cpu"), k=k,
                    engine=engine, backend=rt.Backend(device="cpu"))
-    assert (r.digest, r.iterations, r.converged, r.host_syncs) == (
-        want.digest, want.iterations, want.converged, want.host_syncs)
+    assert (r.digest, r.iterations, r.converged) == (
+        want.digest, want.iterations, want.converged)
+    assert r.host_syncs == 0 and want.host_syncs == want.iterations + 1
     if name == "laplace3d(8)":
         assert (r.size, r.iterations, r.digest) == MISK_L8[k]
 
@@ -995,18 +1012,26 @@ def test_partition_on_the_card_equals_the_cpu(cuda_device, no_twins_on_cuda,
 
 def test_batched_pipelines_on_the_card(cuda_device, no_twins_on_cuda):
     """mis2_batch / color_batch / coarsen_batch on the card, every member
-    equal to the single-graph call; one batched hash-pack launch per Luby
-    round per bucket, every result's provenance on the gpu."""
+    equal to the single-graph call; one launch of the batched MIS-2 kernel
+    a bucket a solve (two a bucket in a two-phase coarsening) and of the
+    batched Luby kernel a bucket, no host sync, every result's provenance
+    on the gpu."""
     graphs = [rt.Graph(GRAPHS[name]()) for name in GRAPHS]
     graphs.append(rt.Graph(gen.random_uniform_graph(900, 6.0, seed=2)))
     batch = rt.GraphBatch(graphs)
+    key, lkey = "resident_fixed_point_batched", "luby_fixed_point_batched"
+    before = (ops.LAUNCHES[key], luby_ops.LAUNCHES[lkey],
+              hash_ops.LAUNCHES["round_priorities_batched"])
     br = rt.mis2_batch(batch)
-    before = hash_ops.LAUNCHES["round_priorities_batched"]
     cb = rt.color_batch(batch)
-    launched = hash_ops.LAUNCHES["round_priorities_batched"] - before
+    mid = ops.LAUNCHES[key]
     ab = rt.coarsen_batch(batch)
-    assert launched >= max(r.rounds for r in cb) and launched <= sum(
-        r.rounds for r in cb)
+    buckets = batch.num_buckets
+    assert (mid - before[0], ops.LAUNCHES[key] - mid) == (buckets,
+                                                          2 * buckets)
+    assert luby_ops.LAUNCHES[lkey] - before[1] == buckets
+    assert hash_ops.LAUNCHES["round_priorities_batched"] == before[2]
+    assert all(r.host_syncs == 0 for res in (br, cb) for r in res)
     for g, m, c, a in zip(graphs, br, cb, ab):
         assert (m.digest, m.iterations) == (
             lambda s: (s.digest, s.iterations))(rt.mis2(g))
@@ -1114,7 +1139,11 @@ def test_streaming_repair_on_the_card(cuda_device):
     v = session.graph.num_vertices
     for _ in range(3):
         adds = rng.integers(0, v, size=(5, 2))
+        before = ops.LAUNCHES["resident_fixed_point_seeded"]
         r = session.apply_delta(adds[adds[:, 0] != adds[:, 1]], None)
+        # one launch a repair solve (a region that grew solves again)
+        assert ops.LAUNCHES["resident_fixed_point_seeded"] - before == \
+            1 + session.last_repair.expansions
         assert session.last_repair.mode == "repair"
         assert session.last_repair.checked
         assert r.digest == rt.mis2(session.graph, engine="dense",
@@ -1258,3 +1287,118 @@ def test_join_grid_that_does_not_fit_raises(cuda_device):
     labels, _, _ = join_ops._root_join_on_card(lay, roots, None, None, 0,
                                                blocks=4)
     assert torch.equal(labels, join_ref.root_join_ref(lay, roots)[0])
+
+
+# -- slice 17: misk, the batched MIS-2 and Luby loops and the repair, one
+# launch each ---------------------------------------------------------------
+
+@pytest.mark.parametrize("max_iters", [1, 2, 256])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", ["laplace3d(12)", "elasticity3d(4)",
+                                  "powerlaw"])
+def test_misk_kernel_matches_twins(cuda_device, name, k, max_iters):
+    """The misk kernel against both engines' twins on the same card: T
+    bitwise, the rounds and the live count equal, one launch a call."""
+    g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4) if name == "powerlaw"
+                 else GRAPHS[name](), device=cuda_device)
+    nb = g.ell.neighbors
+    kw = dict(k=k, priority="xorshift_star", max_iters=max_iters)
+    before = misk_ops.LAUNCHES["misk_fixed_point"]
+    got = misk_ops.misk_fixed_point(nb, **kw)
+    again = misk_ops.misk_fixed_point(nb, **kw)
+    launched = misk_ops.LAUNCHES["misk_fixed_point"] - before
+    for twin in (misk_ref.misk_dense_fixed_point_ref,
+                 misk_ref.misk_resident_fixed_point_ref):
+        want = twin(nb, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(got, again, want))
+    assert launched == 2
+
+
+def _batch_on_card(device):
+    """Three buckets, two of several members (a random graph among them
+    that needs more rounds than its mates)."""
+    gs = [gen.laplace3d(3), gen.random_uniform_graph(220, 4.0, seed=1),
+          gen.laplace3d(5), gen.random_uniform_graph(240, 5.0, seed=2),
+          gen.random_uniform_graph(200, 3.0, seed=3), gen.laplace3d(5),
+          gen.random_uniform_graph(5000, 6.0, seed=4)]
+    return rt.GraphBatch([rt.Graph(g, device=device) for g in gs])
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 6, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_batched_resident_kernel_matches_twin(cuda_device, masked,
+                                              max_iters):
+    """The batched resident kernel against its twin on each bucket: T,
+    the rounds, the live count and each member's rounds equal, one launch
+    a bucket."""
+    batch = _batch_on_card(cuda_device)
+    gen_ = torch.Generator(device="cpu").manual_seed(3)
+    for bucket in batch.buckets:
+        n = bucket.size * bucket.rows
+        act = bucket.row_valid.view(-1)
+        if masked:
+            act = act & (torch.rand(n, generator=gen_) < 0.7).to(cuda_device)
+        args = (act, bucket.flat_neighbors32.view(-1))
+        kw = dict(priority="xorshift_star", bits=bucket.id_bits,
+                  rows=bucket.rows, max_iters=max_iters)
+
+        def state():
+            return (torch.empty(n, dtype=torch.int32, device=cuda_device),
+                    torch.empty(n, dtype=torch.int32, device=cuda_device))
+
+        before = ops.LAUNCHES["resident_fixed_point_batched"]
+        got = ops.resident_fixed_point_batched(*state(), *args, **kw)
+        launched = ops.LAUNCHES["resident_fixed_point_batched"] - before
+        want = ref.resident_fixed_point_batched_ref(*state(), *args, **kw)
+        torch.cuda.synchronize()
+        assert launched == 1
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+            bucket.shape
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 128])
+@pytest.mark.parametrize("frac", [0.05, 0.5, 1.0])
+def test_seeded_resident_kernel_matches_twin(cuda_device, frac, max_iters):
+    """The seeded resident kernel (the streaming repair) against its twin
+    from a frozen fixed-priority solution with a reseeded region."""
+    g = rt.Graph(GRAPHS["laplace3d(12)"](), device=cuda_device)
+    nb = g.ell.neighbors.reshape(-1)
+    v = g.num_vertices
+    kw = dict(priority="fixed", b=id_bits(v), max_iters=128)
+    base, _ = ref.resident_fixed_point_seeded_ref(
+        torch.ones(v, dtype=torch.int32, device=cuda_device),
+        torch.empty(v, dtype=torch.int32, device=cuda_device), nb, **kw)
+    region = torch.from_numpy(np.random.default_rng(6).random(v) < frac)
+    seed = torch.where(region.to(cuda_device), 1, base).to(torch.int32)
+    kw["max_iters"] = max_iters
+    before = ops.LAUNCHES["resident_fixed_point_seeded"]
+    got = ops.resident_fixed_point_seeded(
+        seed.clone(), torch.empty_like(seed), nb, **kw)
+    launched = ops.LAUNCHES["resident_fixed_point_seeded"] - before
+    want = ref.resident_fixed_point_seeded_ref(
+        seed.clone(), torch.empty_like(seed), nb, **kw)
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 6, 256])
+def test_batched_luby_kernel_matches_twin(cuda_device, max_rounds):
+    """The batched Luby kernel against its twin on each bucket: colors,
+    done rounds and rounds equal, one launch a bucket."""
+    batch = _batch_on_card(cuda_device)
+    for bucket in batch.buckets:
+        n = bucket.size * bucket.rows
+        args = (bucket.flat_neighbors32, bucket.mask.view(n, bucket.width),
+                bucket.row_valid.view(-1), bucket.id_bits, bucket.rows)
+        before = luby_ops.LAUNCHES["luby_fixed_point_batched"]
+        got = luby_ops.luby_fixed_point_batched(*args, max_rounds=max_rounds)
+        launched = luby_ops.LAUNCHES["luby_fixed_point_batched"] - before
+        want = luby_ref.luby_fixed_point_batched_ref(*args,
+                                                     max_rounds=max_rounds)
+        torch.cuda.synchronize()
+        assert launched == 1
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+            bucket.shape

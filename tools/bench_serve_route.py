@@ -7,9 +7,9 @@ served as one batched dispatch against each request run alone, on one GPU.
 ``repro_torch.serve.server.BATCH_MAX_ELL_BYTES`` decides which route a graph
 of an ``engine=None`` group takes: at or below it (by the graph's
 ``ell_bytes_estimate()``) the graph joins the group's batched dispatch (the
-plain-torch batched fixed point over its padded rows), past it the graph
-runs alone through the facade's ``engine=None`` path (the device-resident
-kernels).  For each group below and each kind,
+batched kernels over its padded rows, one launch a bucket a fixed point),
+past it the graph runs alone through the facade's ``engine=None`` path (the
+device-resident kernels).  For each group below and each kind,
 two servers serve the same requests, one with the cut set past every graph
 (all batched) and one with it at 0 (all alone); each serves the group once
 untimed, then ``--reps`` times on the host clock (submit to the last

@@ -22,7 +22,10 @@ and ``color(engine="luby_hybrid")`` too; the setups themselves, with
 ``amg_setup`` and ``gs_setup`` (``cluster_gs_setup``) on both paper
 graphs; and, on the two paper graphs, ``misk`` (k = 2, the
 ``dense`` engine ``engine=None`` takes) and ``partition(g, 8)`` (the
-multilevel partition, its coarsening on the persistent MIS-2 kernel).  The two
+multilevel partition, its coarsening on the persistent MIS-2 kernel); on
+Laplace3D_100 one streaming delta a call too (``repair``: a
+``StreamSession``'s ``apply_delta`` of ``chip_smoke.py``'s ``STREAM``
+size, 100 edges added and 100 removed, a new seeded delta each call).  The two
 batch fleets of ``chip_smoke.py`` (``Fleet_A``, the reference's batch
 benchmark; ``Fleet_B``, 128 subdomains) are profiled through
 ``mis2_batch``, ``coarsen_batch`` (``two_phase``) and ``color_batch`` on
@@ -34,8 +37,8 @@ the unprofiled wall time, the device's idle share of it and the traced
 call's peak device memory.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
-``coarsen_basic``, ``color``, ``misk``, ``partition``, ``mis2_batch``,
-``coarsen_batch``, ``color_batch``),
+``coarsen_basic``, ``color``, ``misk``, ``partition``, ``repair``,
+``mis2_batch``, ``coarsen_batch``, ``color_batch``),
 and skips the setups of the others.
 """
 from __future__ import annotations
@@ -125,6 +128,28 @@ def _cg(torch, rt, g, setup):
                                  precond=s.as_precond(), tol=1e-6)
 
 
+def _repair(rt, g):
+    """A call that applies one new seeded delta to a streaming session on
+    ``g`` (its fixed point the warm-started repair)."""
+    import numpy as np
+
+    from repro_torch.serve import StreamSession
+
+    sess = StreamSession(g.csr)
+    v = g.num_vertices
+    rng = np.random.default_rng(23)
+
+    def call():
+        adds = rng.integers(0, v, size=(100, 2))
+        rows, cols = sess._keys // v, sess._keys % v
+        offd = np.flatnonzero(rows != cols)
+        pick = rng.choice(offd, size=100, replace=False)
+        return sess.apply_delta(adds[adds[:, 0] != adds[:, 1]],
+                                np.stack([rows[pick], cols[pick]], axis=1))
+
+    return call
+
+
 def _profile_fleet(torch, rt, label: str, wanted) -> None:
     """The batched calls on one of ``chip_smoke.py``'s fleets, stacked
     once into a ``GraphBatch``."""
@@ -191,6 +216,9 @@ def main() -> int:
             calls["amg_setup"] = lambda: rt.amg_setup(g)
             calls["misk"] = lambda: rt.misk(g, k=2)
             calls["partition"] = lambda: rt.partition(g, 8)
+        if label == "Laplace3D_100" and (wanted is None
+                                         or "repair" in wanted):
+            calls["repair"] = _repair(rt, g)
         if label == "Powerlaw_1M":
             calls["coarsen_basic"] = lambda: rt.coarsen(g, method="basic")
             calls["color"] = lambda: rt.color(g, engine="luby_hybrid")
