@@ -181,7 +181,24 @@ Phases (any failure raises, and the script exits non-zero):
    (``torch.cuda.set_sync_debug_mode("error")``); ``misk`` and the batched
    calls through the facade with one launch a solve or a bucket and
    ``host_syncs`` 0; each kernel timed beside its bound and its twin; the
-   walls of five warm calls beside the times before the kernels.
+   walls of five warm calls beside the times before the kernels;
+18. the batched coarsening's joins on the join kernels, ``repro.api``'s
+   surface and the examples: ``coarsen_batch`` (``two_phase`` and
+   ``basic``) on both fleets, fleet A against the reference's anchors, every
+   fleet B member against its single-graph ``coarsen`` (labels, roots,
+   phase marks, iterations), fleet A's ``amg_setup_batch`` anchor, and
+   each bucket's launches (two batched MIS-2 solves and one launch of each
+   join, or one solve and one ``root_join`` with the cleanup inside); the
+   reference's engine names (``pallas_resident`` on Laplace3D_100,
+   ``pallas_hybrid`` on Powerlaw_1M, ``coarsen(method="mis2_agg")``) on
+   the anchors with the canonical engine in ``provenance``, and
+   ``using_backend(Backend())`` leaving them there; the four port
+   examples (``examples/torch/``) at the reference examples' default
+   sizes, each record a JSON line; every join call of both fleets' buckets
+   against its twin (bitwise, equal on a second launch, one launch and no
+   host sync inside it); the walls of five warm ``coarsen_batch`` calls
+   beside the times before, and the device events of one traced call
+   (``tools/profile_torch.py`` in a child process).
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -1090,6 +1107,17 @@ def main() -> int:
     emit({"phase": "batched_misk_one_dispatch", "card": smi,
           "launches": more_counts, "seconds": time.perf_counter() - t0,
           **more})
+    # -- 18. the batched joins on the join kernels, the surface, examples ----
+    t0 = time.perf_counter()
+    last = _batched_joins_surface(torch, np, rt, join_ops, join_ref, graphs,
+                                  pl, batch_a, batch_b, launches, errs)
+    last_counts = last.pop("launches")
+    add_path(last_counts)
+    for k in (*JOINS, BATCHED):
+        check(last_counts[k] > 0, f"{k} was never launched in phase 18")
+    emit({"phase": "batched_joins_surface", "card": smi,
+          "launches": last_counts, "seconds": time.perf_counter() - t0,
+          **last})
     del batch_a, batch_b
     for k in KERNELS:
         check(k in CARRIED_BY or path_launches[k] > 0,
@@ -1099,7 +1127,8 @@ def main() -> int:
                  "one dispatch (phase 14)": one_counts,
                  "one dispatch (phase 15)": two_counts,
                  "one dispatch (phase 16)": join_counts,
-                 "one dispatch (phase 17)": more_counts}
+                 "one dispatch (phase 17)": more_counts,
+                 "batched joins (phase 18)": last_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -2469,6 +2498,12 @@ def _join_calls(rt, join_ops, g, method: str) -> list:
     """The join wrapper calls of one ``coarsen(method=...)`` on ``g``, as
     ``(wrapper, args, kwargs)`` with every tensor cloned: the label states
     a real coarsening reaches."""
+    return _caught_joins(join_ops, lambda: rt.coarsen(g, method=method))
+
+
+def _caught_joins(join_ops, call) -> list:
+    """The join wrapper calls ``call()`` makes, as ``(wrapper, args,
+    kwargs)`` with every tensor argument cloned."""
     inner = {k: getattr(join_ops, k) for k in JOIN_OF}
     seen = []
 
@@ -2482,7 +2517,7 @@ def _join_calls(rt, join_ops, g, method: str) -> list:
     for k in JOIN_OF:
         setattr(join_ops, k, spy(k))
     try:
-        rt.coarsen(g, method=method)
+        call()
     finally:
         for k, fn in inner.items():
             setattr(join_ops, k, fn)
@@ -2587,6 +2622,36 @@ def _join_bytes(join_ref, name: str, args, kw) -> int:
     return nbytes
 
 
+def _hold_join(torch, join_ops, join_ref, name: str, args, kw, what: str,
+               errs: dict):
+    """The join wrapper ``name`` twice with
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+    call), each one launch of its kernel, its outputs bitwise equal to each
+    other's and to the twin's.  Returns the first call's outputs."""
+    kernel = JOIN_OF[name]
+    wrapper = getattr(join_ops, name)
+    torch.cuda.synchronize()
+    before = dict(join_ops.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wrapper(*args, **kw)
+        again = wrapper(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = dict(join_ops.LAUNCHES)
+    want = getattr(join_ref, name + "_ref")(*args, **kw)
+    torch.cuda.synchronize()
+    check({k: after[k] - before[k] for k in after}
+          == {k: 2 * (k == kernel) for k in after},
+          f"{what}: {name} launched {after} from {before}")
+    same = [torch.equal(x, y) and torch.equal(x, z)
+            for x, y, z in zip(got, again, want)]
+    check(all(same), f"{what} {name}: outputs {same} equal twin and rerun")
+    errs[kernel] = max(errs[kernel], max(
+        _max_abs_err(x, y) for x, y in zip(got, want)))
+    return got
+
+
 def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
                         launches, errs) -> dict:
     """Phase 16: each join kernel against its twin on the label states of
@@ -2608,27 +2673,8 @@ def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
             _random_join_calls(torch, np, rng, layout, dev))]
         for case, (name, args, kw) in calls:
             kernel = JOIN_OF[name]
-            wrapper = getattr(join_ops, name)
-            torch.cuda.synchronize()
-            before = dict(join_ops.LAUNCHES)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                got = wrapper(*args, **kw)
-                again = wrapper(*args, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            after = dict(join_ops.LAUNCHES)
-            want = getattr(join_ref, name + "_ref")(*args, **kw)
-            torch.cuda.synchronize()
-            check({k: after[k] - before[k] for k in after}
-                  == {k: 2 * (k == kernel) for k in after},
-                  f"{label} {case}: {name} launched {after} from {before}")
-            same = [torch.equal(x, y) and torch.equal(x, z)
-                    for x, y, z in zip(got, again, want)]
-            check(all(same), f"{label} {case} {name}: outputs {same} equal "
-                  "twin and rerun")
-            errs[kernel] = max(errs[kernel], max(
-                _max_abs_err(x, y) for x, y in zip(got, want)))
+            got = _hold_join(torch, join_ops, join_ref, name, args, kw,
+                             f"{label} {case}", errs)
             rec = {"kw": kw, "bitwise": True,
                    "unlabeled_after": int((got[0] < 0).sum())}
             if name != "root_join":   # per map, heavy rows, their entries
@@ -3025,6 +3071,199 @@ def _batched_misk_one_dispatch(torch, np, rt, ops, ref, misk_ops, misk_ref,
               for name, c in (("mis2_batch", rt.mis2_batch),
                               ("coarsen_batch", rt.coarsen_batch),
                               ("color_batch", rt.color_batch))))}
+    return out
+
+
+# wall ms of five warm calls and device events of one traced call on the
+# tree before the batched coarsening's phase-1/2 joins ran on the join
+# kernels (PERF.md section 5: tools/profile_torch.py, that tree and this one
+# in one call; NVIDIA H100 80GB HBM3, 700 W)
+WALL_BEFORE_BATCH_JOINS_MS = {
+    "fleet A coarsen_batch": [22.28, 22.95, 24.01, 24.14, 24.41],
+    "fleet A coarsen_batch(basic)": [8.09, 8.43, 10.30, 10.61, 12.10],
+    "fleet B coarsen_batch": [53.40, 54.63, 58.36, 60.06, 62.78],
+    "fleet B coarsen_batch(basic)": [23.84, 24.02, 24.57, 24.84, 25.61],
+}
+EVENTS_BEFORE_BATCH_JOINS = {"Fleet_A coarsen_batch": 862,
+                             "Fleet_A coarsen_batch_basic": 326,
+                             "Fleet_B coarsen_batch": 170,
+                             "Fleet_B coarsen_batch_basic": 64}
+# the join and batched MIS-2 launches a bucket of each coarsen_batch method
+BUCKET_LAUNCHES = {
+    "two_phase": {BATCHED: 2, "root_join": 1, "phase2_join": 1,
+                  "phase3_fixed_point": 1},
+    "basic": {BATCHED: 1, "root_join": 1, "phase2_join": 0,
+              "phase3_fixed_point": 0},
+}
+# the port's examples at the reference examples' default sizes: name -> argv
+EXAMPLES = {"quickstart": ["32"], "amg_solve": ["--n", "32"],
+            "cluster_gs_precond": ["--n", "16"],
+            "partition_demo": ["--n", "24"]}
+
+
+def _run_example(name: str, argv: list) -> dict:
+    """``examples/torch/<name>.py``'s ``main(argv)`` (its own asserts
+    inside), on the card: its returned record."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(argv)
+
+
+def _profile_batch_coarsening() -> dict:
+    """``tools/profile_torch.py`` on both fleets' ``coarsen_batch`` (both
+    methods) in a child process, whose profiler is its first (see
+    :func:`_profile_in_child`): one record a call."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "profile_torch.py"),
+         "--graphs", "Fleet_A", "Fleet_B", "--calls", "coarsen_batch",
+         "coarsen_batch_basic"], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    check(proc.returncode == 0, f"profile_torch.py failed: "
+          f"{proc.stderr[-2000:]}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        rec = json.loads(line)
+        if "call" in rec:
+            out[f"{rec['graph']} {rec['call']}"] = {
+                k: rec[k] for k in ("wall_ms", "device_ms", "device_events",
+                                    "idle_share", "peak_memory_bytes",
+                                    "kernels")}
+    check(len(out) == 4, f"profile_torch.py gave {sorted(out)}")
+    return out
+
+
+def _batched_joins_surface(torch, np, rt, join_ops, join_ref, graphs, pl,
+                           batch_a, batch_b, launches, errs) -> dict:
+    """Phase 18: the batched coarsening through the facade (fleet A's
+    anchors, every fleet B member against its single-graph ``coarsen``,
+    fleet A's ``amg_setup_batch`` anchor, the launches a bucket), its joins
+    against their twins on the label states of both fleets' buckets, the
+    reference's engine names and the default backend on the anchors, the
+    four port examples, and the batched coarsening's walls and device
+    events beside the times before."""
+    dev = pl.device
+    fleets = {"A": batch_a, "B": batch_b}
+    out = {"anchors": {}, "vs_twin": {}, "examples": {}}
+    l100 = graphs["Laplace3D_100"]
+    # the path, counted: the batched coarsening, the surface, the examples
+    launches.reset()
+    for f, batch in fleets.items():
+        nb = batch.num_buckets
+        for method, per in BUCKET_LAUNCHES.items():
+            before = launches.read()
+            res = rt.coarsen_batch(batch, method=method)
+            after = launches.read()
+            got = {k: after[k] - before[k] for k in per}
+            check(got == {k: n * nb for k, n in per.items()},
+                  f"fleet {f} coarsen_batch({method}): launches {got} for "
+                  f"{nb} buckets")
+            check(res.converged and res.engine == f"{method}_batched",
+                  f"fleet {f} coarsen_batch({method}): {res.engine}, "
+                  f"converged {res.converged}")
+            rec = [res.digest, got]
+            if f == "A":
+                anchor = fleet_anchor(res.digests, res.bucket_shapes)
+                check(anchor == FLEET_A_ANCHORS[f"coarsen_{method}"],
+                      f"fleet A coarsen_batch({method}): anchor {anchor}")
+                rec.append(anchor)
+            else:
+                for i, (g, r) in enumerate(zip(batch.graphs, res)):
+                    s1 = rt.coarsen(g, method=method)
+                    check(_coarsen_key(r) == _coarsen_key(s1)
+                          and np.array_equal(r.roots, s1.roots)
+                          and np.array_equal(r.phase, s1.phase),
+                          f"fleet B coarsen_batch({method}) member {i}: "
+                          f"{_coarsen_key(r)} != single {_coarsen_key(s1)}")
+                rec.append(f"{len(res)} members equal their coarsen")
+            out["anchors"][f"fleet {f} coarsen_batch({method})"] = rec
+    _, mats_a = fleet_a(rt, dev)
+    br = rt.amg_setup_batch(mats_a)
+    k = FLEET_A_AMG_MEMBERS
+    anchor = fleet_anchor([r.level_digests for r in br.results[:k]],
+                          rt.GraphBatch(mats_a[:k]).bucket_shapes)
+    check(anchor == FLEET_A_ANCHORS["amg_setup"],
+          f"fleet A amg_setup_batch: anchor {anchor}")
+    out["anchors"]["fleet A amg_setup_batch"] = [br.digest, anchor]
+    del mats_a, br
+    # the reference's engine names, and the default backend
+    surface = {}
+    for label, g, engine, want in (
+            ("Laplace3D_100", l100, "pallas_resident",
+             ANCHORS["Laplace3D_100"]["mis2"]),
+            ("Powerlaw_1M", pl, "pallas_hybrid", POWERLAW_1M["mis2"])):
+        r = rt.mis2(g, engine=engine)
+        canonical = rt.api.get_engine_spec("mis2", engine).name
+        check((r.size, r.iterations, r.digest) == want
+              and r.engine == canonical == r.provenance.engine,
+              f"{label} mis2(engine={engine!r}): {r.digest} {r.engine}")
+        surface[f"{label} mis2 {engine}"] = [r.size, r.iterations, r.digest,
+                                             r.provenance.engine]
+    a = rt.coarsen(l100, method="mis2_agg")
+    check((a.num_aggregates, a.iterations, a.digest)
+          == ANCHORS["Laplace3D_100"]["coarsen"]
+          and a.provenance.engine == "two_phase",
+          f"Laplace3D_100 coarsen(method='mis2_agg'): {a.digest}")
+    surface["Laplace3D_100 coarsen mis2_agg"] = [
+        a.num_aggregates, a.iterations, a.digest, a.provenance.engine]
+    default = rt.api.get_default_backend()
+    with rt.api.using_backend(rt.Backend()):
+        r = rt.mis2(l100)
+        placed = rt.Graph(rt.graphs.laplace3d(8)).device.type
+    check(rt.api.get_default_backend() is default
+          and (r.size, r.iterations, r.digest)
+          == ANCHORS["Laplace3D_100"]["mis2"] and placed == "cuda"
+          and r.provenance.backend == "gpu",
+          f"using_backend(Backend()): {r.digest} on {placed}")
+    surface["using_backend(Backend()) Laplace3D_100 mis2"] = [
+        r.size, r.iterations, r.digest, placed]
+    out["surface"] = surface
+    for name, argv in EXAMPLES.items():
+        t0 = time.perf_counter()
+        rec = _run_example(name, argv)
+        check(rec["provenance"]["platform"] == "gpu",
+              f"example {name}: provenance {rec['provenance']}")
+        rec["seconds"] = time.perf_counter() - t0
+        emit({"phase": "example", "argv": argv, **rec})
+        out["examples"][name] = rec["seconds"]
+    out["launches"] = launches.read()
+    # the joins against their twins on every bucket's label states
+    for f, batch in fleets.items():
+        for method in BUCKET_LAUNCHES:
+            calls = _caught_joins(join_ops, lambda b=batch, m=method:
+                                  rt.coarsen_batch(b, method=m))
+            per = sum(n > 0 for k, n in BUCKET_LAUNCHES[method].items()
+                      if k in JOIN_OF)
+            check(len(calls) == per * batch.num_buckets,
+                  f"fleet {f} {method}: {len(calls)} join calls")
+            for i, (name, args, kw) in enumerate(calls):
+                bucket = batch.buckets[i // per]
+                what = f"fleet {f} {method} bucket {i // per} {name}"
+                got = _hold_join(torch, join_ops, join_ref, name, args, kw,
+                                 what, errs)
+                out["vs_twin"][what] = {
+                    "shape": [bucket.size, bucket.rows, bucket.width],
+                    "padded_rows": int(bucket.size * bucket.rows
+                                       - bucket.num_vertices.sum()),
+                    "kw": kw, "unlabeled_after": int((got[0] < 0).sum()),
+                    "bitwise": True}
+    # walls (five warm calls) and, in a child process, device events
+    out["wall_ms"] = {}
+    for f, batch in fleets.items():
+        for method in BUCKET_LAUNCHES:
+            what = f"fleet {f} coarsen_batch" + (
+                "" if method == "two_phase" else f"({method})")
+            out["wall_ms"][what] = {
+                "now": _wall_ms(torch, lambda b=batch, m=method:
+                                rt.coarsen_batch(b, method=m), reps=5),
+                "before": WALL_BEFORE_BATCH_JOINS_MS.get(what)}
+    profiled = _profile_batch_coarsening()
+    out["device"] = {
+        what: {**rec, "events_before": EVENTS_BEFORE_BATCH_JOINS.get(what)}
+        for what, rec in profiled.items()}
     return out
 
 

@@ -8,7 +8,7 @@ It imports torch, numpy and the standard library only — never jax, and
 nothing of the JAX package, which stays in the repository as the reference
 each part of the port is held against (equal determinism digests).
 """
-from . import graphs, obs, solvers
+from . import api, graphs, obs, solvers
 from .api import (
     ABLATION_CHAIN,
     AggregationResult,
@@ -40,6 +40,9 @@ from .api import (
 from .core.mis2 import Mis2Options
 from .graphs import Graph
 
+#: the reference's version string: the port answers as the same release
+__version__ = "0.2.0"
+
 
 def __getattr__(name: str):
     """``repro_torch.serve`` is imported on first use, as the reference's
@@ -52,7 +55,7 @@ def __getattr__(name: str):
 
 
 __all__ = [
-    "graphs", "solvers", "Graph", "Backend", "Mis2Options", "mis2", "misk",
+    "api", "__version__", "graphs", "solvers", "Graph", "Backend", "Mis2Options", "mis2", "misk",
     "coarsen", "color", "partition", "amg_setup", "amg", "cluster_gs_setup",
     "list_engines", "Result", "Mis2Result", "AggregationResult",
     "ColoringResult", "PartitionResult", "AmgSetup", "ClusterGsSetup",

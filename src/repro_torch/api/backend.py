@@ -8,11 +8,17 @@ the port never falls back to the CPU on its own.
 
 ``Backend(group=...)`` names the ``torch.distributed`` process group (or
 ``DeviceMesh``) of the ``distributed`` engines; see :meth:`resolve_group`.
+
+A call given no backend takes the process default (``Backend()`` until
+:func:`set_default_backend` or :func:`using_backend` installs another); a
+default of ``Backend(device="cpu")`` counts as the caller asking for the
+CPU, and a ``Graph`` built with no device then takes it too.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from contextlib import contextmanager
+from dataclasses import dataclass, replace
+from typing import Any, Iterator
 
 import torch
 
@@ -26,13 +32,12 @@ class Backend:
     group: Any = None   # ProcessGroup | DeviceMesh | None (default group)
 
     def resolve_device(self) -> torch.device:
-        if self.device is not None:
-            return torch.device(self.device)
-        if not torch.cuda.is_available():
+        dev = torch.device("cuda" if self.device is None else self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: repro_torch runs on the GPU unless the "
                 "caller passes Backend(device='cpu')")
-        return torch.device("cuda")
+        return dev
 
     def resolve_group(self) -> tuple[Any, int, int]:
         """``(group, world_size, rank)`` of the distributed engines.
@@ -55,6 +60,9 @@ class Backend:
             group = _mesh_group(group)
         return group, dist.get_world_size(group), dist.get_rank(group)
 
+    def with_(self, **changes) -> "Backend":
+        return replace(self, **changes)
+
 
 def _mesh_group(mesh):
     """The process group of a ``DeviceMesh``, flattened row-major; a new
@@ -75,8 +83,37 @@ def _mesh_group(mesh):
     return _FLAT_GROUPS[order]
 
 
+_DEFAULT = Backend()
+
+
+def get_default_backend() -> Backend:
+    return _DEFAULT
+
+
+def set_default_backend(backend: Backend) -> Backend:
+    """Install ``backend`` as the process-wide default; returns the old one."""
+    global _DEFAULT
+    old, _DEFAULT = _DEFAULT, backend
+    return old
+
+
+@contextmanager
+def using_backend(backend: Backend) -> Iterator[Backend]:
+    """Scoped default backend (restores the previous default on exit)."""
+    old = set_default_backend(backend)
+    try:
+        yield backend
+    finally:
+        set_default_backend(old)
+
+
 def resolve_backend(backend: Backend | None) -> Backend:
-    return Backend() if backend is None else backend
+    return _DEFAULT if backend is None else backend
+
+
+def accelerator_present() -> bool:
+    """Whether a CUDA device is attached (``torch.cuda.is_available()``)."""
+    return torch.cuda.is_available()
 
 
 def backend_platform(backend: Backend | None = None) -> str:

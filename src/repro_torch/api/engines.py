@@ -43,40 +43,82 @@ def _single_graph(name: str):
     return engine
 
 
-# the single-graph and distributed engines: one dispatch, ``run_mis2``
-for _name in ("dense", "compacted", "cuda_compacted", "compacted_resident",
-              "cuda_resident", "cuda_hybrid", *DISTRIBUTED_ENGINES):
-    register_engine("mis2", _name)(_single_graph(_name))
+# the single-graph and distributed engines: one dispatch, ``run_mis2``;
+# name -> (the reference's names for it, doc)
+_MIS2_ENGINES = {
+    "dense": ((), "fixed point over masks, every row each round (no "
+                  "worklist compaction); the plain baseline"),
+    "compacted": ((), "host-orchestrated §V-B worklist compaction; the "
+                      "path behind the Fig. 2 ablation"),
+    "cuda_compacted": (("pallas",),
+                       "compacted driver with the hand-written "
+                       "min-propagation kernels (refresh_columns, decide) "
+                       "on the measured hot loop"),
+    "compacted_resident": ((), "device-resident §V-B fixed point: "
+                               "worklists compacted on the device (cumsum "
+                               "stream compaction) — bit-identical to "
+                               "'compacted'"),
+    "cuda_resident": (("pallas_resident",),
+                      "resident driver with the FUSED passes (rank packing "
+                      "folded into the refresh, row-gather folded into "
+                      "decide) inside one persistent kernel: one launch a "
+                      "solve, no host read inside it; the facade default"),
+    "cuda_hybrid": (("pallas_hybrid",),
+                    "resident driver over the degree-aware hybrid layout "
+                    "(sliced-ELL degree buckets + sorted-COO spill for "
+                    "heavy hitters) in one persistent kernel — O(E) memory "
+                    "on skewed graphs whose padded ELL cannot be "
+                    "allocated, bit-identical to 'dense'; auto-selected "
+                    "past the padded-ELL bytes threshold"),
+    "distributed": ((), "vertex partition over Backend(group=...): T and M "
+                        "all-gathered per iteration (2·V·4 B collective "
+                        "traffic) — bit-identical to 'dense' for any rank "
+                        "count"),
+    "distributed_single_gather": (
+        (), "distributed variant gathering T once per iteration and "
+            "recomputing M locally (V·4 B collective traffic — half of "
+            "'distributed'; replicates the ELL adjacency)"),
+}
+for _name, (_aliases, _doc) in _MIS2_ENGINES.items():
+    register_engine("mis2", _name, aliases=_aliases, doc=_doc)(
+        _single_graph(_name))
 
 
-@register_engine("mis2", "dense_batched")
+@register_engine("mis2", "dense_batched",
+                 doc="batched fixed point over padded size buckets "
+                     "(repro_torch.batch); a single-graph call runs as a "
+                     "batch of one — bit-identical to 'dense'")
 def _mis2_dense_batched(graph, active, options, backend=None):
-    """A single graph as a batch of one (``mis2_batch``'s fixed point):
-    bit-identical to ``dense``."""
     actives = None if active is None else [active]
     return _mis2_batch_impl(GraphBatch([graph]), options, actives)[0]
 
 
-@register_engine("aggregation", "basic")
+@register_engine("aggregation", "basic", aliases=("mis2_basic",),
+                 doc="paper Alg. 2 (Bell-style): MIS-2 roots + neighbors")
 def _agg_basic(graph, options, mis2_engine, min_secondary_neighbors,
                backend=None):
     return _aggregate_basic_impl(graph, options, mis2_engine, backend)
 
 
-@register_engine("aggregation", "two_phase")
+@register_engine("aggregation", "two_phase", aliases=("mis2_agg",),
+                 doc="paper Alg. 3 (ML-style): two MIS-2 phases + "
+                     "max-coupling cleanup")
 def _agg_two_phase(graph, options, mis2_engine, min_secondary_neighbors,
                    backend=None):
     return _aggregate_two_phase_impl(graph, options, mis2_engine,
                                      min_secondary_neighbors, backend)
 
 
-@register_engine("aggregation", "two_phase_distributed")
+@register_engine("aggregation", "two_phase_distributed",
+                 doc="paper Alg. 3 sharded over Backend(group=...): both "
+                     "MIS-2 phases run the distributed fixed point and "
+                     "each label-propagation round is one label "
+                     "all-gather + local rowwise join — labels "
+                     "bit-identical to 'two_phase'")
 def _agg_two_phase_distributed(graph, options, mis2_engine,
                                min_secondary_neighbors, backend=None):
-    """Alg. 3 over ``Backend.group``: both MIS-2 phases sharded, each label
-    round one label all-gather and the local rowwise join.  The inner
-    engine must be one of the two distributed ones (None: ``distributed``);
-    any other raises rather than being absorbed."""
+    """The inner engine must be one of the two distributed ones (None:
+    ``distributed``); any other raises rather than being absorbed."""
     if mis2_engine not in (None, *DISTRIBUTED_ENGINES):
         raise ValueError(
             f"two_phase_distributed runs a distributed MIS-2; got "
@@ -87,14 +129,23 @@ def _agg_two_phase_distributed(graph, options, mis2_engine,
         single_gather=mis2_engine == "distributed_single_gather")
 
 
-@register_engine("aggregation", "serial")
+@register_engine("aggregation", "serial",
+                 doc="host-sequential greedy reference (Table V 'Serial "
+                     "Agg')")
 def _agg_serial(graph, options, mis2_engine, min_secondary_neighbors,
                 backend=None):
     return _aggregate_serial_greedy_impl(graph)
 
 
-register_engine("coloring", "luby")(_color_graph_impl)
-register_engine("coloring", "luby_hybrid")(_color_hybrid_impl)
+register_engine(
+    "coloring", "luby",
+    doc="Luby-style rounds with xorshift* packed priorities, one "
+        "persistent kernel a coloring")(_color_graph_impl)
+register_engine(
+    "coloring", "luby_hybrid",
+    doc="Luby rounds over the degree-aware hybrid layout (sliced-ELL + COO "
+        "spill); bit-identical colors without the monolithic padded "
+        "ELL")(_color_hybrid_impl)
 
 
 def _multilevel(engine: str):
@@ -106,14 +157,33 @@ def _multilevel(engine: str):
     return run
 
 
-register_engine("multilevel", "host")(_multilevel("host"))
-register_engine("multilevel", "resident")(_multilevel("resident"))
+register_engine(
+    "multilevel", "host",
+    doc="host orchestration: scipy smoothed prolongator, canonical "
+        "sorted-COO Galerkin on numpy, numpy cluster packing — ~3 "
+        "matrix-sized host round-trips per level")(_multilevel("host"))
+register_engine(
+    "multilevel", "resident",
+    doc="whole per-level setup on the device: prolongator assembly, "
+        "sorted-COO Galerkin product (the run-sum kernel), coarse ELL "
+        "repack, cluster/color packing — no matrix-sized host sync, "
+        "digest-identical to 'host'; the facade default on CUDA")(
+    _multilevel("resident"))
 
-register_engine("misk", "dense")(_mis_k_impl)
-register_engine("misk", "resident")(_misk_resident_impl)
+register_engine(
+    "misk", "dense",
+    doc="k-fold min-propagation over masked [V] state, one launch of the "
+        "misk kernel a solve")(_mis_k_impl)
+register_engine(
+    "misk", "resident",
+    doc="§V-B worklist shape for distance-k: the compacted worklist feeds "
+        "the row refresh — bit-identical to 'dense' (the default); kept "
+        "for ablation")(_misk_resident_impl)
 
 
-@register_engine("partition", "multilevel")
+@register_engine("partition", "multilevel",
+                 doc="MIS-2 multilevel coarsen + greedy coarse split + "
+                     "boundary refinement per level")
 def _partition_multilevel(graph, num_parts, coarse_target, options):
     return _partition_impl(
         graph, num_parts, coarse_target, options,

@@ -1,6 +1,9 @@
 """The public facade: one call per pipeline with the JAX package's
 signatures (``repro.api.facade``), engines dispatched by name, results in
-the :class:`~repro_torch.api.result.Result` form.
+the :class:`~repro_torch.api.result.Result` form.  An engine may be named
+by an alias, the reference's names among them (``pallas_resident`` runs
+``cuda_resident``, ``mis2_agg`` ``two_phase``); results and provenance
+name the canonical engine.
 
     import repro_torch as rt
 
@@ -51,7 +54,7 @@ from .backend import (
     default_multilevel_engine,
     resolve_backend,
 )
-from .registry import get_engine
+from .registry import _canonical, get_engine
 from .result import (
     AggregationResult,
     AmgSetup,
@@ -105,7 +108,8 @@ def mis2(graph, *, active=None, options: Mis2Options | None = None,
     worklist-bucket pairs in ``num_compiles``."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
-    engine = default_mis2_engine(gh, options) if engine is None else engine
+    engine = default_mis2_engine(gh, options) if engine is None \
+        else _canonical("mis2", engine)
     fn = get_engine("mis2", engine)
     return _traced(
         "mis2", engine, be, lambda: fn(gh, active, options, backend=be),
@@ -126,7 +130,8 @@ def misk(graph, k: int = 2, *, priority: str = "xorshift_star",
     read a round."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
-    engine = default_misk_engine() if engine is None else engine
+    engine = default_misk_engine() if engine is None \
+        else _canonical("misk", engine)
     fn = get_engine("misk", engine)
     return _traced(
         "misk", engine, be, lambda: fn(gh, k, priority, max_iters),
@@ -152,9 +157,10 @@ def coarsen(graph, *, method: str = "two_phase",
     inner engine with ``basic`` / ``two_phase`` shards the MIS-2 only."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
+    method = _canonical("aggregation", method)
     fn = get_engine("aggregation", method)
     if mis2_engine is not None:
-        inner = mis2_engine
+        inner = _canonical("mis2", mis2_engine)
     elif method == "two_phase_distributed":
         inner = "distributed"
     else:
@@ -186,6 +192,7 @@ def color(graph, *, max_rounds: int = MAX_ROUNDS_DEFAULT,
     (uncolored vertices hold ``-1``) instead of raising."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
+    engine = _canonical("coloring", engine)
     fn = get_engine("coloring", engine)
     return _traced("color", engine, be, lambda: fn(gh, max_rounds),
                    _wrap_coloring)
@@ -203,6 +210,7 @@ def partition(graph, num_parts: int, *, coarse_target: int | None = None,
     host."""
     be = resolve_backend(backend)
     gh = _prepare(graph, be)
+    engine = _canonical("partition", engine)
     fn = get_engine("partition", engine)
     return _traced(
         "partition", engine, be,
@@ -247,7 +255,10 @@ def amg_setup(matrix, *, aggregation: str = "two_phase",
     V-cycle then restricts through the transposed SpMV kernel on P."""
     be = resolve_backend(backend)
     gh = _prepare(matrix, be)
-    engine = default_multilevel_engine(gh) if engine is None else engine
+    engine = default_multilevel_engine(gh) if engine is None \
+        else _canonical("multilevel", engine)
+    aggregation = _canonical("aggregation", aggregation)
+    mis2_engine = _canonical("mis2", mis2_engine)
     fn = get_engine("multilevel", engine)
     return _traced(
         "amg_setup", engine, be,
@@ -292,7 +303,10 @@ def cluster_gs_setup(matrix, *, aggregation: str = "two_phase",
 
     be = resolve_backend(backend)
     gh = _prepare(matrix, be)
-    engine = default_multilevel_engine(gh) if engine is None else engine
+    engine = default_multilevel_engine(gh) if engine is None \
+        else _canonical("multilevel", engine)
+    aggregation = _canonical("aggregation", aggregation)
+    mis2_engine = _canonical("mis2", mis2_engine)
     fn = get_engine("multilevel", engine)
 
     def build(out, dt):
@@ -394,6 +408,7 @@ def coarsen_batch(graphs, *, method: str = "two_phase",
     ``serial`` runs the host-sequential reference per graph, with no
     stacking (``bucket_shapes`` empty)."""
     be = resolve_backend(backend)
+    method = _canonical("aggregation", method)
     if method == "serial":
         members = graphs.graphs if isinstance(graphs, GraphBatch) \
             else [as_graph(g) for g in graphs]
@@ -433,8 +448,9 @@ def amg_setup_batch(matrices, *, aggregation: str = "two_phase",
     hierarchies equal ``amg_setup(a, ...)``'s (equal level digests)."""
     be = resolve_backend(backend)
     batch = _prepare_batch(matrices, be)
-    if engine is None:
-        engine = default_multilevel_engine(batch.graphs[0])
+    engine = default_multilevel_engine(batch.graphs[0]) if engine is None \
+        else _canonical("multilevel", engine)
+    aggregation = _canonical("aggregation", aggregation)
 
     def wrap(hierarchies, dt):
         per = _per_graph(hierarchies, dt)

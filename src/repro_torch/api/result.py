@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 
@@ -25,6 +26,17 @@ def determinism_digest(arr: np.ndarray) -> str:
     h.update(str(arr.shape).encode())
     h.update(arr.tobytes())
     return h.hexdigest()[:16]
+
+
+@runtime_checkable
+class ResultLike(Protocol):
+    """What every facade result offers (``isinstance`` checks the names)."""
+
+    payload: np.ndarray
+    iterations: int
+    converged: bool
+    wall_time_s: float
+    digest: str
 
 
 @dataclass

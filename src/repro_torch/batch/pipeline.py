@@ -14,7 +14,8 @@ the coarsening's label joins).  Only what is per graph is per member:
   kernels, ``ops.resident_fixed_point_batched`` and
   ``luby_ops.luby_fixed_point_batched``, take the members' bits);
 * padded rows are inactive: MIS-2 pins them to OUT, the coloring
-  pre-colors them, the joins never see them;
+  pre-colors them, and the coarsening's root join takes each as a root of
+  its own (a padded row is nobody's neighbour, so no real row sees it);
 * a member's iteration counter advances only while that graph is live, so
   the §V-A priority stream matches the single-graph run even when bucket
   mates need more rounds;
@@ -23,10 +24,10 @@ the coarsening's label joins).  Only what is per graph is per member:
 
 Each fixed point of a bucket is one launch on the card with no host read
 inside it (``host_syncs`` 0), as the reference runs it as one dispatch; on
-the CPU the kernels' twins read one flag a round.  The coarsening's
-cleanup and phase-3 loops are one launch each of the join kernels
-(``kernels.joins``) over the bucket's block-diagonal ELL; its phase-1 and
-phase-2 label joins are plain torch.  Every
+the CPU the kernels' twins read one flag a round.  Each label join of the
+coarsening (the root join with Alg. 2's cleanup, phase 2, phase 3) is one
+launch of a join kernel (``kernels.joins``) over the bucket's
+block-diagonal ELL, as the single-graph coarsening runs them.  Every
 per-graph result is bit-identical to the single-graph call's and to the
 reference's batched call's.  The drivers return *core* result dataclasses
 in batch input order; the facade (``repro_torch.api.facade``) wraps them
@@ -53,8 +54,8 @@ from ..core.coloring import (
 from ..core.mis2 import Mis2Options, Mis2Result, _active_mask, record_loop
 from ..core.tuples import IN, is_undecided
 from ..kernels.joins import ops as join_ops
+from ..kernels.joins.ref import JOIN_ROUNDS
 from ..kernels.minprop_ell import ops
-from ..kernels.joins.ref import INT32_MAX, count_unagg, join_rows
 from .container import GraphBatch, GraphBucket
 
 
@@ -150,15 +151,6 @@ def _color_batch_impl(batch: GraphBatch,
 # MIS-2 aggregation (coarsening)
 # ---------------------------------------------------------------------------
 
-def _member_root_labels(roots: torch.Tensor,
-                        first: torch.Tensor) -> torch.Tensor:
-    """Member-local aggregate ids of the roots (bool ``[B, rows]``),
-    ``first[j]`` onward in row order within member ``j``; INT32_MAX on the
-    other rows.  Flat int32 ``[B * rows]``."""
-    ids = first[:, None] + torch.cumsum(roots, dim=1, dtype=torch.int32) - 1
-    return torch.where(roots, ids, INT32_MAX).to(torch.int32).view(-1)
-
-
 def _coarsen_batch_impl(batch: GraphBatch, method: str = "two_phase",
                         options: Mis2Options | None = None,
                         min_secondary_neighbors: int = 2
@@ -183,73 +175,77 @@ def _coarsen_batch_impl(batch: GraphBatch, method: str = "two_phase",
 
 def _coarsen_bucket(bucket: GraphBucket, method: str, options: Mis2Options,
                     min_secondary_neighbors: int) -> list[AggregationResult]:
+    """One bucket's coarsening: the batched MIS-2 solves and one launch of
+    each join over the block-diagonal ELL (``two_phase``: two solves, the
+    root join, phase 2 and phase 3; ``basic``: one solve and the root join
+    with the cleanup), nothing read on the host between them.
+
+    The joins number aggregates over the whole bucket, in row order, and
+    the members are contiguous row blocks, so member ``j``'s phase-1 ids
+    are ``b1[j] + local`` (``b1`` the exclusive scan of the members' root
+    counts) and its phase-2 ids ``total1 + b2[j] + local2`` (phase 2
+    numbers from the bucket's phase-1 total).  Both maps are monotone
+    within a member and put every phase-2 id above every phase-1 id, so
+    the min joins and phase 3's (coupling, size, label) order pick as the
+    single-graph joins do; the ids are mapped back once, after the last
+    join, on the device."""
     bsz, rows = bucket.size, bucket.rows
     n = bsz * rows
-    nbrs = bucket.flat_neighbors
-    mask = bucket.mask.view(n, bucket.width)
     valid = bucket.row_valid.view(-1)
-    dev = nbrs.device
+    layout = join_ops.ell_layout(bucket.flat_neighbors32,
+                                 bucket.mask.view(n, bucket.width))
 
-    # Phase 1: MIS-2 roots + direct neighbors
+    # Phase 1: MIS-2 roots + direct neighbors.  Each padded row is a root
+    # of its own: it labels only itself, follows its member's real rows in
+    # row order (the real roots keep their ids), and leaves the loops of
+    # the cleanup and phase 3 nothing of its own to wait for.
     t1, iters, _ = _fixed_point(bucket, valid, options)
-    in1 = (t1 == IN) & bucket.row_valid
+    in1 = ((t1 == IN) & bucket.row_valid).view(-1)
     undecided = is_undecided(t1).any(dim=1)        # padded rows are OUT
-    nagg = in1.sum(dim=1, dtype=torch.int32)
-    labels = join_rows(nbrs, _member_root_labels(
-        in1, torch.zeros(bsz, dtype=torch.int32, device=dev)))
-    phase = (labels >= 0).to(torch.uint8)
-    roots = in1.view(-1)
-
-    # the padded rows' label: n - 1 is no real row's (a member with padding
-    # has fewer aggregates than rows), so the join loops below see every
-    # real row unlabeled exactly when the single-graph loops would, and
-    # padded rows are nobody's neighbor
+    roots1 = in1 | ~valid
+    labels, phase, aux = join_ops.root_join(
+        layout, roots1,
+        cleanup_rounds=JOIN_ROUNDS if method == "basic" else 0)
+    roots2 = None
     if method == "two_phase":
-        # Phase 2: MIS-2 on the induced unaggregated subgraph (a member with
-        # nothing left runs no round)
-        unagg = (labels < 0) & valid
+        # Phase 2: MIS-2 on the induced unaggregated subgraph (a member
+        # with nothing left runs no round), its roots numbered from the
+        # bucket's phase-1 total; Phase 3: the max-coupling join
+        unagg = labels < 0
         t2, it2, _ = _fixed_point(bucket, unagg, options)
         iters = iters + it2
         undecided |= (is_undecided(t2) & unagg.view_as(t2)).any(dim=1)
         in2 = ((t2 == IN) & bucket.row_valid).view(-1)
-        n_unagg = count_unagg(nbrs, mask, torch.arange(n, device=dev),
-                              labels)
-        roots2 = in2 & (n_unagg >= min_secondary_neighbors)
-        roots = roots | roots2
-        adj2 = join_rows(nbrs, _member_root_labels(roots2.view(bsz, rows),
-                                                    nagg))
-        newly = (labels < 0) & (adj2 >= 0)
-        labels = torch.where(newly, adj2, labels)
-        phase = torch.where(newly, 2, phase).to(torch.uint8)
-        nagg = nagg + roots2.view(bsz, rows).sum(dim=1, dtype=torch.int32)
+        labels, phase, roots2, _ = join_ops.phase2_join(
+            layout, labels, phase, in2, aux[:1],
+            min_secondary=min_secondary_neighbors)
+        labels, phase = join_ops.phase3_fixed_point(layout, labels, phase)
 
-        # Phase 3 over one label space: each member's labels offset by the
-        # aggregates of the members before it, which keeps the (coupling,
-        # size, label) order within a member and gives every (member,
-        # label) its own size
-        base = (torch.cumsum(nagg, dim=0, dtype=torch.int32)
-                - nagg).repeat_interleave(rows)
-        labels = torch.where(labels >= 0, labels + base, labels)
-        labels = torch.where(valid, labels, n - 1).to(torch.int32)
-        labels, phase = join_ops.phase3_fixed_point(
-            join_ops.ell_layout(bucket.flat_neighbors32, mask), labels, phase)
-        labels = torch.where(labels >= 0, labels - base, labels)
-    else:
-        # basic: leftovers join the min adjacent aggregate
-        labels = torch.where(valid, labels, n - 1).to(torch.int32)
-        labels, phase = join_ops.cleanup_join(
-            join_ops.ell_layout(bucket.flat_neighbors32, mask), labels, phase)
+    # member-local ids, on the device (a few elementwise launches; the same
+    # map on the host costs tens of ms a 2M-row bucket): phase-1 ids less
+    # b1[j], phase-2 ids less total1 + b2[j] - n1[j] (aux[0] is total1)
+    lab = labels.view(bsz, rows)
+    c1 = roots1.view(bsz, rows).sum(dim=1, dtype=torch.int32)
+    n1 = in1.view(bsz, rows).sum(dim=1, dtype=torch.int32)
+    n2 = torch.zeros_like(n1) if roots2 is None \
+        else roots2.view(bsz, rows).sum(dim=1, dtype=torch.int32)
+    b1 = torch.cumsum(c1, dim=0, dtype=torch.int32) - c1
+    off2 = aux[:1] + torch.cumsum(n2, dim=0, dtype=torch.int32) - n2 - n1
+    off = torch.where(lab >= aux[:1], off2[:, None], b1[:, None])
+    lab = torch.where(lab >= 0, lab - off, lab)
+    roots = in1 if roots2 is None else in1 | roots2
 
-    labels = labels.view(bsz, rows).cpu().numpy()
+    labels = lab.cpu().numpy()
     phase = phase.view(bsz, rows).cpu().numpy()
     roots = roots.view(bsz, rows).cpu().numpy()
-    nagg, iters = nagg.cpu().numpy(), iters.cpu().numpy()
+    nagg = (n1 + n2).cpu().numpy()
+    iters = iters.cpu().numpy()
     converged = ~undecided.cpu().numpy()
     results = []
     for j in range(bsz):
         v = int(bucket.num_vertices[j])
-        lab_j, nagg_j = _finalize_singletons(labels[j, :v].copy(),
-                                             int(nagg[j]), phase[j, :v])
+        lab_j, nagg_j = _finalize_singletons(labels[j, :v], int(nagg[j]),
+                                             phase[j, :v])
         results.append(AggregationResult(
             lab_j.astype(np.int32), nagg_j, roots[j, :v], phase[j, :v],
             int(iters[j]), bool(converged[j])))

@@ -69,6 +69,14 @@ class LayoutOverflowError(MemoryError):
 _SCALAR_KEYS = ("num_entries", "max_degree")
 
 
+def _default_device() -> torch.device | str:
+    """The default backend's device, ``cuda`` where it names none."""
+    from ..api.backend import get_default_backend
+
+    device = get_default_backend().device
+    return "cuda" if device is None else device
+
+
 def ell_bytes_estimate(num_rows: int, width: int) -> int:
     """Bytes a monolithic padded-ELL graph would allocate."""
     return int(num_rows) * int(width) * ELL_BYTES_PER_SLOT
@@ -78,7 +86,9 @@ class Graph:
     """Cached-format handle around one immutable graph (or square matrix).
 
     ``Graph(structure, device=...)`` with a host ``CSRGraph`` /
-    ``CSRMatrix`` (the device defaults to ``cuda``) or a device
+    ``CSRMatrix`` (the device defaults to the default backend's:
+    ``cuda``, unless ``api.set_default_backend`` installed one with a
+    device) or a device
     ``ELLGraph`` / ``ELLMatrix`` (the device defaults to its tensors').
     ``g.csr`` / ``g.csr_matrix`` are host numpy, ``g.ell`` /
     ``g.ell_matrix`` / ``g.padded_ell(rows, width)`` / ``g.bucketed()`` /
@@ -111,13 +121,14 @@ class Graph:
             if device is not None:
                 self.place(device)
         else:
-            self._device = torch.device("cuda" if device is None else device)
+            self._device = torch.device(_default_device() if device is None
+                                        else device)
 
     # -- constructors -------------------------------------------------------
 
     @classmethod
     def from_coo(cls, rows, cols, num_vertices: int, vals=None,
-                 device: torch.device | str = "cuda") -> "Graph":
+                 device: torch.device | str | None = None) -> "Graph":
         """A graph (``vals`` None) or matrix from COO triples, sorted and
         deduplicated (duplicate values summed) by ``csr_from_coo``."""
         return cls(csr_from_coo(np.asarray(rows), np.asarray(cols),
@@ -125,7 +136,7 @@ class Graph:
 
     @classmethod
     def from_reference(cls, indptr, indices, values=None,
-                       device: torch.device | str = "cuda") -> "Graph":
+                       device: torch.device | str | None = None) -> "Graph":
         """A port graph from the JAX package's CSR arrays (as numpy): the
         same structure, the same values and the same ``digest``."""
         indptr = np.ascontiguousarray(np.asarray(indptr), dtype=np.int32)

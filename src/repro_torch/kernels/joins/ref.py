@@ -23,7 +23,7 @@ The loops read one flag a round on the host, as the port's drivers did
 before the kernels; they are the plain version and no yardstick of speed.
 The rowwise bodies (:func:`join_rows`, :func:`count_unagg`,
 :func:`phase3_rows`) are also the distributed engine's per-rank rounds
-(``core.dist``) and the batched pipeline's per-member root joins.
+(``core.dist``).
 """
 from __future__ import annotations
 

@@ -128,8 +128,8 @@ class ServerConfig:
     * ``persist_dir``        directory for the digest-verified disk cache
       tier (None = memory-only), ``persist_bytes`` its byte budget.
 
-    ``backend`` places every request's graph (None: ``Backend()``, the
-    card).
+    ``backend`` places every request's graph (None: the process default
+    backend, ``Backend()``, the card, unless another is installed).
     """
 
     max_batch: int = 8

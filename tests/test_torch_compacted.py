@@ -300,7 +300,8 @@ def test_bad_layout_and_engine_list():
     with pytest.raises(ValueError, match="layout"):
         rt.Mis2Options(layout="coo")
     with pytest.raises(ValueError, match="cuda_compacted"):
-        rt.mis2(port_graph("laplace3d(8)"), engine="pallas", backend=CPU)
+        rt.mis2(port_graph("laplace3d(8)"), engine="pallas_dense",
+                backend=CPU)
     assert set(rt.ABLATION_CHAIN) == set(REF_CHAIN)
     assert all(rt.ABLATION_CHAIN[k].__dict__ == {
         f: getattr(o, f) for f in rt.ABLATION_CHAIN[k].__dict__}

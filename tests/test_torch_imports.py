@@ -20,6 +20,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "bench_hash_pack.py",
     ROOT / "tools" / "bench_serve_route.py",
     ROOT / "tests" / "test_torch_cuda.py"]
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
+PORT_FILES += EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -42,6 +44,28 @@ def test_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=[p.stem for p in EXAMPLES])
+def test_example_import_leaves_jax_and_reference_unloaded(path):
+    code = ("import importlib.util, sys;"
+            f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r});"
+            "m = importlib.util.module_from_spec(spec);"
+            "spec.loader.exec_module(m);"
+            "assert callable(m.main);"
+            "bad = sorted(x for x in sys.modules if x.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'));"
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_four_examples_ported():
+    assert [p.stem for p in EXAMPLES] == ["amg_solve", "cluster_gs_precond",
+                                          "partition_demo", "quickstart"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

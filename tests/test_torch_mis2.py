@@ -82,7 +82,8 @@ def test_bad_options_and_engine_raise():
     with pytest.raises(ValueError, match="priority"):
         rt.Mis2Options(priority="lcg")
     with pytest.raises(ValueError, match="engine"):
-        rt.mis2(port_graph("laplace3d(8)"), engine="pallas", backend=CPU)
+        rt.mis2(port_graph("laplace3d(8)"), engine="pallas_dense",
+                backend=CPU)
     with pytest.raises(ValueError, match="active"):
         rt.mis2(port_graph("laplace3d(8)"), active=np.ones(3, bool),
                 backend=CPU)

@@ -28,8 +28,8 @@ Laplace3D_100 one streaming delta a call too (``repair``: a
 size, 100 edges added and 100 removed, a new seeded delta each call).  The two
 batch fleets of ``chip_smoke.py`` (``Fleet_A``, the reference's batch
 benchmark; ``Fleet_B``, 128 subdomains) are profiled through
-``mis2_batch``, ``coarsen_batch`` (``two_phase``) and ``color_batch`` on
-one ``GraphBatch`` each.  Prints one JSON line per call
+``mis2_batch``, ``coarsen_batch`` (``two_phase``), ``coarsen_batch_basic``
+and ``color_batch`` on one ``GraphBatch`` each.  Prints one JSON line per call
 with the device time by kernel name (top entries, and every kernel of the
 port's ``csrc/``), the summed device time, the device span of each setup
 phase (``setup_range_device_ms``),
@@ -38,7 +38,8 @@ call's peak device memory.  ``--calls``
 keeps only the named calls (``mis2``, ``coarsen``, ``mis2_cuda_compacted``,
 ``mis2_compacted``, ``amg_cg``, ``gs_cg``, ``amg_setup``, ``gs_setup``,
 ``coarsen_basic``, ``color``, ``misk``, ``partition``, ``repair``,
-``mis2_batch``, ``coarsen_batch``, ``color_batch``),
+``mis2_batch``, ``coarsen_batch``, ``coarsen_batch_basic``,
+``color_batch``),
 and skips the setups of the others.
 """
 from __future__ import annotations
@@ -162,6 +163,8 @@ def _profile_fleet(torch, rt, label: str, wanted) -> None:
     batch = rt.GraphBatch(graphs)
     calls = {"mis2_batch": lambda: rt.mis2_batch(batch),
              "coarsen_batch": lambda: rt.coarsen_batch(batch),
+             "coarsen_batch_basic": lambda: rt.coarsen_batch(
+                 batch, method="basic"),
              "color_batch": lambda: rt.color_batch(batch)}
     for what, call in calls.items():
         if wanted is not None and what not in wanted:
