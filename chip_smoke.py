@@ -199,6 +199,12 @@ Phases (any failure raises, and the script exits non-zero):
    host sync inside it); the walls of five warm ``coarsen_batch`` calls
    beside the times before, and the device events of one traced call
    (``tools/profile_torch.py`` in a child process).
+19. the static analyzer on the card's tree: ``repro_torch.lint.check``
+   over ``src/repro_torch``, every Python file and every CUDA source
+   (``kernels/csrc/*.cu`` and ``*.cuh``), with the committed
+   ``tools/lint_baseline_torch.json``; its counts per rule and the CUDA
+   files read on a JSON line; fails on a live finding, a baseline problem,
+   or a source ``kernels/_build.py`` compiles that was not linted.
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -1119,6 +1125,11 @@ def main() -> int:
           "launches": last_counts, "seconds": time.perf_counter() - t0,
           **last})
     del batch_a, batch_b
+    # -- 19. the static analyzer over the port's Python and CUDA sources ------
+    t0 = time.perf_counter()
+    lint = _lint_sources(_build)
+    emit({"phase": "lint", "card": smi, "seconds": time.perf_counter() - t0,
+          **lint})
     for k in KERNELS:
         check(k in CARRIED_BY or path_launches[k] > 0,
               f"{k} was never launched on a path")
@@ -1221,6 +1232,29 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _lint_sources(build) -> dict:
+    """Phase 19: ``repro_torch.lint`` over the package, Python and CUDA;
+    fails on a live finding, a baseline problem, or a compiled source the
+    analyzer did not read."""
+    from repro_torch.lint import check as lint_check
+
+    res = lint_check([ROOT / "src" / "repro_torch"],
+                     baseline=ROOT / "tools" / "lint_baseline_torch.json",
+                     repo_root=ROOT)
+    check(res.ok, "repro_torch.lint: " + "; ".join(
+        [f.render() for f in res.findings] + res.baseline_problems))
+    read = {Path(p).name for p in res.cuda_files}
+    # every source a library is built from or hashed with
+    compiled = {p.name for p in build.CSRC.glob("*.cu*")}
+    check(compiled <= read, f"CUDA sources not linted: {compiled - read}")
+    return {"counts": res.counts(),
+            "cuda_files": sorted(read),
+            "python_files": sum(not f.is_root for f in res.project.files),
+            "kernels": len(res.project.cuda_kernels()),
+            "suppressed": [f"{f.rule} {f.path}:{f.line}"
+                           for f in res.suppressed]}
 
 
 def _misk_partition_path(rt, np, g, launches) -> dict:

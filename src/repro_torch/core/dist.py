@@ -249,7 +249,10 @@ def _fixed_point(sh: ShardedEll, active_local: torch.Tensor, b: int,
         flag.copy_((is_undecided(t_local) & active_local).sum())
         comm.all_reduce_sum(flag)
         syncs += 1
-        if int(flag.item()) == 0:       # the one host read a round
+        # the one host read a round: the all-reduced undecided count, the
+        # one the reference's sharded while_loop tests on the device
+        # repro-lint: ignore[RL101] mis2.host_syncs counts it; the reference tests its psum'd count
+        if int(flag.item()) == 0:
             break
         comm.all_gather(t_full, t_local, "tuples")
         if single_gather:
@@ -282,8 +285,14 @@ def _mis2_distributed_impl(graph, active=None,
     the padding (see :func:`prepare_padded`)."""
     options = Mis2Options() if options is None else options
     gh = as_graph(graph)
+    # the packing width comes from the graph's real count, never from the
+    # padded shards (RL102)
+    v = gh.num_vertices
     sh = prepare_padded(gh, backend) if padded is None else padded
-    v, vp, p = sh.num_vertices, sh.num_padded, sh.comm.world_size
+    if sh.num_vertices != v:
+        raise ValueError(f"padded holds a graph of {sh.num_vertices} "
+                         f"vertices, the graph has {v}")
+    vp, p = sh.num_padded, sh.comm.world_size
     _require_entries(sh.padded.neighbors[:v], "distributed")
     act = torch.zeros(vp, dtype=torch.bool, device=sh.rows.device)
     act[:v] = _active_mask(active, v, sh.rows.device)

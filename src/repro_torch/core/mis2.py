@@ -688,6 +688,8 @@ def _mis2_compacted_impl(graph, active=None,
         else:
             state = _csr_round(state, wl1_mask, wl2_mask, edges, act, it,
                                **kw)
+        # the host-driven driver by design: T and M pulled every round
+        # repro-lint: ignore[RL101] mis2.host_syncs counts both; the reference's pallas pulls both
         wl1_np, wl2_np = (np.flatnonzero(x.numpy()).astype(np.int32)
                           for x in _undecided_live(state, host=True))
         syncs += 2                    # T and M pulled to the host
@@ -719,7 +721,11 @@ def _mis2_resident_plain_impl(graph, active=None,
     it = syncs = 0
     while it < options.max_iters:
         syncs += 1
-        if not bool(und.any()):       # the one host read per round
+        # the one host read per round (the plain steps launch no kernel:
+        # _ell_round without counts), the flag the reference's
+        # compacted_resident while_loop tests on the device
+        # repro-lint: ignore[RL101] mis2.host_syncs counts it; the flag the reference's loop tests
+        if not bool(und.any()):
             break
         if edges is None:
             wl1, _ = compact_worklist(und)

@@ -266,6 +266,9 @@ class StreamSession:
                         "repair fixed point hit max_iters; raise "
                         "Mis2Options.max_iters")
                 in_dev = t == IN
+                # the region grows on the host, as the reference's repair
+                # loop pulls its violations every re-solve
+                # repro-lint: ignore[RL101] serve.repair.expansions + 1; the reference pulls too
                 viol = lexfirst_violations(neighbors, in_dev,
                                            self._p).cpu().numpy()
                 if not viol.any():

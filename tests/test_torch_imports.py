@@ -19,6 +19,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "bench_spmv.py", ROOT / "tools" / "bench_minprop.py",
     ROOT / "tools" / "bench_hash_pack.py",
     ROOT / "tools" / "bench_serve_route.py",
+    ROOT / "tools" / "repro_lint_torch.py",
     ROOT / "tests" / "test_torch_cuda.py"]
 EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 PORT_FILES += EXAMPLES
@@ -36,7 +37,14 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.mis2, repro_torch.core.misk,"
             "repro_torch.core.partition, repro_torch.api.backend,"
             "repro_torch.batch, repro_torch.batch.pipeline, repro_torch.obs,"
-            "repro_torch.core.dist, repro_torch.serve;"
+            "repro_torch.core.dist, repro_torch.serve,"
+            "repro_torch.lint, repro_torch.lint.engine,"
+            "repro_torch.lint.rules.rl101_trace_purity,"
+            "repro_torch.lint.rules.rl102_priority_provenance,"
+            "repro_torch.lint.rules.rl103_timing,"
+            "repro_torch.lint.rules.rl104_obs_hygiene,"
+            "repro_torch.lint.rules.rl105_options_aliasing,"
+            "repro_torch.lint.rules.rl106_kernel_masking;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
