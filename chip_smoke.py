@@ -205,6 +205,18 @@ Phases (any failure raises, and the script exits non-zero):
    ``tools/lint_baseline_torch.json``; its counts per rule and the CUDA
    files read on a JSON line; fails on a live finding, a baseline problem,
    or a source ``kernels/_build.py`` compiles that was not linted.
+20. the two persistent kernels redesigned in slice 20 at each cap of their
+   loops: ``mis2`` and ``coarsen(two_phase)`` on the paper graphs against
+   the anchors (launching both); ``resident_fixed_point`` on Laplace3D_100
+   and Elasticity3D_60 at every ``max_iters`` from 0 to one past its
+   rounds, ``phase3_fixed_point`` on the phase-3 state of a real two-phase
+   coarsening of the three graphs at every ``rounds`` from 0 to one past
+   the twin's (at most four), each bitwise against its twin capped the
+   same and timed at each cap: the prologue's and each round's cost, with
+   the twin's live rows a round.  Phases 11, 16 and 17 time the resident
+   kernels and phase 3 against the least bytes the function needs (each
+   input read once, each output written once), the count the earlier design
+   was held to beside it (``bound_ms_design``).
 
 The launch counts of each path are set to 0 just before it and read just
 after (phase 12: in each rank, summed).  Prints JSON lines, the ``kernels`` table, the ``nvidia-smi`` line,
@@ -1130,6 +1142,16 @@ def main() -> int:
     lint = _lint_sources(_build)
     emit({"phase": "lint", "card": smi, "seconds": time.perf_counter() - t0,
           **lint})
+    # -- 20. the redesigned persistent kernels at each cap of their loops -----
+    t0 = time.perf_counter()
+    caps = _redesigned_caps(torch, rt, ops, ref, join_ops, join_ref, id_bits,
+                            graphs, pl, launches, errs)
+    cap_counts = caps.pop("launches")
+    add_path(cap_counts)
+    for k in (RESIDENT, "phase3_fixed_point"):
+        check(cap_counts[k] > 0, f"{k} was never launched in phase 20")
+    emit({"phase": "redesigned_caps", "card": smi, "launches": cap_counts,
+          "seconds": time.perf_counter() - t0, **caps})
     for k in KERNELS:
         check(k in CARRIED_BY or path_launches[k] > 0,
               f"{k} was never launched on a path")
@@ -1139,7 +1161,8 @@ def main() -> int:
                  "one dispatch (phase 15)": two_counts,
                  "one dispatch (phase 16)": join_counts,
                  "one dispatch (phase 17)": more_counts,
-                 "batched joins (phase 18)": last_counts}
+                 "batched joins (phase 18)": last_counts,
+                 "redesigned caps (phase 20)": cap_counts}
 
     main_shape = {
         "fused_refresh_columns": ("Elasticity3D_60 round 0",
@@ -1205,6 +1228,8 @@ def main() -> int:
             entry["by_graph"] = two["timing"][k]
         if k in JOINS:
             entry["by_graph"] = joins["timing"][k]
+        if k in (RESIDENT, "phase3_fixed_point"):
+            entry["by_cap"] = caps[k]
         if k == MISK:
             entry["by_graph"] = more["timing"][MISK]
         if k in CARRIED_BY:
@@ -1990,15 +2015,34 @@ def _time_kernels(torch, g, ops, ref, id_bits, reps: int = 50,
 
 
 def _resident_bytes(v: int, d: int, trace) -> tuple[int, int]:
-    """Bytes and §V-A hashes of a resident solve's passes at the rounds
+    """The least bytes and §V-A hashes of a resident solve at the rounds
     run (``trace``: each round's live counts, M worklist then undecided):
-    round 0's state written (T, M, both lists) from the mask; a round's
-    per-vertex pass at wide rows (T read, the tuples written), the refresh
-    (its list, the rows' ids, the words they point at, at most V of them,
-    M written), the decide (its list, the rows' ids and own T, M and the
-    mask at the neighbours, at most V, T written) and both lists' compaction
-    (each list and the word it keys read, the survivors written); the
-    hashes: the undecided rows twice a round (refresh and decide)."""
+    the mask read and T and M written once; a round's refresh reads its
+    live rows' D ids and the T words they point at (at most V of them) and
+    writes their M; its decide reads its undecided rows' D ids and own T,
+    the M words and mask bytes at their neighbours (at most V) and writes
+    their T.  The worklists, their counts and any scratch are the design's,
+    not the function's, and are not counted.  The hashes: one tuple an
+    undecided row a round (the refresh and the decide hash the same one)."""
+    nbytes = v + 8 * v
+    hashes = 0
+    for n2, n1 in trace:
+        nbytes += 4 * n2 * d + 4 * min(n2 * d, v) + 4 * n2
+        nbytes += 4 * n1 * d + 4 * n1 + 5 * min(n1 * d, v) + 4 * n1
+        hashes += n1
+    return nbytes, hashes
+
+
+def _resident_bytes_design(v: int, d: int, trace) -> tuple[int, int]:
+    """The bound the slice-17 design was held to (printed beside the least
+    bytes of :func:`_resident_bytes`): round 0's state written (T, M, both
+    lists) from the mask; a round's per-vertex pass at wide rows (T read,
+    the tuples written), the refresh (its list, the rows' ids, the words
+    they point at, at most V of them, M written), the decide (its list, the
+    rows' ids and own T, M and the mask at the neighbours, at most V, T
+    written) and both lists' compaction (each list and the word it keys
+    read, the survivors written); the hashes: the undecided rows twice a
+    round (refresh and decide)."""
     nbytes = v + 16 * v
     hashes = 0
     wide = d >= 16
@@ -2011,6 +2055,15 @@ def _resident_bytes(v: int, d: int, trace) -> tuple[int, int]:
         nbytes += 8 * n1 + 8 * n2 + 4 * (nxt[0] + nxt[1])
         hashes += 2 * n1
     return nbytes, hashes
+
+
+def _design_bound(rec: dict, nbytes: int, hashes: int) -> dict:
+    """``rec`` (a :func:`_timed` record) with the bound of the earlier
+    design's count beside its own: ``bound_ms_design`` and its share."""
+    ms = max(nbytes / HBM_BYTES_PER_S,
+             hashes * INSTR_PER_HASH / INT32_OPS_PER_S) * 1e3
+    return {**rec, "bytes_design": nbytes, "hashes_design": hashes,
+            "bound_ms_design": ms, "bound_share_design": ms / rec["ms"]}
 
 
 def _time_resident(torch, g, ops, ref, id_bits, reps: int = 20,
@@ -2030,10 +2083,11 @@ def _time_resident(torch, g, ops, ref, id_bits, reps: int = 20,
     ref.resident_fixed_point_ref(tt, mt, active, nbrs_flat, trace=trace,
                                  **kw)
     nbytes, hashes = _resident_bytes(v, d, trace)
-    return {**_timed(
+    return {**_design_bound(_timed(
         torch, lambda: ops.resident_fixed_point(t, m, active, nbrs_flat, **kw),
         lambda: ref.resident_fixed_point_ref(tt, mt, active, nbrs_flat, **kw),
         None, nbytes, hashes=hashes, reps=reps, plain_reps=plain_reps),
+        *_resident_bytes_design(v, d, trace)),
         "V": v, "D": d, "rounds": len(trace),
         "live_counts": [list(x) for x in trace]}
 
@@ -2611,26 +2665,33 @@ def _rows_in(layout, un) -> tuple[list, int, int]:
     return per_map, int(heavy_un.sum()), int(heavy_un[seg.long()].sum())
 
 
-def _join_bytes(join_ref, name: str, args, kw) -> int:
+def _join_bytes(join_ref, name: str, args, kw, design: bool = False) -> int:
     """The least bytes a join moves (``_luby_bytes`` counts the same way):
     its [V] inputs read and outputs written once; a pass over rows reads
     their D ids (and mask bytes where it tests them), a slab row's global
     id, and the words its ids point at (at most V a pass); a pass over the
     spill reads its heavy rows' ids and their entries' segments and
     columns and the words those point at.  The rounds are the twin's
-    (``trace``), each over the rows unlabeled at its start."""
+    (``trace``), each over the rows unlabeled at its start.  Phase 3's
+    rows also read the size of each label they hold, each distinct label's
+    once a round (at most the labels that round starts with); ``design``:
+    the count the slice-16 design was held to, one size a slot like a label
+    (at most V)."""
     layout = args[0]
     v = layout.v
     maps = [(rows is not None, nb.shape[0], nb.shape[1])
             for rows, nb, _ in layout.maps]
     h, e = layout.spill[0].shape[0], layout.spill[2].shape[0]
 
-    def rows_pass(counts, heavy, entries, mask: bool, gathers: int = 1):
-        b = 0
+    def rows_pass(counts, heavy, entries, mask: bool, gathers: int = 1,
+                  sizes: int = 0):
+        b, slots = 0, entries
         for (slab, _, d), n in zip(maps, counts):
             b += n * (4 * d + (d if mask else 0) + (4 if slab else 0))
             b += gathers * 4 * min(n * d, v)
-        return b + 4 * heavy + 8 * entries + gathers * 4 * min(entries, v)
+            slots += n * d
+        b += 4 * heavy + 8 * entries + gathers * 4 * min(entries, v)
+        return b + 4 * min(slots, sizes)
 
     every = [r for _, r, _ in maps]
     trace = []
@@ -2652,7 +2713,12 @@ def _join_bytes(join_ref, name: str, args, kw) -> int:
     join_ref.phase3_fixed_point_ref(*args, **kw, trace=trace)
     nbytes = 10 * v                       # labels and marks, in and out
     for labels in trace:                  # the labels and the sizes
-        nbytes += rows_pass(*_rows_in(layout, labels < 0), True, 2)
+        listed = _rows_in(layout, labels < 0)
+        if design:
+            nbytes += rows_pass(*listed, True, 2)
+        else:
+            distinct = int(labels[labels >= 0].unique().numel())
+            nbytes += rows_pass(*listed, True, 1, distinct)
     return nbytes
 
 
@@ -2754,6 +2820,10 @@ def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
                     *a, **k),
                 None, _join_bytes(join_ref, name, args, kw), reps=20,
                 plain_reps=3)
+            if kernel == "phase3_fixed_point":
+                timing[kernel][f"{label} {key}".strip()] = _design_bound(
+                    timing[kernel][f"{label} {key}".strip()],
+                    _join_bytes(join_ref, name, args, kw, design=True), 0)
     out["timing"] = timing
     l100, e60 = graphs["Laplace3D_100"], graphs["Elasticity3D_60"]
     out["wall_ms"] = {
@@ -2770,6 +2840,103 @@ def _joins_one_dispatch(torch, np, rt, join_ops, join_ref, graphs, pl,
             ("Laplace3D_100 partition8", lambda: rt.partition(l100, 8)),
             ("Elasticity3D_60 partition8", lambda: rt.partition(e60, 8)))}
     return out
+
+
+def _redesigned_caps(torch, rt, ops, ref, join_ops, join_ref, id_bits,
+                     graphs, pl, launches, errs) -> dict:
+    """Phase 20: the main path's ``mis2`` and ``coarsen(two_phase)`` on
+    the paper graphs against the anchors (the phase's ``launches``); then
+    ``resident_fixed_point`` on both paper graphs (every row active) at
+    each cap of ``max_iters`` from 0 to one past the rounds it runs, and
+    ``phase3_fixed_point`` at the state a real two-phase coarsening of
+    Laplace3D_100, Elasticity3D_60 and Powerlaw_1M gives it at each cap of
+    its rounds (0 to one past the twin's, at most four): each held to its
+    twin capped the same (T bitwise with the rounds and live count; labels
+    and marks bitwise), then timed (CUDA events, L2 flushed, median of 10).
+    The gap between two caps is one round's cost, cap 0 the prologue's;
+    the twin's trace gives each round's live rows (phase 3: unlabeled rows
+    per map and heavy rows)."""
+    launches.reset()
+    for label in PAPER_GRAPHS:
+        g, a = graphs[label], ANCHORS[label]
+        r = rt.mis2(g)
+        agg = rt.coarsen(g, method="two_phase")
+        check((r.size, r.iterations, r.digest) == a["mis2"],
+              f"{label}: mis2 {r.digest}")
+        check((agg.num_aggregates, agg.iterations, agg.digest) ==
+              a["coarsen"], f"{label}: coarsen {agg.digest}")
+    out = {"launches": launches.read(), RESIDENT: {},
+           "phase3_fixed_point": {}}
+    for label in PAPER_GRAPHS:
+        ell = graphs[label].ell
+        v = ell.num_vertices
+        nb = ell.neighbors.reshape(-1)
+        every = torch.ones(v, dtype=torch.bool, device=nb.device)
+
+        def state():
+            return (torch.empty(v, dtype=torch.int32, device=nb.device),
+                    torch.empty(v, dtype=torch.int32, device=nb.device))
+
+        trace = []
+        ref.resident_fixed_point_ref(*state(), every, nb,
+                                     priority="xorshift_star", b=id_bits(v),
+                                     max_iters=128, trace=trace)
+        by_cap = {}
+        for cap in range(len(trace) + 2):
+            kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=cap)
+            tk, sk = ops.resident_fixed_point(*state(), every, nb, **kw)
+            tr, sr = ref.resident_fixed_point_ref(*state(), every, nb, **kw)
+            torch.cuda.synchronize()
+            got, want = sk.tolist(), sr.tolist()
+            errs[RESIDENT] = max(errs[RESIDENT], _max_abs_err_u32(tk, tr))
+            check(torch.equal(tk, tr) and got == want,
+                  f"{label} max_iters={cap}: {RESIDENT} {got} != twin {want}")
+            t, m = state()
+            by_cap[cap] = _event_ms(torch, lambda: ops.resident_fixed_point(
+                t, m, every, nb, **kw), 10)
+        out[RESIDENT][label] = _per_round(by_cap, {
+            "rounds": len(trace), "live_counts": [list(x) for x in trace]})
+    for label, g in (("Laplace3D_100", graphs["Laplace3D_100"]),
+                     ("Elasticity3D_60", graphs["Elasticity3D_60"]),
+                     ("Powerlaw_1M", pl)):
+        _, args, _ = next(c for c in _join_calls(rt, join_ops, g, "two_phase")
+                          if c[0] == "phase3_fixed_point")
+        layout = args[0]
+        trace = []
+        join_ref.phase3_fixed_point_ref(*args, trace=trace)
+        by_cap = {}
+        for cap in range(min(len(trace) + 1, join_ref.JOIN_ROUNDS) + 1):
+            got = join_ops._phase3_on_card(*args, rounds=cap)
+            every_round = join_ref.JOIN_ROUNDS
+            join_ref.JOIN_ROUNDS = cap
+            try:
+                want = join_ref.phase3_fixed_point_ref(*args)
+            finally:
+                join_ref.JOIN_ROUNDS = every_round
+            torch.cuda.synchronize()
+            errs["phase3_fixed_point"] = max(
+                errs["phase3_fixed_point"],
+                max(_max_abs_err(x, y) for x, y in zip(got, want)))
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{label} rounds={cap}: phase3_fixed_point != twin")
+            by_cap[cap] = _event_ms(torch, lambda: join_ops._phase3_on_card(
+                *args, rounds=cap), 10)
+        rows = [_rows_in(layout, lab < 0) for lab in trace]
+        out["phase3_fixed_point"][label] = _per_round(by_cap, {
+            "rounds": len(trace), "unlabeled_per_map": [x[0] for x in rows],
+            "unlabeled_heavy": [x[1] for x in rows],
+            "unlabeled_heavy_entries": [x[2] for x in rows]})
+    return out
+
+
+def _per_round(by_cap: dict, rec: dict) -> dict:
+    """``rec`` with each cap's ms, the prologue's (cap 0) and each round's
+    (the gap to the cap before) in µs."""
+    caps = sorted(by_cap)
+    return {**rec, "ms_by_cap": {str(c): by_cap[c] for c in caps},
+            "prologue_us": by_cap[caps[0]] * 1e3,
+            "round_us": [(by_cap[b] - by_cap[a]) * 1e3
+                         for a, b in zip(caps, caps[1:])]}
 
 
 # wall ms of five warm calls before the one-dispatch misk and batched loops
@@ -3059,10 +3226,11 @@ def _batched_misk_one_dispatch(torch, np, rt, ops, ref, misk_ops, misk_ref,
     batched(bucket, valid, 128, twin=True, trace=trace)
     nbytes, hashes = _resident_bytes(bucket.size * bucket.rows, bucket.width,
                                      trace)
-    timing[BATCHED] = {**_timed(
+    timing[BATCHED] = {**_design_bound(_timed(
         torch, lambda: batched(bucket, valid, 128),
         lambda: batched(bucket, valid, 128, twin=True), None, nbytes,
-        hashes=hashes, reps=20, plain_reps=3),
+        hashes=hashes, reps=20, plain_reps=3), *_resident_bytes_design(
+            bucket.size * bucket.rows, bucket.width, trace)),
         "shape": f"{bucket.size} x {bucket.rows} x {bucket.width}",
         "rounds": len(trace)}
     t_init, nbrs_flat, kw = seeds[0]
@@ -3071,12 +3239,13 @@ def _batched_misk_one_dispatch(torch, np, rt, ops, ref, misk_ops, misk_ref,
         t_init), nbrs_flat, trace=trace, **kw)
     nbytes, hashes = _resident_bytes(l100.num_vertices, l100.ell.width,
                                      trace)
-    timing[SEEDED] = {**_timed(
+    timing[SEEDED] = {**_design_bound(_timed(
         torch, lambda: ops.resident_fixed_point_seeded(
             t_init.clone(), torch.empty_like(t_init), nbrs_flat, **kw),
         lambda: ref.resident_fixed_point_seeded_ref(
             t_init.clone(), torch.empty_like(t_init), nbrs_flat, **kw),
         None, nbytes, hashes=hashes, reps=20, plain_reps=3),
+        *_resident_bytes_design(l100.num_vertices, l100.ell.width, trace)),
         "rounds": len(trace), "undecided_first": trace[0][1] if trace else 0}
     args = luby_args(bucket)
     trace = []

@@ -10,9 +10,10 @@ Engines, bit-identical results for equal options:
   device; each round is the two fused passes, then both worklists are
   compacted over themselves (sentinel ``V``).  On the card the whole fixed
   point is one cooperative launch (``kernels.minprop_ell.ops.
-  resident_fixed_point``) that reads nothing from the host until it ends,
-  as the reference's one jitted ``while_loop``; on the CPU its plain-torch
-  twin runs the rounds.
+  resident_fixed_point``: two grid syncs a round, each pass appending the
+  rows that stay live to its next list) that reads nothing from the host
+  until it ends, as the reference's one jitted ``while_loop``; on the CPU
+  its plain-torch twin runs the rounds.
 * ``cuda_hybrid`` — the same loop over the degree-aware hybrid layout
   (``core.mis2_hybrid``), for graphs whose padded ELL is too large.
 * ``compacted`` / ``cuda_compacted`` — the host-driven §V-B driver: each

@@ -1,7 +1,8 @@
 // Grids sized to the card, for the kernels that stride over their work:
 // at most the blocks of a kernel that fit on the card at once; and the
 // helpers the persistent kernels share (coherent state loads, a block sum,
-// a lane group's min and ballot bits, the lanes a row takes).
+// a warp's or a block's append to a list, a lane group's min and ballot
+// bits, the lanes a row takes).
 #pragma once
 
 #include <cstdint>
@@ -67,6 +68,48 @@ __device__ __forceinline__ uint32_t group_min(uint32_t x) {
     }
     return x;
   }
+}
+
+// row appended to `list` (its length at *count) where `keep`: one
+// atomicAdd a warp for its kept rows, which land side by side in lane
+// order; every lane of the warp calls it
+__device__ __forceinline__ void warp_append(bool keep, int32_t row,
+                                            int32_t* list, int32_t* count) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t bits = __ballot_sync(kFull, keep);
+  int32_t pos = 0;
+  if (lane == 0 && bits != 0u) pos = atomicAdd(count, __popc(bits));
+  pos = __shfl_sync(kFull, pos, 0);
+  if (keep) list[pos + __popc(bits & ((1u << lane) - 1u))] = row;
+}
+
+// row appended to `list` (its length at *count) where `keep`: one
+// atomicAdd a block for its kept rows, which land side by side in thread
+// order; every thread of the block calls it, `words` the block's shared
+// [kWarps + 1], free on entry and on return
+__device__ __forceinline__ void block_append(bool keep, int32_t row,
+                                             int32_t* list, int32_t* count,
+                                             int32_t* words) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t bits = __ballot_sync(kFull, keep);
+  if (lane == 0) words[warp] = __popc(bits);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int32_t c = words[w];
+      words[w] = total;
+      total += c;
+    }
+    words[kWarps] = total != 0 ? atomicAdd(count, total) : 0;
+  }
+  __syncthreads();
+  if (keep) {
+    list[words[kWarps] + words[warp] + __popc(bits & ((1u << lane) - 1u))] =
+        row;
+  }
+  __syncthreads();
 }
 
 // the ballot bits of group grp's lanes

@@ -36,33 +36,55 @@
 // The rounds (the cleanup, phase 3) read the labels at the round's start:
 // a round computes each listed row's new label into a slot of `fresh`, a
 // grid sync, then commits them and keeps the rows still unlabeled on the
-// next list (a warp reserves its slots with one atomicAdd; the order of a
-// list changes nothing, each row reading frozen labels and writing only its
-// own), counting them for the loop's exit, two grid syncs a round.  Only
+// next list (a warp reserves its slots with one atomicAdd, in phase 3 a
+// block; the order of a list changes nothing, each row reading frozen
+// labels and writing only its own), counting them for the loop's exit, two
+// grid syncs a round.  Only
 // the unlabeled rows are on a list: the reference evaluates every row and
 // keeps the labeled ones as they were.
 //
-// Phase 3.  The aggregate sizes are a [V + 1] histogram built once with
-// atomicAdd; a row joining a label adds 1 to it at the commit, which is the
-// reference's bincount of the next round's labels (integer adds are exact
-// in any order).  A slab row's coupling of slot j is the count of valid
-// slots holding j's label (valid: mask set, not the row itself, labeled),
-// found by comparing the group's labels pairwise through shuffles, O(D^2 /
-// G) a lane; the pick is the lexicographic minimum of (-coupling, size,
-// label), reduced over the group.  On distinct labels that order is strict
-// and equal labels carry equal coupling and size, so the pick does not
-// depend on slot order and equals the reference's slot-ordered scan (a row
-// joins only at coupling > 0, i.e. with a valid slot).  A heavy row (a hub
-// of up to 24,065 entries on Powerlaw_1M) is taken by one block: its valid
-// labels are counted in an open-addressing hash table in the row's own
-// span of [2 E] scratch (capacity twice the row's entries, so every insert
-// ends; linear probing, one atomicCAS a probe and an atomicAdd a hit), then
-// the block reduces the table's (count, size, label) to the same minimum:
-// exact for any input, O(entries) expected a row.
+// Phase 3.  The aggregate sizes are a [V + 1] histogram built once, a
+// warp's 32 labels at a time with one atomicAdd a distinct label
+// (__match_any_sync); a row joining a label adds 1 to it at the commit, a
+// warp's joins grouped the same way, which is the reference's bincount of
+// the next round's labels (integer adds are exact in any order).  A slab
+// row's coupling of slot j is the count of valid slots holding j's label
+// (valid: mask set, not the row itself, labeled).  Each lane loads its at
+// most kJoinLaneSlots slots' labels once into registers (the slice-16
+// design reloaded every slot's id, mask byte and label for each of the
+// lane's slots: ceil(D/G)^2 loads a lane, 121 at Elasticity3D_60's D = 81,
+// G = 8, against 11); then the group takes the row's distinct labels one a
+// turn, smallest first, and counts the slots holding each by one compare a
+// register and a group sum (comparing the slots pairwise through shuffles
+// instead, ceil(D/G)^2 * G compares a lane, spilled and took longer than the
+// reloads at D = 81).  The pick is the lexicographic minimum of (-coupling,
+// size, label); a label's size is gathered once, and only where its coupling
+// can still win.  On distinct labels that order is strict and equal labels
+// carry equal coupling and size, so the pick does not depend on slot order
+// and equals the reference's slot-ordered scan (a row joins only at
+// coupling > 0, i.e. with a valid slot).  A map whose lanes keep more slots
+// than that (D > 32 * kJoinLaneSlots) takes the slice-16 design's
+// reloading count.  A heavy row (a hub of up to 24,065 entries on
+// Powerlaw_1M) is taken by one block: its valid labels are counted in an
+// open-addressing hash table (capacity twice the row's entries, so every
+// insert ends; linear probing, one atomicCAS a probe and an atomicAdd a
+// hit), in the block's shared memory where that capacity is at most
+// kHeavySlots, else in the row's own span of [2 E] scratch; then the block
+// reduces the table's (count, size, label) to the same minimum: exact for
+// any input, O(entries) expected a row.  The rows a coarsening leaves to
+// phase 3 are mostly short: Powerlaw_1M's two-phase coarsening leaves 16
+// heavy rows of 1,200 entries in all (each table in shared memory) against
+// 397,750 slab rows.
 //
 // Bound: memory.  A listed row reads its list slot, its D ids and mask
 // bytes and the labels they point at (an L2 sector each at random ids) and
 // writes its label and phase byte; the root join reads every row once.
+// Phase 3 on an H100 80GB HBM3 at 700 W, at the state a two-phase
+// coarsening leaves (one round runs): 71.6 / 111.9 / 188.1 us on
+// Laplace3D_100 / Elasticity3D_60 / Powerlaw_1M against the slice-16
+// design's 130.8 / 479.2 / 802.6 us in the same call, of which the
+// prologue (the histogram, the lists) 30.1 / 21.6 / 57.2 us
+// (tools/bench_resident.py --kernels phase3 --caps, PERF.md section 6).
 
 #include <cstdint>
 
@@ -85,6 +107,9 @@ constexpr int kJoinMinBlocks = 4;    // blocks an SM must hold (register cap)
 constexpr int kMaxBlocks = 2048;
 
 constexpr int32_t kNone = 0x7FFFFFFF;   // INT32_MAX: no root label
+// phase 3: the slots of a heavy row's hash table held in shared memory
+// (twice the row's entries; a larger row's table is in global memory)
+constexpr uint32_t kHeavySlots = 2048;
 
 // One row map (see the header): a row of the wrapper's [S, 7] int64 table
 struct JoinMap {
@@ -219,14 +244,17 @@ int join_lanes(int d) { return row_lanes(d, kJoinLaneSlots); }
 // (null: rows 0..n-1), G lanes a row, 32 / G rows a warp step; every lane
 // of a warp makes the same calls (past n: row and vid -1), so f may
 // shuffle
-template <int G, typename F>
+template <int G, bool kByBlock = false, typename F>
 __device__ __forceinline__ void rows_loop(const MapView& m, const int32_t* wl,
                                           int64_t n, F&& f) {
   constexpr int kRows = 32 / G;
   const int grp = (threadIdx.x & 31) / G;
   const int64_t warp = global_tid() >> 5;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t base = warp * kRows; base < n; base += warps * kRows) {
+  // kByBlock: every warp of a block takes the same turns, so that f may
+  // sync the block (a turn past n holds no row)
+  const int64_t end = kByBlock ? n + (warp & (kWarps - 1)) * kRows : n;
+  for (int64_t base = warp * kRows; base < end; base += warps * kRows) {
     const int64_t slot = base + grp;
     int32_t row = -1;
     if (slot < n) {
@@ -282,18 +310,6 @@ __device__ __forceinline__ uint32_t row_min(const MapView& m, int32_t row,
     }
   }
   return group_reduce<G>(x, MinOp{});
-}
-
-// row appended to `list` (its length at *count) where `keep`; every lane
-// of the warp calls it
-__device__ __forceinline__ void warp_append(bool keep, int32_t row,
-                                            int32_t* list, int32_t* count) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t bits = __ballot_sync(kFull, keep);
-  int32_t pos = 0;
-  if (lane == 0 && bits != 0u) pos = atomicAdd(count, __popc(bits));
-  pos = __shfl_sync(kFull, pos, 0);
-  if (keep) list[pos + __popc(bits & ((1u << lane) - 1u))] = row;
 }
 
 // x's exclusive prefix over the block's threads; *tile gets the block's
@@ -712,12 +728,74 @@ __device__ __forceinline__ int32_t aggregate_size(const Join& r, int32_t l) {
   return state_load<kCoherent>(r.vert + (l < r.v ? l : r.v));
 }
 
-// phase 3 of a listed slab row: the group's lanes split its slots (slot j
-// to lane j mod G); each lane counts the valid slots holding the label of
-// each of its own, chunk by chunk of G slots through shuffles
+// 1 added to the size of label l (none where l < 0) for every lane of the
+// warp: one atomicAdd a distinct label; every lane of the warp calls it
+__device__ __forceinline__ void warp_count(const Join& r, int32_t l) {
+  const int32_t key = l < 0 ? -1 : l < r.v ? l : static_cast<int32_t>(r.v);
+  const uint32_t peers = __match_any_sync(kFull, key);
+  if (key >= 0 && static_cast<int>(threadIdx.x & 31) ==
+                      __ffs(static_cast<int>(peers)) - 1) {
+    atomicAdd(r.vert + key, __popc(peers));
+  }
+}
+
+// phase 3 of a listed row of a map whose lanes keep at most kJoinLaneSlots
+// slots of a row each (slot j to lane j mod G, turn j / G): each lane loads
+// its slots' labels once into registers (kUnlabeled where not valid); then
+// the group takes the row's distinct labels one a turn, smallest first
+// (the group's minimum), counts the slots holding it (its coupling: each
+// lane's matches, summed over the group) and clears them, so a row costs a
+// turn a distinct label, not a compare a pair of slots.  A label's size is
+// gathered once, and only where its coupling can still win.  The turns
+// run while any group of the warp has a label left (every lane shuffles).
+// The pick is the same on every lane of the group.
 template <int G>
 __device__ __forceinline__ Pick row_pick(const Join& r, const MapView& m,
                                          int32_t row, int32_t vid) {
+  constexpr int kT = kJoinLaneSlots;
+  constexpr uint32_t kUnlabeled = 0xFFFFFFFFu;   // above every label
+  const int sub = threadIdx.x & (G - 1);
+  const int64_t at = static_cast<int64_t>(row < 0 ? 0 : row) * m.d;
+  const int turns = (m.d + G - 1) / G;                   // warp-uniform
+  uint32_t lab[kT];
+#pragma unroll
+  for (int k = 0; k < kT; ++k) {
+    const int j = k * G + sub;
+    lab[k] = k < turns && vid >= 0 && j < m.d
+                 ? static_cast<uint32_t>(slot_label(r, m, at + j, vid))
+                 : kUnlabeled;                  // slot_label's -1 too
+  }
+  Pick best{0, kNone, kNone};
+  for (;;) {
+    uint32_t mine = kUnlabeled;
+#pragma unroll
+    for (int k = 0; k < kT; ++k) mine = lab[k] < mine ? lab[k] : mine;
+    const uint32_t label = group_min<G>(mine);
+    if (__ballot_sync(kFull, label != kUnlabeled) == 0u) break;
+    int32_t c = 0;
+#pragma unroll
+    for (int k = 0; k < kT; ++k) {
+      const bool same = lab[k] == label;
+      c += same ? 1 : 0;
+      lab[k] = same ? kUnlabeled : lab[k];
+    }
+    c = group_reduce<G>(c, AddOp{});
+    if (label != kUnlabeled && c >= best.c) {
+      const auto l = static_cast<int32_t>(label);
+      best = better_of({c, aggregate_size(r, l), l}, best);
+    }
+  }
+  return best;
+}
+
+// row_pick for a map whose lanes keep more than kJoinLaneSlots slots of a
+// row (D > 32 * kJoinLaneSlots: a padded ELL of a small graph with a hub):
+// each lane counts the valid slots holding the label of each of its own,
+// chunk by chunk of G slots through shuffles, loading the labels again
+template <int G>
+__device__ __forceinline__ Pick row_pick_wide(const Join& r,
+                                              const MapView& m, int32_t row,
+                                              int32_t vid) {
   const int sub = threadIdx.x & (G - 1);
   const int first = (threadIdx.x & 31) & ~(G - 1);
   const int64_t at = static_cast<int64_t>(row < 0 ? 0 : row) * m.d;
@@ -739,17 +817,26 @@ __device__ __forceinline__ Pick row_pick(const Join& r, const MapView& m,
   return group_pick<G>(best);
 }
 
+// a table slot's word: from the block's shared table as it is, from the
+// global one through L2
+__device__ __forceinline__ int32_t table_load(const int32_t* p, bool shared) {
+  return shared ? *p : state_load<kCoherent>(p);
+}
+
 // phase 3 of heavy row hh, by the whole block: its valid labels counted in
-// a hash table in the row's span of keys / cnts, then the pick reduced
-// over the table; the label picked, or -1 (on every thread)
+// a hash table, the block's shared `table` where twice the row's entries
+// fit in kHeavySlots, else the row's span of keys / cnts, then the pick
+// reduced over the table; the label picked, or -1 (on every thread)
 __device__ __forceinline__ int32_t heavy_pick(const Join& r, int32_t hh,
-                                              Pick* picks) {
+                                              Pick* picks, int32_t* table) {
   const int32_t start = state_load<kCoherent>(r.hoff + hh);
   const int32_t end = state_load<kCoherent>(r.hoff + hh + 1);
   const int32_t row = r.spill_rows[hh];
   const uint32_t cap = 2u * static_cast<uint32_t>(end - start);
-  int32_t* keys = r.keys + 2 * static_cast<int64_t>(start);
-  int32_t* cnts = r.cnts + 2 * static_cast<int64_t>(start);
+  const bool shared = cap <= kHeavySlots;
+  int32_t* keys = shared ? table : r.keys + 2 * static_cast<int64_t>(start);
+  int32_t* cnts = shared ? table + kHeavySlots
+                         : r.cnts + 2 * static_cast<int64_t>(start);
   for (uint32_t t = threadIdx.x; t < cap; t += kThreads) {
     keys[t] = -1;
     cnts[t] = 0;
@@ -773,10 +860,10 @@ __device__ __forceinline__ int32_t heavy_pick(const Join& r, int32_t hh,
   __syncthreads();
   Pick best{0, kNone, kNone};
   for (uint32_t t = threadIdx.x; t < cap; t += kThreads) {
-    const int32_t l = state_load<kCoherent>(keys + t);
+    const int32_t l = table_load(keys + t, shared);
     if (l >= 0) {
-      best = better_of(
-          {state_load<kCoherent>(cnts + t), aggregate_size(r, l), l}, best);
+      best = better_of({table_load(cnts + t, shared), aggregate_size(r, l), l},
+                       best);
     }
   }
   best = group_pick<32>(best);
@@ -789,8 +876,9 @@ __device__ __forceinline__ int32_t heavy_pick(const Join& r, int32_t hh,
 
 __global__ void __launch_bounds__(kThreads, kJoinMinBlocks)
 phase3_fixed_point_kernel(const __grid_constant__ Join r) {
-  __shared__ int32_t words[kWarps];
+  __shared__ int32_t words[kWarps + 1];
   __shared__ Pick picks[kWarps];
+  __shared__ int32_t table[2 * kHeavySlots];
   cg::grid_group grid = cg::this_grid();
   const int64_t tid = global_tid();
   const int64_t stride = global_stride();
@@ -812,19 +900,20 @@ phase3_fixed_point_kernel(const __grid_constant__ Join r) {
     for (int64_t k = lo; k <= hi; ++k) r.hoff[k] = static_cast<int32_t>(i);
   }
   grid.sync();
-  // the aggregate sizes, and the unlabeled rows listed
+  // the aggregate sizes, a warp's 32 rows at a time, and the unlabeled
+  // rows listed
   int32_t left = 0;
-  for (int64_t i = tid; i < r.v; i += stride) {
-    const int32_t l = r.labels_in[i];
-    if (l >= 0) atomicAdd(r.vert + (l < r.v ? l : r.v), 1);
+  for (int64_t i0 = tid - (threadIdx.x & 31); i0 < r.v; i0 += stride) {
+    const int64_t i = i0 + (threadIdx.x & 31);
+    warp_count(r, i < r.v ? r.labels_in[i] : -1);
   }
   for (int s = 0; s < r.num_maps; ++s) {
     const MapView m = map_view(r, s);
-    rows_loop<1>(m, nullptr, m.r,
-                 [&](auto, int64_t, int32_t row, int32_t vid) {
+    rows_loop<1, true>(m, nullptr, m.r,
+                       [&](auto, int64_t, int32_t row, int32_t vid) {
       const bool keep = vid >= 0 && r.labels_in[vid] < 0;
       left += keep ? 1 : 0;
-      warp_append(keep, row, map_list(r, m, 0), map_count(r, s, 0));
+      block_append(keep, row, map_list(r, m, 0), map_count(r, s, 0), words);
     });
   }
   for (int64_t h = tid; h < r.h; h += stride) {
@@ -850,7 +939,9 @@ phase3_fixed_point_kernel(const __grid_constant__ Join r) {
       for_rows(m, map_list(r, m, cur), n,
                [&](auto gg, int64_t slot, int32_t row, int32_t vid) {
         constexpr int G = decltype(gg)::value;
-        const Pick p = row_pick<G>(r, m, row, vid);
+        const Pick p = m.d <= G * kJoinLaneSlots
+                           ? row_pick<G>(r, m, row, vid)
+                           : row_pick_wide<G>(r, m, row, vid);
         if ((threadIdx.x & (G - 1)) == 0 && vid >= 0) {
           r.fresh[m.off + slot] = p.c > 0 ? p.l : -1;
         }
@@ -859,7 +950,7 @@ phase3_fixed_point_kernel(const __grid_constant__ Join r) {
     const int32_t nh = state_load<kCoherent>(r.ctl + 2 + cur);
     for (int32_t i = blockIdx.x; i < nh; i += gridDim.x) {   // block-uniform
       const int32_t l = heavy_pick(
-          r, state_load<kCoherent>(heavy_list(r, cur) + i), picks);
+          r, state_load<kCoherent>(heavy_list(r, cur) + i), picks, table);
       if (threadIdx.x == 0) r.fresh[r.sum_r + i] = l;
     }
     grid.sync();
@@ -868,21 +959,24 @@ phase3_fixed_point_kernel(const __grid_constant__ Join r) {
     for (int s = 0; s < r.num_maps; ++s) {
       const MapView m = map_view(r, s);
       const int64_t n = state_load<kCoherent>(map_count(r, s, cur));
-      rows_loop<1>(m, map_list(r, m, cur), n,
-                   [&](auto, int64_t slot, int32_t row, int32_t vid) {
+      rows_loop<1, true>(m, map_list(r, m, cur), n,
+                         [&](auto, int64_t slot, int32_t row, int32_t vid) {
         bool keep = false;
+        int32_t joined = -1;
         if (vid >= 0) {
           const int32_t l = state_load<kCoherent>(r.fresh + m.off + slot);
           if (l >= 0) {
             r.labels[vid] = l;
             r.phase[vid] = 3;
-            atomicAdd(r.vert + (l < r.v ? l : r.v), 1);
+            joined = l;
           } else {
             keep = true;
             ++left;
           }
         }
-        warp_append(keep, row, map_list(r, m, nxt), map_count(r, s, nxt));
+        warp_count(r, joined);
+        block_append(keep, row, map_list(r, m, nxt), map_count(r, s, nxt),
+                     words);
       });
     }
     for (int64_t i = tid; i < nh; i += stride) {

@@ -123,52 +123,72 @@
 // _resident_ell_fixed_point with use_pallas: the two fused Pallas passes a
 // round and compact_worklist on the device), which the port ran as ~35
 // launches and one blocking read of the live count a round.  It is one
-// cooperative launch of the blocks that fit on the card at once: every
-// round runs the wide rows' per-vertex hash pass, the fused refresh over
-// the M worklist, the fused decide over the undecided worklist and the
-// compaction of both lists, a grid sync between phases, until no row is
-// undecided or max_iters rounds ran; the round lives in a register, and
-// the host reads nothing until the solve ends (the rounds run and the last
-// live count go to a two-word output).  The passes are the bodies above,
-// instantiated with coherent loads (ld.global.cg) of the state other blocks
-// write inside the launch -- T, M, the scratch, the worklists and their
-// counts -- where the standalone kernels may take the read-only path; the
-// ELL ids and the mask keep it.  Every body strides over warps and returns
-// early nowhere, so every block reaches every grid sync.
+// cooperative launch of a grid sized to the work (a block for each 256
+// rows, at most the blocks that fit on the card at once): every round runs
+// the fused refresh over the M worklist and the fused decide over the
+// undecided worklist, a grid sync after each, until no row is undecided or
+// max_iters rounds ran; the round lives in a register, and the host reads
+// nothing until the solve ends (the rounds run and the last live count go
+// to a two-word output).  The passes are the bodies above, instantiated
+// with coherent loads (ld.global.cg) of the state other blocks write inside
+// the launch -- T, M, h, the worklists and their counts -- where the
+// standalone kernels may take the read-only path; the ELL ids and the mask
+// keep it.  Every body strides over warps and returns early nowhere, so
+// every block reaches every grid sync.
 //
-// The compaction needs no [V] scan.  A round's undecided rows are a subset
-// of its undecided worklist (a decided row stays decided), and its rows
-// with M != OUT a subset of its M worklist (refresh writes only those rows;
-// every other row's M was OUT already).  So each block filters a contiguous
-// chunk of the previous list, in order, and counts what it keeps; after a
-// grid sync each block sums the counts of the blocks before it and writes
-// its survivors from there, then the slots from the new count up to the old
-// list's take the sentinel V: the new list is compact_worklist's over [V],
-// slot for slot.  Two buffers a list, swapped each round.
+// The lists are built by the passes that decide what they hold, so no
+// pass of its own re-reads them.  A round's undecided rows are a subset of
+// its undecided worklist (a decided row stays decided), and its rows with
+// M != OUT a subset of its M worklist (refresh writes only those rows;
+// every other row's M was OUT already).  So the refresh appends each row
+// whose new M is not OUT to the next M list, and the decide each row it
+// leaves undecided to the next undecided list: a block reserves its
+// survivors' slots with one atomicAdd and writes them side by side
+// (grid.cuh's block_append; a warp's atomic each, 31,250 on one count a pass
+// over a million rows, cost more than the compaction passes they replaced),
+// every warp of a block taking the same turns.  The order of a list then
+// follows the atomics, which changes nothing: every row reads state the
+// last grid sync froze and writes only its own words.  Two buffers a list,
+// swapped each round; a list's count is zeroed in the phase before the one
+// that appends to it, after every block read it.  At wide rows the decide
+// also writes each of its rows' refreshed tuple for the next round into h
+// (its final T where it was decided; every other row's h holds its final T
+// already), so the next refresh reads h as the per-vertex pass's output,
+// with no pass over all V and no sync of its own.  The slice-17 design ran
+// that per-vertex pass and compacted both lists over themselves in two
+// passes of their own, five grid syncs a round at wide rows and four at
+// short ones.
 //
 // The same kernel runs two more fixed points of the reference in one launch
 // each.  resident_fixed_point_batched: a bucket of graphs as one
 // block-diagonal ELL (src/repro/batch/pipeline.py:60-65, the vmapped dense
 // fixed point): no row reaches another member's, so only the hash needs the
 // member (hash.cuh's Members: the local id and the member's bits), and each
-// member's round count is written by the slot that starts its run of the
-// ascending undecided list (a member that stops never goes on, so the last
-// value is its count).  resident_fixed_point_seeded: the streaming repair
+// member with a row on the round's undecided list takes the round + 1 as its
+// count, one atomicMax a warp's group of that member's rows
+// (__match_any_sync), as luby_fixed_point_batched counts its done rounds (a
+// member that stops never goes on, so the last value is its count).
+// resident_fixed_point_seeded: the streaming repair
 // (src/repro/core/mis2.py:192-236), from the T it is given, every row
 // active, the first undecided list T's undecided rows.  Both are bit for bit
 // the reference's dense rounds for the same reason the single-graph solve is:
 // a decided row stays decided and an M that is OUT stays OUT.
 //
-// Bound: memory, the bytes of the passes at the rounds run (chip_smoke.py
+// Bound: memory, the least bytes of the passes at the rounds run (each
+// input read once and each output written once a round; chip_smoke.py
 // counts them from the twin's live counts), against which a solve also pays
-// its grid syncs, four a round at short rows and five at wide ones.  One
-// instance per (G, C, priority) the width picks: G = 1 and the hash inline
-// below kHashOnceMinD, the group shape with chunks of kChunk and the
-// per-vertex pass (its kind read at run time) from there.  The register
-// cap is 4 blocks an SM for every instance: on an H100 a whole solve took
-// 0.416 ms on Laplace3D_100 and 1.321 ms on Elasticity3D_60 there, against
-// 0.677 / 1.610 ms at 8 blocks (32 registers: every instance spilled) and
-// 0.476 / 2.911 ms at 2 (tools/bench_resident.py).
+// two grid syncs a round and its prologue (state, the identity M list, the
+// first undecided list; two syncs).  One instance per (G, C, priority) the
+// width picks: G = 1 and the hash inline below kHashOnceMinD, the group
+// shape with chunks of kChunk and the refresh reading h (hashed with its
+// kind read at run time) from there.
+// The register cap is 4 blocks an SM for every instance.  On an H100 80GB
+// HBM3 at 700 W a whole solve took 0.311 ms on Laplace3D_100 and 0.850 ms
+// on Elasticity3D_60, against the slice-17 design's 0.449 / 1.335 and 0.439
+// / 1.567 at 8 blocks an SM (32 registers, every instance spilled), all in
+// one call (tools/bench_resident.py --caps --baseline: each round's cost,
+// the prologue's, PERF.md section 6); the least bytes bound them at 0.081 /
+// 0.452 ms.
 
 #include <cstdint>
 #include <type_traits>
@@ -326,26 +346,42 @@ __device__ __forceinline__ void load_ids(int32_t (&nb)[C],
 }
 
 // One round's refreshed tuple of every vertex: h[i] = T[i], or T[i]'s fresh
-// tuple where it is undecided (a bucket's member-local one where `mem` says)
-template <int Kind, bool kCoh>
-__device__ __forceinline__ void refreshed_tuples_body(
-    const uint32_t* __restrict__ t, uint32_t* __restrict__ h, uint32_t it,
-    int64_t v, int b, const Members& mem = Members{}) {
-  const RoundPriority<Kind> prio(it);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < v; i += stride) {
-    uint32_t x = state_load<kCoh>(t + i);
-    if (is_undecided(x)) x = tuple_of(prio, static_cast<uint32_t>(i), b, mem);
-    h[i] = x;
-  }
-}
-
+// tuple where it is undecided
 template <int Kind>
 __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
     const uint32_t* __restrict__ t, uint32_t* __restrict__ h,
     const uint32_t* __restrict__ it_ptr, int64_t v, int b) {
-  refreshed_tuples_body<Kind, kPlain>(t, h, *it_ptr, v, b);
+  const RoundPriority<Kind> prio(*it_ptr);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < v; i += stride) {
+    uint32_t x = t[i];
+    if (is_undecided(x)) x = prio.tuple(static_cast<uint32_t>(i), b);
+    h[i] = x;
+  }
+}
+
+// What a pass does with each row's new word beyond storing it: nothing in
+// the standalone kernels; the resident fixed point's sinks list the rows
+// that stay live for the next round (every lane of a warp calls it, row -1
+// for a slot without a row)
+struct NoSink {
+  static constexpr bool kByBlock = false;
+  __device__ __forceinline__ void operator()(int32_t, uint32_t) const {}
+};
+
+// the slot a warp's batch loop stops before: n itself, or for a sink that
+// appends a block at a time n plus the warp's lead over its block's first
+// warp, so that every warp of a block takes the same turns (a turn past n
+// holds no row)
+template <class Sink>
+__device__ __forceinline__ int64_t batch_end(int64_t n, int64_t warp,
+                                             int batch) {
+  if constexpr (Sink::kByBlock) {
+    return n + (warp & (kWarps - 1)) * batch;
+  } else {
+    return n;
+  }
 }
 
 // M at the vertex of every live worklist row: the min over the row's ids
@@ -355,13 +391,14 @@ __global__ void __launch_bounds__(kThreads) refreshed_tuples_kernel(
 // slots a batch: S = G (32 slots) in the padded ELL and a copy, S = 1 in a
 // slab.  `n`: the slots visited; `rows`: the adjacency's rows, or a copy's
 // live count; a copy's M goes to m[slot], OUT at a dead slot.
-template <int G, int S, int C, bool kOnce, int Kind, int Map, bool kCoh>
+template <int G, int S, int C, bool kOnce, int Kind, int Map, bool kCoh,
+          class Sink = NoSink>
 __device__ __forceinline__ void refresh_group_body(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ m,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ wl,
     int64_t n, uint32_t it, int64_t rows, int64_t w, int d, int b,
     const int32_t* __restrict__ slab_rows, int kind = Kind,
-    const Members& mem = Members{}) {
+    const Members& mem = Members{}, const Sink& sink = Sink{}) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
@@ -371,7 +408,8 @@ __device__ __forceinline__ void refresh_group_body(
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
+  const int64_t end = batch_end<Sink>(n, warp, kBatch);
+  for (int64_t base = warp * kBatch; base < end; base += warps * kBatch) {
     if constexpr (Map == kCopy) {
       if (base >= rows) {          // a batch of dead slots: OUT, no loads
         if (base + lane < w) m[base + lane] = kOut;
@@ -406,6 +444,7 @@ __device__ __forceinline__ void refresh_group_body(
       if (base + lane < w) m[base + lane] = res == kIn ? kOut : res;
     } else {
       if (row >= 0) m[vid] = res == kIn ? kOut : res;
+      sink(row, res == kIn ? kOut : res);
     }
   }
 }
@@ -431,14 +470,16 @@ refresh_group_kernel(
 // as refresh_group_body.  A copy takes each row's tuple from t_rows[slot]
 // as it is, and writes the result to t[slot]: the tuple itself at a dead
 // slot or a decided row.
-template <int G, int S, int C, bool kGated, int Map, bool kCoh>
+template <int G, int S, int C, bool kGated, int Map, bool kCoh,
+          class Sink = NoSink>
 __device__ __forceinline__ void decide_group_body(
     uint32_t* __restrict__ t, const uint32_t* __restrict__ m,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ nbrs,
     const int32_t* __restrict__ wl, int64_t n, uint32_t it, int64_t rows,
     int64_t w, int d, int b, int kind,
     const int32_t* __restrict__ slab_rows,
-    const uint32_t* __restrict__ t_rows, const Members& mem = Members{}) {
+    const uint32_t* __restrict__ t_rows, const Members& mem = Members{},
+    const Sink& sink = Sink{}) {
   constexpr int kBatch = S * (32 / G);
   const int lane = threadIdx.x & 31;
   const int sub = lane & (G - 1);
@@ -448,7 +489,8 @@ __device__ __forceinline__ void decide_group_body(
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t base = warp * kBatch; base < n; base += warps * kBatch) {
+  const int64_t end = batch_end<Sink>(n, warp, kBatch);
+  for (int64_t base = warp * kBatch; base < end; base += warps * kBatch) {
     if constexpr (Map == kCopy) {
       if (base >= rows) {          // a batch of dead slots keeps its tuples
         if (base + lane < w) t[base + lane] = t_rows[base + lane];
@@ -511,6 +553,7 @@ __device__ __forceinline__ void decide_group_body(
       if (base + lane < w) t[base + lane] = row >= 0 ? res : tv;
     } else {
       if (row >= 0) t[Map == kSlab ? vid : row] = res;
+      sink(row, res);
     }
   }
 }
@@ -634,17 +677,19 @@ void launch_fused_refresh(const uint32_t* t, uint32_t* m, uint32_t* h,
 // ---------------------------------------------------------------------------
 
 // blocks an SM must hold for the persistent kernel (a register cap over
-// both passes and the compaction, and the grid each sync waits for)
+// both passes and their sinks, and the grid each sync waits for)
 constexpr int kResidentMinBlocks = 4;
 constexpr int kUndecided = 0;  // the lists: undecided rows (wl1) ...
 constexpr int kLiveM = 1;      // ... and rows whose M is not OUT (wl2)
+// worklist slots a block's warps take in one batch each (B = 32 a warp in
+// the padded ELL), which sizes the grid to V
+constexpr int64_t kResidentRowsPerBlock = kWarps * 32;
 
 // The solve's buffers.  wl[l][k]: list l's buffer k, [V] int32 each;
-// counts[2 * l + k]: its live slots; block_counts[l * grid + block]: what
-// a block keeps of list l in a round's compaction; out: the rounds run
-// and the last live count of wl1.  A bucket of graphs (mem.bits set) also
-// writes its[j], the rounds in which member j had an undecided row; a
-// seeded solve starts from the T it is given instead of from `active`.
+// counts[2 * l + k]: its live slots; out: the rounds run and the last live
+// count of wl1.  A bucket of graphs (mem.bits set) also writes its[j], the
+// rounds in which member j had an undecided row; a seeded solve starts
+// from the T it is given instead of from `active`.
 struct Resident {
   uint32_t* t;
   uint32_t* m;
@@ -653,7 +698,6 @@ struct Resident {
   const int32_t* nbrs;
   int32_t* wl[2][2];
   int32_t* counts;
-  int32_t* block_counts;
   int32_t* out;
   int64_t v;
   int d;
@@ -673,109 +717,109 @@ __device__ __forceinline__ int32_t* list_buffer(const Resident& r, int k) {
   return k != 0 ? r.wl[L][1] : r.wl[L][0];
 }
 
-// what list L of the resident fixed point keeps of a previous list: the
-// undecided rows (kUndecided; of round 0's, `prev` null, the active rows,
-// or the undecided ones of a seeded T), or the rows whose M is not OUT
-// (kLiveM)
-template <int L>
-__device__ __forceinline__ auto resident_keep(const Resident& r,
-                                              const int32_t* prev) {
-  return [&r, prev](int32_t row) -> bool {
-    if constexpr (L == kUndecided) {
-      return prev != nullptr || r.seeded != 0
-                 ? is_undecided(state_load<kCoherent>(r.t + row))
-                 : r.active[row] != 0;
-    } else {
-      return state_load<kCoherent>(r.m + row) != kOut;
-    }
-  };
-}
+// The refresh's sink: each row whose new M is not OUT appended to the
+// next M list, a block's rows with one atomicAdd (a warp's each took one
+// atomic on the one count, 31,250 a pass over a million rows, which cost
+// more than the compaction they replaced)
+struct LiveMSink {
+  static constexpr bool kByBlock = true;
+  int32_t* list;
+  int32_t* count;
+  int32_t* words;
 
-template <int L>
-__device__ __forceinline__ void resident_count(const Resident& r,
-                                               const int32_t* prev, int64_t n,
-                                               int32_t* words) {
-  count_kept(prev, n, resident_keep<L>(r, prev),
-             r.block_counts + L * gridDim.x, words);
-}
-
-template <int L>
-__device__ __forceinline__ void resident_write(const Resident& r,
-                                               const int32_t* prev, int64_t n,
-                                               int k, int64_t stale,
-                                               int32_t* words) {
-  write_kept(prev, n, resident_keep<L>(r, prev),
-             r.block_counts + L * gridDim.x, list_buffer<L>(r, k),
-             r.counts + 2 * L + k, stale, static_cast<int32_t>(r.v), words);
-}
-
-// the per-vertex pass of a wide round, its kind read at run time
-__device__ __forceinline__ void refreshed_tuples_any(const Resident& r,
-                                                     uint32_t it) {
-  switch (r.kind) {
-    case kXorshift:
-      return refreshed_tuples_body<kXorshift, kCoherent>(r.t, r.h, it, r.v,
-                                                         r.b, r.mem);
-    case kFixed:
-      return refreshed_tuples_body<kFixed, kCoherent>(r.t, r.h, it, r.v, r.b,
-                                                      r.mem);
-    default:
-      return refreshed_tuples_body<kXorshiftStar, kCoherent>(r.t, r.h, it,
-                                                             r.v, r.b, r.mem);
+  __device__ __forceinline__ void operator()(int32_t row, uint32_t mv) const {
+    block_append(row >= 0 && mv != kOut, row, list, count, words);
   }
-}
+};
 
-// A bucket's round counts: each member with a row on the round's undecided
-// list wl1 (ascending, so a member's rows are one run of slots) takes
-// it + 1, written by the slot that starts its run -- one plain store a
-// live member a round.  A member stops for good (no row turns undecided
-// again), so the last value is the rounds it was live.
-__device__ __forceinline__ void member_rounds(const Resident& r,
-                                              const int32_t* wl1, int64_t n1,
-                                              uint32_t it) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n1; i += stride) {
-    const int32_t j = state_load<kCoherent>(wl1 + i) >> r.mem.shift;
-    if (i == 0 || (state_load<kCoherent>(wl1 + i - 1) >> r.mem.shift) != j) {
-      r.its[j] = static_cast<int32_t>(it + 1);
+// The decide's sink: each row still undecided appended to the next
+// undecided list; at wide rows (kOnce) h[row] <- the row's tuple of round
+// it + 1, or its final T where it was decided (every other row's h holds
+// its final T already, so h is the next round's refreshed T); in a bucket,
+// each member with a row here takes it + 1 as its rounds, one atomicMax a
+// member group of the warp (a member stops for good, so the last is its
+// count)
+template <bool kOnce>
+struct UndecidedSink {
+  static constexpr bool kByBlock = true;
+  int32_t* list;
+  int32_t* count;
+  int32_t* words;
+  uint32_t* h;
+  int32_t* its;
+  Members mem;
+  uint32_t it;
+  int kind;
+  int b;
+
+  __device__ __forceinline__ void operator()(int32_t row, uint32_t tv) const {
+    const bool keep = row >= 0 && is_undecided(tv);
+    block_append(keep, row, list, count, words);
+    if constexpr (kOnce) {
+      if (row >= 0) {
+        h[row] = keep ? fresh_of(kind, it + 1u, static_cast<uint32_t>(row),
+                                 b, mem)
+                      : tv;
+      }
+    }
+    if (its != nullptr) {
+      const int32_t j = row >= 0 ? row >> mem.shift : -1;
+      const uint32_t peers = __match_any_sync(kFull, j);
+      if (j >= 0 && static_cast<int>(threadIdx.x & 31) ==
+                        __ffs(static_cast<int>(peers)) - 1) {
+        atomicMax(its + j, static_cast<int32_t>(it + 1u));
+      }
     }
   }
-}
+};
 
 // The §V-B fixed point over padded ELL, from `active`: round 0's state is
 // T = 1 on the active rows and OUT elsewhere (or the seeded T as given),
 // M = OUT, wl1 the active rows (the seeded T's undecided ones) and wl2
-// every row.  Each round: (a) at wide rows (kOnce) the per-vertex pass
-// into h, (b) the fused refresh over wl2, (c) the fused decide over wl1
-// (and a bucket's round counts), (d) both lists compacted over
-// themselves; a grid sync after each.  A bucket of graphs is one
-// block-diagonal ELL: no row reaches another member's, so only the hash
-// needs the member (r.mem).
+// every row.  Each round: (a) the fused refresh over wl2, each row whose M
+// stays live appended to the next wl2 by its warp; (b) the fused decide over
+// wl1, each row still undecided appended to the next wl1 (at wide rows, the
+// next round's refreshed tuples into h; a bucket's round counts); a grid
+// sync after each.  A list's order changes nothing: every row reads state
+// frozen by the last sync and writes only its own words.  A list's count is
+// zeroed in the phase before the one that appends to it, after every block
+// read it.  A bucket of graphs is one block-diagonal ELL: no row reaches
+// another member's, so only the hash needs the member (r.mem).
 template <int G, int C, bool kOnce, int Kind>
 __global__ void __launch_bounds__(kThreads, kResidentMinBlocks)
 resident_fixed_point_kernel(const __grid_constant__ Resident r) {
-  __shared__ int32_t words[kWarps];
+  __shared__ int32_t words[kWarps + 1];
   cg::grid_group grid = cg::this_grid();
   const int64_t v = r.v;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
                       threadIdx.x;
+  if (tid == 0) {   // round 0's M list is every row; the rest fill later
+    for (int k = 0; k < 4; ++k) r.counts[k] = 0;
+    r.counts[2 * kLiveM] = static_cast<int32_t>(v);
+  }
   for (int64_t i = tid; i < v; i += stride) {
-    if (r.seeded == 0) r.t[i] = r.active[i] != 0 ? 1u : kOut;
+    const uint32_t t0 = r.seeded != 0 ? r.t[i] : r.active[i] != 0 ? 1u : kOut;
+    if (r.seeded == 0) r.t[i] = t0;
     r.m[i] = kOut;
     list_buffer<kLiveM>(r, 0)[i] = static_cast<int32_t>(i);
+    if constexpr (kOnce) {   // round 0's refreshed tuples
+      r.h[i] = is_undecided(t0)
+                   ? fresh_of(r.kind, 0u, static_cast<uint32_t>(i), r.b,
+                              r.mem)
+                   : t0;
+    }
   }
   for (int64_t j = tid; j < r.members; j += stride) r.its[j] = 0;
-  resident_count<kUndecided>(r, nullptr, v, words);
-  if (tid == 0) {
-    r.counts[2 * kLiveM] = static_cast<int32_t>(v);
-    // buffer 1 of each list holds nothing yet: every slot is stale
-    r.counts[2 * kUndecided + 1] = r.counts[2 * kLiveM + 1] =
-        static_cast<int32_t>(v);
-  }
   grid.sync();
-  resident_write<kUndecided>(r, nullptr, v, 0, v, words);
+  // round 0's undecided list, a block's kThreads rows at a time
+  for (int64_t i0 = tid - threadIdx.x; i0 < v; i0 += stride) {
+    const int64_t i = i0 + threadIdx.x;
+    bool keep = false;
+    if (i < v) keep = r.seeded != 0 ? is_undecided(r.t[i]) : r.active[i] != 0;
+    block_append(keep, static_cast<int32_t>(i), list_buffer<kUndecided>(r, 0),
+                 r.counts + 2 * kUndecided, words);
+  }
   grid.sync();
   int cur = 0;
   uint32_t it = 0;
@@ -785,30 +829,20 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
     const int64_t n2 = state_load<kCoherent>(r.counts + 2 * kLiveM + cur);
     if (n1 == 0 || it >= static_cast<uint32_t>(r.max_iters)) break;
     const int nxt = cur ^ 1;
-    const int32_t* wl1 = list_buffer<kUndecided>(r, cur);
-    const int32_t* wl2 = list_buffer<kLiveM>(r, cur);
-    if constexpr (kOnce) {
-      refreshed_tuples_any(r, it);
-      grid.sync();
-    }
+    if (tid == 0) r.counts[2 * kUndecided + nxt] = 0;   // (b) appends to it
     refresh_group_body<G, G, C, kOnce, Kind, kPadded, kCoherent>(
-        kOnce ? r.h : r.t, r.m, r.nbrs, wl2, n2, it, v, v, r.d, r.b,
-        nullptr, Kind, r.mem);
+        kOnce ? r.h : r.t, r.m, r.nbrs, list_buffer<kLiveM>(r, cur), n2, it,
+        v, v, r.d, r.b, nullptr, Kind, r.mem,
+        LiveMSink{list_buffer<kLiveM>(r, nxt), r.counts + 2 * kLiveM + nxt,
+                  words});
     grid.sync();
+    if (tid == 0) r.counts[2 * kLiveM + cur] = 0;       // next round's (a)
     decide_group_body<G, G, C, true, kPadded, kCoherent>(
-        r.t, r.m, r.active, r.nbrs, wl1, n1, it, v, v, r.d, r.b, r.kind,
-        nullptr, nullptr, r.mem);
-    if (r.its != nullptr) member_rounds(r, wl1, n1, it);
-    grid.sync();
-    // the slots each next buffer held live (written two rounds ago)
-    const int64_t stale1 =
-        state_load<kCoherent>(r.counts + 2 * kUndecided + nxt);
-    const int64_t stale2 = state_load<kCoherent>(r.counts + 2 * kLiveM + nxt);
-    resident_count<kUndecided>(r, wl1, n1, words);
-    resident_count<kLiveM>(r, wl2, n2, words);
-    grid.sync();
-    resident_write<kUndecided>(r, wl1, n1, nxt, stale1, words);
-    resident_write<kLiveM>(r, wl2, n2, nxt, stale2, words);
+        r.t, r.m, r.active, r.nbrs, list_buffer<kUndecided>(r, cur), n1, it,
+        v, v, r.d, r.b, r.kind, nullptr, nullptr, r.mem,
+        UndecidedSink<kOnce>{list_buffer<kUndecided>(r, nxt),
+                             r.counts + 2 * kUndecided + nxt, words, r.h,
+                             r.its, r.mem, it, r.kind, r.b});
     grid.sync();
     cur = nxt;
     ++it;
@@ -823,7 +857,8 @@ resident_fixed_point_kernel(const __grid_constant__ Resident r) {
 // takes: below kHashOnceMinD G = 1 (group_lanes) with the hash inline, C
 // from d and the kind a template; from there the group shape, whose lanes
 // then hold over half of kLaneSlots of a row (or all of it at G = 1), so
-// C = kChunk, and the per-vertex pass, which reads the kind at run time.
+// C = kChunk, and the refresh reading h, whose tuples the prologue and the
+// decide hash with the kind read at run time.
 // Returns false where that C is not the one chunk_slots picks.
 template <typename F>
 bool with_resident_shape(int d, int kind, F&& f) {
@@ -1275,16 +1310,19 @@ Resident resident_of(void* t, void* m, void* scratch, const void* active,
                   static_cast<uint32_t*>(scratch),
                   static_cast<const uint8_t*>(active),
                   static_cast<const int32_t*>(nbrs),
-                  {{w, w + v}, {w + 2 * v, w + 3 * v}}, x, x + 6, x + 4, v, d,
-                  b, kind, max_iters, Members{}, nullptr, 0, 0};
+                  {{w, w + v}, {w + 2 * v, w + 3 * v}}, x, x + 4, v, d, b,
+                  kind, max_iters, Members{}, nullptr, 0, 0};
 }
 
-// One cooperative launch of the instance width r.d takes
+// One cooperative launch of the instance width r.d takes, on a grid sized
+// to the work: a block for each kResidentRowsPerBlock rows, at most the
+// blocks that fit on the card at once
 int launch_resident(const Resident& r, int64_t aux_len, void* stream) {
   int dev = 0, coop = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (coop == 0) return static_cast<int>(cudaErrorNotSupported);
+  if (aux_len < 6) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t status = cudaSuccess;
   const bool shaped = with_resident_shape(r.d, r.kind, [&](auto gg, auto cc,
                                                            auto once, auto k) {
@@ -1292,11 +1330,7 @@ int launch_resident(const Resident& r, int64_t aux_len, void* stream) {
                                           decltype(cc)::value,
                                           decltype(once)::value != 0,
                                           decltype(k)::value>;
-    const int grid = resident_blocks(fn);
-    if (6 + 2 * static_cast<int64_t>(grid) > aux_len) {
-      status = cudaErrorInvalidValue;
-      return;
-    }
+    const int grid = r.v > 0 ? grid_for(fn, r.v, kResidentRowsPerBlock) : 1;
     Resident arg = r;
     void* args[] = {&arg};
     status = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
@@ -1397,8 +1431,8 @@ int sliced_decide(void* t, const void* m, const void* active,
 // The resident fixed point in one cooperative launch.  t, m, scratch: [V]
 // words (written; nothing in them is read before the kernel writes it);
 // active: [V] bytes; nbrs: [V * D] ids; wl: [4 * V] int32, the two lists'
-// two buffers; aux: aux_len int32 words, 4 counts, 2 outputs (the rounds
-// run, then the last live count of the undecided list) and 2 per block.
+// two buffers; aux: aux_len int32 words, at least 6: 4 counts and 2
+// outputs (the rounds run, then the last live count of the undecided list).
 // Returns cudaErrorNotSupported where the card has no cooperative launch,
 // cudaErrorInvalidValue where aux is short or the width has no instance,
 // and the launch's error (cudaErrorCooperativeLaunchTooLarge among them).

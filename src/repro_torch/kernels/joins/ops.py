@@ -241,11 +241,14 @@ def _phase2_on_card(layout: Layout, labels, phase, in_set2, nagg,
     return out_labels, out_phase, roots2, nagg_out
 
 
-def _phase3_on_card(layout: Layout, labels, phase, blocks: int = 0):
+def _phase3_on_card(layout: Layout, labels, phase, blocks: int = 0,
+                    rounds: int = JOIN_ROUNDS):
+    """One ``phase3_fixed_point`` launch of at most ``rounds`` rounds (the
+    wrapper's four; the tests and the timing tools cap it)."""
     dev = layout.spill[0].device
     head, scratch, sum_r = _frame(layout, dev, True)
     out_labels, out_phase = _outputs(layout.v, dev)
     _launch("phase3_fixed_point", dev, *head, labels.data_ptr(),
             phase.data_ptr(), out_labels.data_ptr(), out_phase.data_ptr(),
-            scratch.data_ptr(), layout.v, sum_r, JOIN_ROUNDS, blocks)
+            scratch.data_ptr(), layout.v, sum_r, rounds, blocks)
     return out_labels, out_phase

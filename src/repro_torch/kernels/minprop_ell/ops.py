@@ -69,8 +69,8 @@ _SIGNATURES = {
     "hybrid_slab_shape": (ctypes.c_int, ctypes.c_int64),
 }
 
-#: the most blocks a Hopper SM holds at once, which bounds the persistent
-#: kernels' grid and so the per-block counts of their compaction
+#: the most blocks a Hopper SM holds at once, which bounds the grid of the
+#: hybrid and misk persistent kernels and so their compaction's block counts
 MAX_BLOCKS_PER_SM = 32
 
 # ---------------------------------------------------------------------------
@@ -310,12 +310,12 @@ def _check_iters(max_iters: int) -> None:
 def _resident_on_card(name: str, t, m, active, nbrs_flat, *tail):
     """One launch of the resident kernel through the C entry ``name``:
     the scratch and the worklists allocated here, ``tail`` the entry's own
-    arguments after V and D.  Returns the ``aux`` words."""
+    arguments after V and D.  Returns the ``aux`` words (the lists' four
+    counts, then the rounds run and the last live count)."""
     v = t.shape[0]
     scratch = torch.empty_like(t)
     wl = torch.empty(4 * v, dtype=torch.int32, device=t.device)
-    aux = torch.empty(6 + 2 * MAX_BLOCKS_PER_SM * card_sms(t.device),
-                      dtype=torch.int32, device=t.device)
+    aux = torch.empty(6, dtype=torch.int32, device=t.device)
     _launch(name, t, t.data_ptr(), m.data_ptr(), scratch.data_ptr(),
             active.data_ptr(), nbrs_flat.data_ptr(), wl.data_ptr(),
             aux.data_ptr(), aux.shape[0], v, nbrs_flat.shape[0] // v, *tail)

@@ -24,7 +24,12 @@ slice-16 cases hold the coarsening's join kernels (``root_join``,
 ``phase2_join``, ``phase3_fixed_point``) against their twins on the states
 of a real coarsening and on seeded ones, over the padded ELL and the
 hybrid layout, one launch a call, no host sync inside one, and a
-cooperative grid that does not fit refused.
+cooperative grid that does not fit refused.  The slice-20 cases hold the
+redesigned persistent kernels against their twins at every cap of their
+loops: ``resident_fixed_point`` (a grid sized to V below and at the
+card's co-resident count), its batched form on buckets whose members stop
+at different rounds and its seeded form on a reseeded region, and
+``phase3_fixed_point`` at 0-4 rounds on a star whose hub is unlabeled.
 
 This file imports neither jax nor ``repro``, so that it runs on a machine
 with only torch:
@@ -1153,12 +1158,13 @@ def test_streaming_repair_on_the_card(cuda_device):
 # -- slice 16: the coarsening's joins, one launch each ---------------------
 
 def _join_layout(graph: str, layout: str, device):
-    if graph == "star60":
-        hub = np.zeros(60, dtype=np.int64)
-        tips = np.arange(1, 61)
+    if graph.startswith("star"):           # a hub and its n tips
+        n = int(graph[4:])
+        hub = np.zeros(n, dtype=np.int64)
+        tips = np.arange(1, n + 1)
         g = rt.Graph(rt.graphs.csr_from_coo(np.concatenate([hub, tips]),
-                                            np.concatenate([tips, hub]), 61),
-                     device=device)
+                                            np.concatenate([tips, hub]),
+                                            n + 1), device=device)
     else:
         g = rt.Graph(gen.powerlaw_graph(900, 8.0, seed=4) if graph ==
                      "powerlaw" else gen.laplace3d(12), device=device)
@@ -1402,3 +1408,133 @@ def test_batched_luby_kernel_matches_twin(cuda_device, max_rounds):
         assert launched == 1
         assert all(torch.equal(x, y) for x, y in zip(got, want)), \
             bucket.shape
+
+
+# -- slice 20: the redesigned persistent kernels at every cap of their loops
+
+def _resident_pair(nb, active, cap: int, device, **kw):
+    """The resident kernel and its twin at ``max_iters=cap``."""
+    v = active.shape[0]
+    kw = dict(priority="xorshift_star", b=id_bits(v), max_iters=cap) | kw
+
+    def state():
+        return (torch.empty(v, dtype=torch.int32, device=device),
+                torch.empty(v, dtype=torch.int32, device=device))
+
+    before = ops.LAUNCHES["resident_fixed_point"]
+    got = ops.resident_fixed_point(*state(), active, nb, **kw)
+    launched = ops.LAUNCHES["resident_fixed_point"] - before
+    want = ref.resident_fixed_point_ref(*state(), active, nb, **kw)
+    torch.cuda.synchronize()
+    return got, want, launched
+
+
+# laplace3d(64): V = 262,144 rows, a grid of every block that fits; the
+# others a grid of a few blocks, sized to V below what the card holds
+@pytest.mark.parametrize("name", ["laplace3d(12)", "elasticity3d(4)",
+                                  "laplace3d(64)"])
+@pytest.mark.parametrize("frac", [1.0, 0.5])
+def test_resident_kernel_matches_twin_at_every_cap(cuda_device, name, frac):
+    """The two-sync resident kernel against its twin at every cap from 0
+    to one past the rounds the uncapped solve runs: T bitwise, the rounds
+    and the last live count equal, one launch a call."""
+    g = gen.laplace3d(64) if name == "laplace3d(64)" else GRAPHS[name]()
+    ell = rt.Graph(g, device=cuda_device).ell
+    v = ell.num_vertices
+    nb = ell.neighbors.reshape(-1)
+    rng = np.random.default_rng(v)
+    active = torch.from_numpy(rng.random(v) < frac).to(cuda_device)
+    trace = []
+    ref.resident_fixed_point_ref(
+        torch.empty(v, dtype=torch.int32, device=cuda_device),
+        torch.empty(v, dtype=torch.int32, device=cuda_device), active, nb,
+        priority="xorshift_star", b=id_bits(v), max_iters=128, trace=trace)
+    for cap in range(len(trace) + 2):
+        (tk, sk), (tr, sr), launched = _resident_pair(nb, active, cap,
+                                                      cuda_device)
+        assert launched == 1
+        assert torch.equal(tk, tr) and sk.tolist() == sr.tolist(), cap
+        assert sk.tolist()[0] == min(cap, len(trace))
+
+
+def test_batched_resident_kernel_members_stop_apart(cuda_device):
+    """A bucket whose members stop at different rounds: the batched kernel
+    against its twin at every cap, each member's rounds equal (taken by an
+    atomicMax a member group of a warp, in no order of the list)."""
+    apart = 0
+    for bucket in _batch_on_card(cuda_device).buckets:
+        n = bucket.size * bucket.rows
+        args = (bucket.row_valid.view(-1), bucket.flat_neighbors32.view(-1))
+        kw = dict(priority="xorshift_star", bits=bucket.id_bits,
+                  rows=bucket.rows)
+
+        def state():
+            return (torch.empty(n, dtype=torch.int32, device=cuda_device),
+                    torch.empty(n, dtype=torch.int32, device=cuda_device))
+
+        _, stats, its = ref.resident_fixed_point_batched_ref(
+            *state(), *args, max_iters=128, **kw)
+        apart += len(set(its.tolist())) > 1
+        for cap in range(int(stats[0]) + 2):
+            got = ops.resident_fixed_point_batched(*state(), *args,
+                                                   max_iters=cap, **kw)
+            want = ref.resident_fixed_point_batched_ref(*state(), *args,
+                                                        max_iters=cap, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+                (bucket.shape, cap)
+    assert apart > 0
+
+
+def test_seeded_resident_kernel_at_every_cap(cuda_device):
+    """The seeded kernel against its twin at every cap on a reseeded
+    region of a frozen solution (the repair's state)."""
+    g = rt.Graph(GRAPHS["laplace3d(12)"](), device=cuda_device)
+    nb = g.ell.neighbors.reshape(-1)
+    v = g.num_vertices
+    kw = dict(priority="fixed", b=id_bits(v))
+    base, _ = ref.resident_fixed_point_seeded_ref(
+        torch.ones(v, dtype=torch.int32, device=cuda_device),
+        torch.empty(v, dtype=torch.int32, device=cuda_device), nb,
+        max_iters=128, **kw)
+    region = torch.from_numpy(np.random.default_rng(8).random(v) < 0.2)
+    seed = torch.where(region.to(cuda_device), 1, base).to(torch.int32)
+    _, stats = ref.resident_fixed_point_seeded_ref(
+        seed.clone(), torch.empty_like(seed), nb, max_iters=128, **kw)
+    for cap in range(int(stats[0]) + 2):
+        got = ops.resident_fixed_point_seeded(
+            seed.clone(), torch.empty_like(seed), nb, max_iters=cap, **kw)
+        want = ref.resident_fixed_point_seeded_ref(
+            seed.clone(), torch.empty_like(seed), nb, max_iters=cap, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), cap
+
+
+# star60's hub: a heavy row whose table fits in shared memory (ELL: its
+# row at D = 61, a lane's 16 slots in registers); star1500's: one whose
+# table is in global memory
+@pytest.mark.parametrize("star,layout", [("star60", "hybrid_spill16"),
+                                         ("star60", "ell"),
+                                         ("star1500", "hybrid_spill16")])
+@pytest.mark.parametrize("rounds", [0, 1, 2, 3, 4])
+def test_phase3_kernel_at_every_cap_with_an_unlabeled_hub(
+        cuda_device, monkeypatch, star, layout, rounds):
+    """Phase 3 at each cap of its rounds against its twin capped the same,
+    on a star whose hub (a heavy row of the hybrid layout) and a third of
+    whose tips are unlabeled: labels and marks bitwise."""
+    g, lay = _join_layout(star, layout, cuda_device)
+    v = lay.v
+    rng = np.random.default_rng(rounds)
+    labels = torch.from_numpy(np.where(rng.random(v) < 0.66,
+                                       rng.integers(0, 6, v), -1)
+                              .astype(np.int32))
+    labels[0] = -1
+    phase = torch.from_numpy(rng.integers(0, 3, v).astype(np.uint8))
+    labels, phase = labels.to(cuda_device), phase.to(cuda_device)
+    got = join_ops._phase3_on_card(lay, labels, phase, rounds=rounds)
+    monkeypatch.setattr(join_ref, "JOIN_ROUNDS", rounds)
+    want = join_ref.phase3_fixed_point_ref(lay, labels, phase)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    if rounds:
+        assert int(got[0][0]) >= 0      # the hub joined in round 1

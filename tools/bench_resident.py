@@ -28,6 +28,27 @@ launches a turn.  A variant's slab shapes and lane counts are the default
 build's (its table is built once).  Prints one JSON line per build (the
 persistent kernels' registers and spills, from ``ptxas``) and per kernel
 and graph, and the card's ``nvidia-smi`` name and power limit.
+
+    python3 tools/bench_resident.py --kernels resident phase3 --caps \\
+        [--baseline build/parent] --graphs Laplace3D_100 Elasticity3D_60
+
+``--caps [N ...]`` times each kernel at each cap of its loop instead:
+``resident``'s ``max_iters`` (every build at each cap held bitwise to the
+default build at that cap) and phase 3's ``rounds``; ``--caps`` alone
+sweeps 0 up to the rounds the uncapped call runs, and one past.  The gap
+between two caps is one round's cost, cap 0 the prologue's.  Each cap's
+line also carries the twin's trace: the resident solve's live counts a
+round (M list, undecided list), and phase 3's unlabeled rows a round per
+map and heavy rows.  ``--kernels phase3`` times phase 3 through the port's
+own library, with no build of its own: on one H100 every process of
+``--kernels joins`` stopped with SIGFPE at its first join launch, the
+parent's tree too, so phase 3's parent and change are timed by running
+each tree's copy of this tool in turns.
+``--baseline DIR`` adds a build of another copy of the kernel sources
+(``DIR/src/repro_torch/kernels/csrc``, or ``DIR`` itself where it holds the
+``.cu`` files), such as the parent commit's ``git archive`` unpacked under
+the gitignored ``build/``; it is timed in the same turns as the default
+build, through the same C entry points.
 """
 from __future__ import annotations
 
@@ -46,7 +67,7 @@ GRAPHS = {"Laplace3D_100": ("laplace3d", (100,), {}),
           "Elasticity3D_60": ("elasticity3d", (60,), {}),
           "Powerlaw_1M": ("powerlaw_graph", (1_000_000, 8.0),
                           {"exponent": 2.5, "seed": 42})}
-KERNELS = ("resident", "hybrid", "luby", "joins")
+KERNELS = ("resident", "hybrid", "luby", "joins", "phase3")
 PERSISTENT = ("resident_fixed_point_kernel", "hybrid_fixed_point_kernel",
               "luby_fixed_point_kernel", "root_join_kernel",
               "phase2_join_kernel", "phase3_fixed_point_kernel")
@@ -110,7 +131,7 @@ def _graph(rt, label: str):
     return rt.Graph(getattr(rt.graphs, fn)(*args, **kw), device="cuda")
 
 
-def _resident_runner(torch, g, lib):
+def _resident_runner(torch, g, lib, max_iters: int = 128):
     from repro_torch.core.hashing import PRIORITY_CODES
     from repro_torch.core.tuples import id_bits
     from repro_torch.kernels.minprop_ell import ops
@@ -133,7 +154,7 @@ def _resident_runner(torch, g, lib):
         status = fn(x["t"].data_ptr(), x["m"].data_ptr(), x["h"].data_ptr(),
                     active.data_ptr(), nbrs.data_ptr(), x["wl"].data_ptr(),
                     x["aux"].data_ptr(), x["aux"].shape[0], v, d, id_bits(v),
-                    PRIORITY_CODES["xorshift_star"], 128,
+                    PRIORITY_CODES["xorshift_star"], max_iters,
                     torch.cuda.current_stream().cuda_stream)
         if status != 0:
             raise SystemExit(f"resident_fixed_point: CUDA error {status}")
@@ -261,6 +282,63 @@ def _bench_joins(torch, label: str, g, libs: dict, reps: int) -> list:
     return out
 
 
+def _phase3_trace(layout, labels, phase) -> dict:
+    """The twin's rounds of phase 3 from this state: each round's
+    unlabeled rows per map, and its unlabeled heavy rows and their
+    entries."""
+    from repro_torch.kernels.joins import ref as jref
+    from chip_smoke import _rows_in
+
+    trace = []
+    jref.phase3_fixed_point_ref(layout, labels, phase, trace=trace)
+    rows = [_rows_in(layout, lab < 0) for lab in trace]
+    return {"rounds": len(trace),
+            "unlabeled_per_map": [r[0] for r in rows],
+            "unlabeled_heavy": [r[1] for r in rows],
+            "unlabeled_heavy_entries": [r[2] for r in rows]}
+
+
+def _phase3_own(torch, label: str, g, reps: int, caps) -> list:
+    """Phase 3 (``--kernels phase3``) at each cap through the port's own
+    library, at the state a real two-phase coarsening gives it: no second
+    build of ``joins.cu`` in the process (on one H100 a process that loaded
+    one beside the port's stopped with SIGFPE at its first join launch, in
+    the parent's tree too), so two trees are compared by running each
+    tree's copy of this tool in turns.  Each line carries a checksum of the
+    labels and marks for the trees to be held equal."""
+    import repro_torch as rt
+    from repro_torch.kernels.joins import ops as jops
+    from repro_torch.kernels.joins import ref as jref
+
+    _, args, _ = next(c for c in _join_calls(rt, jops, g, "two_phase")
+                      if c[0] == "phase3_fixed_point")
+    trace = _phase3_trace(*args)
+    out = []
+    for cap in cap_list(caps, trace["rounds"], jref.JOIN_ROUNDS) \
+            if caps is not None else [jref.JOIN_ROUNDS]:
+        def run(cap=cap):
+            return jops._phase3_on_card(*args, rounds=cap)
+
+        labels, phase = run()
+        _event_ms(torch, run, 3)                               # warm-up
+        out.append({"kernel": "phase3_fixed_point", "graph": label,
+                    "cap": cap, "ms": _event_ms(torch, run, reps),
+                    "checksum": [int(labels.long().sum()),
+                                 int((labels.long() * 7 + phase.long())
+                                     .remainder(1_000_003).sum())],
+                    "trace": trace})
+    return out
+
+
+def cap_list(caps, rounds: int, most: int | None = None) -> list:
+    """The caps to time: ``caps`` as given, or (empty) 0 up to ``rounds``
+    and one past, at most ``most`` (the loop's own limit)."""
+    if caps:
+        return sorted(set(caps))
+    top = rounds + 1 if most is None else min(rounds + 1, most)
+    return list(range(top + 1))
+
+
 def _timed_builds(torch, runs: dict, default: str, reps: int) -> dict:
     """Every build held bitwise to ``default`` and timed in turns."""
     results = {name: [x.clone() for x in run()] for name, run in runs.items()}
@@ -274,7 +352,8 @@ def _timed_builds(torch, runs: dict, default: str, reps: int) -> dict:
     for name in order:
         _event_ms(torch, runs[name], 3)                       # warm-up
         times[name].append(_event_ms(torch, runs[name], reps))
-    return {"bitwise": bitwise, "ms": times}
+    return {"bitwise": bitwise, "ms": times,
+            "median_ms": {n: sorted(x)[len(x) // 2] for n, x in times.items()}}
 
 
 def _bench(torch, kernel: str, label: str, g, libs: dict, reps: int) -> dict:
@@ -294,9 +373,69 @@ def _bench(torch, kernel: str, label: str, g, libs: dict, reps: int) -> dict:
             **_timed_builds(torch, runs, f"{source}:default", reps)}
 
 
-def main() -> int:
-    import torch
+def _resident_caps(torch, label: str, g, libs: dict, reps: int,
+                   caps) -> list:
+    """The resident solve at each cap of its rounds, every build, with
+    the twin's live counts a round."""
+    from repro_torch.core.tuples import id_bits
+    from repro_torch.kernels.minprop_ell import ref
 
+    ell = g.ell
+    v = ell.num_vertices
+    trace = []
+    ref.resident_fixed_point_ref(
+        torch.empty(v, dtype=torch.int32, device="cuda"),
+        torch.empty(v, dtype=torch.int32, device="cuda"),
+        torch.ones(v, dtype=torch.bool, device="cuda"),
+        ell.neighbors.reshape(-1), priority="xorshift_star", b=id_bits(v),
+        max_iters=128, trace=trace)
+    out = []
+    for cap in cap_list(caps, len(trace)):
+        runs = {name: _resident_runner(torch, g, lib, cap)
+                for name, (src, lib) in libs.items() if src == "minprop_ell"}
+        out.append(_timed_builds(torch, runs, "minprop_ell:default", reps) | {
+            "kernel": "resident", "graph": label, "cap": cap,
+            "rounds": len(trace), "live_counts": [list(x) for x in trace]})
+    return out
+
+
+def baseline_csrc(path) -> Path:
+    """The kernel sources of a baseline tree: ``path/src/repro_torch/
+    kernels/csrc`` where the tree has one, else ``path`` itself; it must
+    hold ``minprop_ell.cu``."""
+    path = Path(path)
+    tree = path / "src" / "repro_torch" / "kernels" / "csrc"
+    csrc = tree if tree.is_dir() else path
+    if not (csrc / "minprop_ell.cu").is_file():
+        raise SystemExit(f"--baseline {path}: no minprop_ell.cu in {csrc}")
+    return csrc
+
+
+def default_sources(kernels, baseline=None) -> dict:
+    """Build name -> (source stem, path) of each selected kernel's source
+    as it stands and, with ``baseline``, of the baseline's copy."""
+    trees = [("default", bench_minprop.CSRC)]
+    if baseline is not None:
+        trees.append(("baseline", baseline_csrc(baseline)))
+    sources = {}
+    for tag, csrc in trees:
+        if {"resident", "hybrid"} & set(kernels):
+            sources[f"minprop_ell:{tag}"] = ("minprop_ell",
+                                             csrc / "minprop_ell.cu")
+        if "luby" in kernels:
+            sources[f"luby:{tag}"] = ("luby", csrc / "luby.cu")
+        if "joins" in kernels:
+            # the default a copy, as the variants are: a library built from
+            # csrc/joins.cu itself, loaded beside the one the states'
+            # coarsening loads from the same file, stopped the process at
+            # its first launch (SIGFPE)
+            sources[f"joins:{tag}"] = ("joins", csrc / "joins.cu") \
+                if tag == "baseline" else ("joins", bench_minprop._edited(
+                    "joins_default", csrc / "joins.cu", []))
+    return sources
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="*", default=["resident"],
                     choices=KERNELS)
@@ -306,24 +445,33 @@ def main() -> int:
                     default=["Laplace3D_100", "Elasticity3D_60"],
                     choices=list(GRAPHS))
     ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
+    ap.add_argument("--caps", nargs="*", type=int, default=None,
+                    help="time at each cap of the loop (none given: 0 up "
+                         "to the rounds run, and one past)")
+    ap.add_argument("--baseline", default=None,
+                    help="a tree (or csrc directory) whose kernel sources "
+                         "are built and timed beside these")
+    args = ap.parse_args(argv)
+    if args.caps is not None:
+        if any(c < 0 for c in args.caps):
+            ap.error("--caps must be >= 0")
+        if not {"resident", "phase3"} & set(args.kernels):
+            ap.error("--caps times the resident kernel and phase 3: select "
+                     "--kernels resident or phase3")
+    return args
+
+
+def main(argv=None) -> int:
+    import torch
+
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_resident: no CUDA device", file=sys.stderr)
         return 1
     bench_minprop.OUT = OUT
     OUT.mkdir(parents=True, exist_ok=True)
-    sources = {}
-    if {"resident", "hybrid"} & set(args.kernels):
-        sources["minprop_ell:default"] = ("minprop_ell", bench_minprop.SRC)
-    if "luby" in args.kernels:
-        sources["luby:default"] = ("luby", bench_minprop.CSRC / "luby.cu")
-    if "joins" in args.kernels:
-        # a copy, as the variants are: a library built from csrc/joins.cu
-        # itself, loaded beside the one the states' coarsening loads from the
-        # same file, stopped the process at its first launch (SIGFPE)
-        sources["joins:default"] = ("joins", bench_minprop._edited(
-            "joins_default", bench_minprop.CSRC / "joins.cu", []))
-    defaults = list(sources.values())
+    sources = default_sources(args.kernels, args.baseline)
+    defaults = [s for n, s in sources.items() if n.endswith(":default")]
     for spec in args.variant:
         consts = spec.partition("=")[2]
         names = [c.partition("=")[0] for c in consts.split(",") if consts]
@@ -357,6 +505,17 @@ def main() -> int:
             if kernel == "joins":
                 for line in _bench_joins(torch, label, g, libs, args.reps):
                     print(json.dumps(line), flush=True)
+                continue
+            if kernel == "phase3":
+                for line in _phase3_own(torch, label, g, args.reps,
+                                        args.caps):
+                    print(json.dumps(line), flush=True)
+                continue
+            if args.caps is not None:
+                if kernel == "resident":
+                    for line in _resident_caps(torch, label, g, libs,
+                                               args.reps, args.caps):
+                        print(json.dumps(line), flush=True)
                 continue
             print(json.dumps(_bench(torch, kernel, label, g, libs,
                                     args.reps)), flush=True)
